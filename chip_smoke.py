@@ -9,16 +9,23 @@ Phases:
      print ptxas' registers and shared memory per kernel;
   3. at the default widths (T=1024, W=9, KR=4096), each kernel against its
      plain PyTorch version on the card, on inputs taken from a Resolver's
-     own history: ring_hits in point (Q=4096) and range (Q=2048) mode,
-     fused_accept on a Zipfian mixed batch and on a high-conflict batch;
-     kernel and plain times by CUDA events;
+     own history, with the ring 40% full and after it has wrapped:
+     ring_hits in point (Q=4096) and range (Q=2048) mode, fused_accept on
+     a Zipfian mixed batch and on a high-conflict batch; kernel and plain
+     times (``ms``, ``plain_ms``) by CUDA events around back-to-back
+     calls, which include the host's cost of each call;
   4. the main path: Resolver() with default knobs (accept kernel on)
      through resolve (12 batches) and two resolve_many backlogs (depth
      12) on YCSB-A, range-heavy and mixed streams of 1024-txn batches;
      launch counts are zeroed just before and read just after;
   5. the ring-kernel path: the mixed stream again with accept_kernel="off",
      ring_kernel="on", counted the same way;
-  6. the first batches of each stream replayed on Resolver(device="cpu"):
+  6. each phase-3 call's device time by torch.profiler: by kernel
+     (``parts_ms``), in all (``device_ms``), and the plain version's
+     (``plain_device_ms``); after the timed drives of 4 and 5 (which also
+     profile only after their drives), so the main path's drives run
+     before any profiler session;
+  7. the first batches of each stream replayed on Resolver(device="cpu"):
      statuses and all 12 state fields must be equal.
 
 Any failure raises and the script exits non-zero; without a card it exits
@@ -52,7 +59,9 @@ def log(*a):
 
 
 def cuda_ms(fn, reps):
-    """Mean device milliseconds per call, warmed, by CUDA events."""
+    """Mean milliseconds per call, warmed, by CUDA events around calls
+    launched back to back: for a chain of torch ops this includes the
+    gaps the host leaves between them."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -171,9 +180,10 @@ def phase_build():
 def dynamic_smem(p):
     """Bytes of dynamic shared memory each kernel's launch asks for (the
     sizes fdb_ring_hits and fdb_fused_accept pass; ptxas reports only
-    static shared memory, which is 0 for all of them)."""
+    static shared memory: 16 bytes of warp words in each ring walk, 0
+    elsewhere)."""
     W, T = p.key_width, p.txns
-    ring_walk = 4 * 512 * (2 * W + 2)  # lex.cuh ring_walk_smem_bytes
+    ring_walk = 4 * 32 * (2 * W + 2)  # lex.cuh ring_walk_smem_bytes
     pairs = 4 * (32 * (p.point_reads * (W + 2) + p.range_reads * (2 * W + 1))
                  + 8 * (p.point_writes * (W + 2)
                         + p.range_writes * (2 * W + 1)))
@@ -182,98 +192,176 @@ def dynamic_smem(p):
             "accept_sweep_kernel": 4 * T * ((T + 31) // 32)}
 
 
+FULL_RING_BATCHES = 24  # mixed batches after which the 4096-entry ring has wrapped
+
+
 def kernel_inputs():
-    """A Resolver's history after a few Zipfian mixed batches, the next
-    mixed batch, and a high-conflict batch at the same versions (the
-    same mix over 64 hot keys), on the Resolver's device. Read versions
-    lag up to 5000 versions (about five batches), so the ring holds
-    entries newer than them and the ring lanes really hit."""
+    """Two histories of a Resolver driven by Zipfian mixed batches, each
+    with the next mixed batch and a high-conflict batch at the same
+    versions (the same mix over 64 hot keys), on the Resolver's device:
+    after 8 batches (the ring 40% full) and after FULL_RING_BATCHES (the
+    ring has wrapped and every slot is live, as in a resolver's steady
+    state). Read versions lag up to 5000 versions (about five batches),
+    so the ring holds entries newer than them and the ring lanes really
+    hit. Returns the params and [(label, state, mixed, high-conflict)]."""
     from foundationdb_tpu_torch import workloads
     from foundationdb_tpu_torch.convert import batch_from_numpy
     from foundationdb_tpu_torch.resolver.resolver import Resolver
 
     r = Resolver()
-    stream = workloads.mixed(9, seed=SEED + 1, lag=5000)
-    for txns, cv, ws in stream[:8]:
-        r.resolve(txns, cv, ws)
+    n = FULL_RING_BATCHES + 1
+    stream = workloads.mixed(n, seed=SEED + 1, lag=5000)
+    hot = workloads.mixed(n, seed=SEED + 2, nkeys=64, lag=5000)
 
     def packed(b):
         return batch_from_numpy(r.packer.pack(b[0], r.base_version, *b[1:]),
                                 r.device)
 
-    hot = workloads.mixed(9, seed=SEED + 2, nkeys=64, lag=5000)[8]
-    state = type(r.state)(*(f.clone() for f in r.state))
-    return r.params, state, packed(stream[8]), packed(hot)
+    histories = []
+    for i, (txns, cv, ws) in enumerate(stream[:-1]):
+        r.resolve(txns, cv, ws)
+        if i + 1 in (8, FULL_RING_BATCHES):
+            state = type(r.state)(*(f.clone() for f in r.state))
+            label = "" if i + 1 == 8 else ", full ring"
+            histories.append((label, state, packed(stream[i + 1]),
+                              packed(hot[i + 1])))
+    return r.params, histories
 
 
-def phase_kernels():
+def kernel_cases():
+    """Each case of phase 3: a dict with the kernel's name, the case's
+    label, ``fn`` (the wrapper's call), ``plain`` (its plain version's
+    call) and ``cost`` (a call giving the bound's bytes and ops)."""
     from foundationdb_tpu_torch.ops.accept import fused_accept, fused_accept_plain
     from foundationdb_tpu_torch.ops.ring import ring_hits, ring_hits_plain
 
-    params, state, zipf, high = kernel_inputs()
+    params, histories = kernel_inputs()
     T, W = params.txns, params.key_width
-    ring = (state.ring_b, state.ring_e, state.ring_v, state.ring_mask)
-    log(f"[inputs] T={T} W={W} KR={state.ring_v.shape[0]} live ring entries="
-        f"{int(state.ring_mask.sum())}")
+    cases = []
+    for suffix, state, zipf, high in histories:
+        ring = (state.ring_b, state.ring_e, state.ring_v, state.ring_mask)
+        log(f"[inputs{suffix}] T={T} W={W} KR={state.ring_v.shape[0]} live "
+            f"ring entries={int(state.ring_mask.sum())}")
+        for mode, lo, hi, mask in (
+                ("point", zipf.pr_key, zipf.pr_key, zipf.pr_mask),
+                ("range", zipf.rr_b, zipf.rr_e, zipf.rr_mask)):
+            S = lo.shape[1]
+            args = (lo.reshape(T * S, W), hi.reshape(T * S, W),
+                    zipf.rv[:, None].expand(T, S).reshape(-1).contiguous(),
+                    *ring)
+            point = mode == "point"
+
+            def cost(args=args, point=point, ring=ring):
+                active = torch.ones_like(args[2], dtype=torch.bool)
+                ops = ring_ops(*args[:3], active, *ring, point=point)
+                # point mode reads the key once (qhi is qlo and unread)
+                reads = args[:1] + args[2:] if point else args
+                return io_bytes(*reads) + args[0].shape[0], ops  # + hit bits
+
+            cases.append(dict(
+                kernel="ring_hits", case=f"{mode} Q={T * S}{suffix}",
+                fn=lambda a=args, p=point: ring_hits(*a, point_mode=p),
+                plain=lambda a=args, p=point: ring_hits_plain(*a, point_mode=p),
+                plain_reps=5, cost=cost))
+        for label, b in (("zipfian mixed", zipf), ("high-conflict", high)):
+            a0 = b.txn_mask & ~(b.rv < state.window_start)
+
+            def cost(state=state, b=b, a0=a0):
+                # the tensors fdb_fused_accept reads, and the accepted bits
+                nb = io_bytes(a0, b.rv, b.pw_hash, b.pw_mask, b.pw_key,
+                              b.pr_hash, b.pr_mask, b.pr_key, b.rr_b, b.rr_e,
+                              b.rr_mask, b.rw_b, b.rw_e, b.rw_mask,
+                              state.ring_b, state.ring_e, state.ring_v,
+                              state.ring_mask)
+                return nb + T, accept_ops(state, b, T)
+
+            cases.append(dict(
+                kernel="fused_accept", case=label + suffix,
+                fn=lambda s=state, b=b, a=a0: fused_accept(s, b, params, a),
+                plain=lambda s=state, b=b, a=a0: fused_accept_plain(
+                    s, b, params, a),
+                plain_reps=3, cost=cost))
+    return params, cases
+
+
+def phase_kernels():
+    """Each kernel against its plain version on every case of
+    kernel_cases, and both timed by CUDA events around back-to-back
+    calls. Returns the cases by kernel, each with its call for
+    phase_parts."""
+    params, cases = kernel_cases()
     log("[smem] dynamic shared memory per block at these widths: " + ", ".join(
         f"{k} {v} B" for k, v in dynamic_smem(params).items()))
-    results = {}
-
-    cases = []
-    for mode, lo, hi, mask in (
-            ("point", zipf.pr_key, zipf.pr_key, zipf.pr_mask),
-            ("range", zipf.rr_b, zipf.rr_e, zipf.rr_mask)):
-        S = lo.shape[1]
-        args = (lo.reshape(T * S, W), hi.reshape(T * S, W),
-                zipf.rv[:, None].expand(T, S).reshape(-1).contiguous(), *ring)
-        point = mode == "point"
-        got = ring_hits(*args, point_mode=point)
-        want = ring_hits_plain(*args, point_mode=point)
+    results = {"ring_hits": [], "fused_accept": []}
+    for c in cases:
+        got, want = c["fn"](), c["plain"]()
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         mism = int((got != want).sum())
-        ms = cuda_ms(lambda: ring_hits(*args, point_mode=point), 20)
-        pms = cuda_ms(lambda: ring_hits_plain(*args, point_mode=point), 5)
-        ops = ring_ops(*args[:3], torch.ones_like(args[2], dtype=torch.bool),
-                       *ring, point=point)
-        # point mode reads the key once (qhi is qlo and unread)
-        reads = args[:1] + args[2:] if point else args
-        bms, by = bound_ms(io_bytes(*reads, got), ops)
-        cases.append(dict(case=f"{mode} Q={T * S}", hits=int(got.sum()),
-                          mismatches=mism, max_abs_err=err, ms=ms,
-                          plain_ms=pms, bound_ms=bms, bound_by=by, ops=ops))
-        log(f"[ring_hits {mode}] Q={T * S} hits={int(got.sum())} "
+        ms = cuda_ms(c["fn"], 20)
+        pms = cuda_ms(c["plain"], c["plain_reps"])
+        nb, ops = c["cost"]()
+        bms, by = bound_ms(nb, ops)
+        results[c["kernel"]].append(dict(
+            case=c["case"], hits=int(got.sum()), mismatches=mism,
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+            ops=ops, fn=c["fn"], plain=c["plain"],
+            plain_reps=c["plain_reps"]))
+        log(f"[{c['kernel']} {c['case']}] hits/accepted={int(got.sum())} "
             f"mismatches={mism} kernel {ms:.4f} ms plain {pms:.4f} ms "
             f"bound {bms:.5f} ms ({by})")
-    results["ring_hits"] = cases
-
-    cases = []
-    for label, batch in (("zipfian mixed", zipf), ("high-conflict", high)):
-        a0 = batch.txn_mask & ~(batch.rv < state.window_start)
-        got = fused_accept(state, batch, params, a0)
-        want = fused_accept_plain(state, batch, params, a0)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        mism = int((got != want).sum())
-        ms = cuda_ms(lambda: fused_accept(state, batch, params, a0), 20)
-        pms = cuda_ms(lambda: fused_accept_plain(state, batch, params, a0), 3)
-        ops = accept_ops(state, batch, T)
-        # the tensors fdb_fused_accept reads, and the accepted bits
-        b = batch
-        nb = io_bytes(a0, b.rv, b.pw_hash, b.pw_mask, b.pw_key, b.pr_hash,
-                      b.pr_mask, b.pr_key, b.rr_b, b.rr_e, b.rr_mask, b.rw_b,
-                      b.rw_e, b.rw_mask, state.ring_b, state.ring_e,
-                      state.ring_v, state.ring_mask, got)
-        bms, by = bound_ms(nb, ops)
-        cases.append(dict(case=label, accepted=int(got.sum()),
-                          admissible=int(a0.sum()), mismatches=mism,
-                          max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                          bound_by=by, ops=ops))
-        log(f"[fused_accept {label}] accepted {int(got.sum())}/"
-            f"{int(a0.sum())} mismatches={mism} kernel {ms:.4f} ms plain "
-            f"{pms:.4f} ms bound {bms:.5f} ms ({by})")
-    results["fused_accept"] = cases
     return results
+
+
+def phase_parts(results):
+    """Each phase-3 case's device ms per call by kernel (``parts_ms``),
+    their sum (``device_ms``) and the plain version's device ms
+    (``plain_device_ms``), all by torch.profiler."""
+    for name, cases in results.items():
+        names = ACCEPT_PARTS if name == "fused_accept" else ("ring_hits_kernel",)
+        for c in cases:
+            c["parts_ms"] = kernel_parts(c.pop("fn"), 20, names)
+            c["device_ms"] = sum(c["parts_ms"].values())
+            c["plain_device_ms"] = kernel_parts(
+                c.pop("plain"), c.pop("plain_reps"), ())["other"]
+            log(f"[parts {name} {c['case']}] device ms per call "
+                f"{c['device_ms']:.4f} (" + ", ".join(
+                    f"{k} {v:.4f}" for k, v in c["parts_ms"].items())
+                + f"); plain {c['plain_device_ms']:.4f}")
+
+
+# the kernels of one fused_accept call, by profiler event name
+ACCEPT_PARTS = ("accept_ring_kernel", "accept_pairs_kernel",
+                "accept_sweep_kernel")
+
+
+def kernel_parts(fn, reps, names, tries=3):
+    """Device ms per call of each kernel whose profiler name starts with
+    one of ``names``, and of all other device work together ("other": for
+    a wrapper, the memset that clears the hit bytes), over ``reps``
+    warmed calls of ``fn`` under torch.profiler. The profiler now and
+    then loses a kernel's events, so a profile in which a named kernel
+    shows fewer than ``reps`` launches is taken again; fails after
+    ``tries`` such profiles."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys((*names, "other"), 0.0)
+        seen = dict.fromkeys(names, 0)
+        for e in prof.key_averages():
+            n = next((n for n in names if e.key.startswith(n)), "other")
+            us[n] += getattr(e, "self_device_time_total", 0)
+            if n in seen:
+                seen[n] += e.count
+        if all(c == reps for c in seen.values()):
+            return {n: v / reps / 1e3 for n, v in us.items()}
+    raise RuntimeError(f"kernel launches in the profile: {seen}, not {reps}")
 
 
 def drive(r, stream):
@@ -323,11 +411,12 @@ def step_split(r, stream, use_fast):
 def device_profile(fn, top=4):
     """Where one run of ``fn`` spends the card's time, by torch.profiler:
     the device's busy share of the host wall time (every kernel and copy,
-    synchronised at the end) and the kernels that take most of it."""
+    synchronised at the end) and the kernels that take most of it. Only
+    device activity is traced: with host ops traced too, each torch op's
+    device time would count twice, under the op and under its kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -441,6 +530,7 @@ def main():
     ring_report, ring_launches = phase_main(
         {"mixed": streams["mixed"]},
         Knobs(accept_kernel="off", ring_kernel="on"), "ring-route")
+    phase_parts(checks)
     phase_replay(streams)
 
     kernels = []
@@ -459,6 +549,8 @@ def main():
             max_abs_err=max(c["max_abs_err"] for c in cases),
             mismatches=sum(c["mismatches"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
+            device_ms=head["device_ms"],
+            plain_device_ms=head["plain_device_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, cases=cases))
     summary = dict(card=card, main=main_report, ring_route=ring_report,

@@ -15,9 +15,16 @@
 // route iterates, so both routes give the same bits.
 //
 // Design, three kernels on one stream:
-//   accept_ring_kernel   one thread per (txn, read slot) query, walking
-//                        the ring in shared-memory tiles (lex.cuh
-//                        ring_walk); writes one hit byte per query.
+//   accept_ring_kernel   the ring walk of lex.cuh (ring_walk) over the
+//                        T*PR point slots, then the T*RR range slots:
+//                        a 2-D grid of (128-slot tile) x (32-entry ring
+//                        tile); each block culls its ring tile to the
+//                        live entries newer than its oldest read
+//                        version, stages those and walks them, one
+//                        thread per slot. A hit stores 1 into qhit, which
+//                        fdb_fused_accept zeroes on the stream first, so
+//                        qhit is the OR over ring tiles in any block
+//                        order.
 //   accept_pairs_kernel  one block per 8-writer x 32-reader tile; the
 //                        tile's keys are staged in shared memory as
 //                        uint32, one thread per (w, r) pair, and a warp
@@ -34,9 +41,15 @@
 // here O goes through device memory once as a bitset, so the pair work
 // runs on every SM and only the T-step sweep is sequential.
 //
-// Bound on this card: integer compares on the CUDA cores for the pair
-// tiles (T^2/2 pairs x the slot pairs of four lanes x up to W limbs);
-// the sweep is a chain of T dependent shuffles, latency-bound.
+// Bound on this card: integer compares on the CUDA cores for the ring
+// walk (slots x ring entries) and the pair tiles (T^2/2 pairs x the
+// slot pairs of four lanes x up to W limbs); the sweep is a chain of T
+// dependent shuffles, latency-bound. The earlier ring walk (one
+// 128-slot block walking the whole ring, 48 blocks at T = 1024) left
+// most SMs idle and made the whole step take 0.7009 ms at T = 1024,
+// W = 9, KR = 4096 on a Zipfian mixed batch (NVIDIA H100 80GB HBM3,
+// 700 W power limit); it held about three fifths of the step's device
+// time. The pair tiles and the sweep are unchanged from that design.
 //
 // Semantics kept exactly from the TPU kernel: the lane gating flags, and
 // the sentinel hashes of masked slots (a masked write hashes to
@@ -65,7 +78,7 @@ __global__ void accept_ring_kernel(
     int T, int PR, int RR, int KR, int W, int flags,
     uint8_t* __restrict__ qhit) {
   extern __shared__ uint32_t smem[];
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const int q = blockIdx.x * FDB_RING_QUERIES + threadIdx.x;
   const int n_point = T * PR;
   const int Q = n_point + T * RR;
   const bool point = q < n_point;
@@ -84,13 +97,10 @@ __global__ void accept_ring_kernel(
     lo_row = rr_b + (size_t)qq * W;
     hi_row = rr_e + (size_t)qq * W;
   }
-  uint32_t lo[FDB_MAX_W], hi[FDB_MAX_W];
-  load_key(lo, lo_row, W, active);
-  load_key(hi, hi_row, W, active && !point);
   const uint32_t v = active ? (uint32_t)rv[t] : 0u;
-  const bool hit = ring_walk(lo, hi, v, point, active, ring_b, ring_e,
-                             ring_v, ring_mask, KR, W, smem);
-  if (q < Q) qhit[q] = hit ? 1 : 0;
+  if (ring_walk(lo_row, hi_row, v, point, active, ring_b, ring_e, ring_v,
+                ring_mask, KR, W, smem))
+    qhit[q] = 1;
 }
 
 __host__ __device__ inline size_t pairs_smem_words(int PR, int PW, int RR,
@@ -302,20 +312,22 @@ extern "C" int fdb_fused_accept(
 
   const int Q = T * (PR + RR);
   if (Q > 0) {
+    if ((err = cudaMemsetAsync(qhit, 0, (size_t)Q, st)) != cudaSuccess)
+      return (int)err;
     if ((flags & (LANE_PR_RING | LANE_RR_RING)) && KR > 0) {
+      if (KR > FDB_RING_MAX_KR) return (int)cudaErrorInvalidValue;
       const size_t smem = ring_walk_smem_bytes(W);
       if ((err = allow_smem(accept_ring_kernel, smem)) != cudaSuccess)
         return (int)err;
-      accept_ring_kernel<<<(Q + 127) / 128, 128, smem, st>>>(
+      accept_ring_kernel<<<ring_walk_grid(Q, KR), FDB_RING_QUERIES, smem,
+                           st>>>(
           (const int64_t*)pr_key, (const bool*)pr_mask, (const int64_t*)rr_b,
           (const int64_t*)rr_e, (const bool*)rr_mask, (const int64_t*)rv,
           (const int64_t*)ring_b, (const int64_t*)ring_e,
           (const int64_t*)ring_v, (const bool*)ring_mask, T, PR, RR, KR, W,
           flags, (uint8_t*)qhit);
-    } else {
-      cudaMemsetAsync(qhit, 0, (size_t)Q, st);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
   const int NW = (T + 31) / 32;

@@ -142,13 +142,25 @@ def fused_accept(state, batch, params, a0):
          "rw_mask": (b.rw_mask, (T, RW)),
          "ring_mask": (state.ring_mask, (KR,))})
     flags = sum(bit for bit, on in _lanes(state, batch, params).items() if on)
+    qhit = torch.empty((T * (PR + RR),), dtype=torch.uint8, device=a0.device)
+    return launch_fused_accept(state, batch, params, a0, flags, qhit)
+
+
+def launch_fused_accept(state, batch, params, a0, flags, qhit):
+    """Launch csrc/accept.cu with these lane ``flags`` on tensors
+    :func:`fused_accept` has checked; ``qhit`` (uint8[T * (PR + RR)])
+    receives each read slot's ring hit. Returns the accepted bits."""
+    T, W = params.txns, params.key_width
+    b = batch
+    PR, PW = b.pr_hash.shape[1], b.pw_hash.shape[1]
+    RR, RW = b.rr_b.shape[1], b.rw_b.shape[1]
+    KR = state.ring_v.shape[0]
     args = [t.contiguous() for t in (
         a0, b.rv, b.pw_hash, b.pw_mask, b.pw_key, b.pr_hash, b.pr_mask,
         b.pr_key, b.rr_b, b.rr_e, b.rr_mask, b.rw_b, b.rw_e, b.rw_mask,
         state.ring_b, state.ring_e, state.ring_v, state.ring_mask,
     )]
     dev = a0.device
-    qhit = torch.empty((T * (PR + RR),), dtype=torch.uint8, device=dev)
     obits = torch.empty((T * ((T + 31) // 32),), dtype=torch.int32,
                         device=dev)
     accepted = torch.empty((T,), dtype=torch.bool, device=dev)

@@ -18,14 +18,32 @@ from foundationdb_tpu_torch.convert import state_to_numpy, tensor_from_numpy
 from foundationdb_tpu_torch.core.options import Knobs
 from foundationdb_tpu_torch.ops import _kernels
 from foundationdb_tpu_torch.ops import conflict as ck
-from foundationdb_tpu_torch.ops.accept import fused_accept, fused_accept_plain
-from foundationdb_tpu_torch.ops.ring import ring_hits, ring_hits_plain
+from foundationdb_tpu_torch.ops.accept import (
+    LANE_P_RR,
+    LANE_PP,
+    LANE_PR_RING,
+    LANE_RR_RING,
+    LANE_RW_P,
+    LANE_RW_RR,
+    conflict_matrix,
+    fused_accept,
+    fused_accept_plain,
+    jacobi_accept,
+    launch_fused_accept,
+)
+from foundationdb_tpu_torch.ops.ring import (
+    ring_hits,
+    ring_hits_plain,
+    ring_slot_hits,
+)
 from foundationdb_tpu_torch.resolver.resolver import Resolver
 from foundationdb_tpu_torch.workloads import STREAMS
 
-ALPHABET = np.array([0, 3, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
+from torch_ring_cases import RING_SCENARIOS, V0, ring_scenario
+from torch_ring_cases import keys as _keys
+from torch_ring_cases import versions as _versions
+
 HASHES = np.array([5, 6, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
-V0 = 0x7FFFFFF0  # versions straddle 2^31
 
 
 @pytest.fixture
@@ -40,18 +58,13 @@ def _t(a, dev):
     return tensor_from_numpy(a, dev)
 
 
-def _keys(rng, *shape):
-    return ALPHABET[rng.integers(0, len(ALPHABET), shape)]
-
-
-def _versions(rng, n):
-    return (V0 + rng.integers(0, 30, n)).astype(np.uint32)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("point_mode", [True, False])
-@pytest.mark.parametrize("Q,KR,W", [(77, 37, 3), (300, 600, 5),
-                                    (4096, 4096, 9)])
+@pytest.mark.parametrize("Q,KR,W", [
+    (77, 37, 3), (300, 600, 5), (4096, 4096, 9),
+    # Q not a multiple of the walk's 128-query tile; KR below one
+    # FDB_RING_TILE (32) ring tile, and one past a multiple of it
+    (129, 5, 3), (1000, 255, 4), (383, 769, 9)])
 def test_ring_kernel_matches_plain(cuda, point_mode, Q, KR, W):
     rng = np.random.default_rng(Q + KR)
     args = [_t(a, cuda) for a in (
@@ -65,6 +78,21 @@ def test_ring_kernel_matches_plain(cuda, point_mode, Q, KR, W):
     want = ring_hits_plain(*args, point_mode=point_mode)
     assert torch.equal(got, want)
     assert 0 < int(want.sum()) < Q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("point_mode", [True, False])
+@pytest.mark.parametrize("name", RING_SCENARIOS)
+def test_ring_walk_edges(cuda, name, point_mode):
+    arrays, want = ring_scenario(name, np.random.default_rng(11))
+    args = [_t(a, cuda) for a in arrays]
+    got = ring_hits(*args, point_mode=point_mode)
+    plain = ring_hits_plain(*args, point_mode=point_mode)
+    assert torch.equal(got, plain)
+    if want is None:
+        assert 0 < int(plain.sum()) < len(plain)
+    else:
+        np.testing.assert_array_equal(plain.cpu().numpy(), want)
 
 
 LANE_SETS = [(2, 2, 1, 1), (2, 2, 0, 0), (0, 0, 2, 2), (2, 0, 0, 1),
@@ -147,3 +175,50 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     v = torch.zeros((4,), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
         ring_hits(q, q, v, q, q, v, v.bool())
+
+
+ALL_PAIR_LANES = LANE_PP | LANE_P_RR | LANE_RW_P | LANE_RW_RR
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring_lanes", [LANE_PR_RING, LANE_RR_RING, 0])
+def test_accept_ring_lanes_gate_qhit(cuda, ring_lanes):
+    """Each ring lane fills only its own slots of qhit, and qhit is
+    cleared where no ring lane runs: it starts at 0xFF here."""
+    rng = np.random.default_rng(21)
+    state, batch, params, a0 = _accept_case(rng, 300, 2, 2, 2, 1, W=5,
+                                            KR=700, dev=cuda)
+    T, b = params.txns, batch
+    qhit = torch.full((T * 4,), 0xFF, dtype=torch.uint8, device=cuda)
+    got = launch_fused_accept(state, batch, params, a0,
+                              ALL_PAIR_LANES | ring_lanes, qhit)
+    ring = (state.ring_b, state.ring_e, state.ring_v, state.ring_mask)
+    want_p = ring_slot_hits(b.pr_key, b.pr_key, b.rv, b.pr_mask, ring, True)
+    want_r = ring_slot_hits(b.rr_b, b.rr_e, b.rv, b.rr_mask, ring, False)
+    want_p &= ring_lanes == LANE_PR_RING
+    want_r &= ring_lanes == LANE_RR_RING
+    assert torch.equal(qhit[:T * 2].view(T, 2), want_p.to(torch.uint8))
+    assert torch.equal(qhit[T * 2:].view(T, 2), want_r.to(torch.uint8))
+    kill = want_p.any(dim=1) | want_r.any(dim=1)
+    assert torch.equal(got, jacobi_accept(a0 & ~kill,
+                                          conflict_matrix(batch, params)))
+    assert int(want_p.sum() + want_r.sum()) > 0 or ring_lanes == 0
+
+
+@pytest.mark.gpu
+def test_wrappers_do_not_sync_with_the_host(cuda):
+    rng = np.random.default_rng(31)
+    args = [_t(a, cuda) for a in ring_scenario("non-monotone across 2^31",
+                                                rng)[0]]
+    case = _accept_case(rng, 300, 2, 2, 2, 1, W=5, KR=700, dev=cuda)
+    ring_hits(*args)  # builds the libraries outside the check
+    fused_accept(*case)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_r = ring_hits(*args)
+        got_a = fused_accept(*case)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got_r, ring_hits_plain(*args))
+    assert torch.equal(got_a, fused_accept_plain(*case))

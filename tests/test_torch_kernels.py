@@ -26,6 +26,7 @@ from foundationdb_tpu_torch.ops import _kernels
 from foundationdb_tpu_torch.ops import conflict as tck
 from foundationdb_tpu_torch.ops.accept import fused_accept, fused_accept_plain
 from foundationdb_tpu_torch.ops.ring import ring_hits, ring_hits_plain
+from torch_ring_cases import RING_SCENARIOS, ring_scenario
 
 # one intra-op thread per test process: the suite runs under pytest-xdist,
 # where torch's default of a thread per core in every worker oversubscribes
@@ -70,6 +71,19 @@ def test_ring_hits_plain_matches_pallas(point_mode, Q, KR):
     got_w = ring_hits(*_tensors(case), point_mode=point_mode)
     np.testing.assert_array_equal(got_w.numpy(), want)
     assert _kernels.launches["ring_hits"] == 0
+
+
+@pytest.mark.parametrize("point_mode", [True, False])
+@pytest.mark.parametrize("name", RING_SCENARIOS)
+def test_ring_walk_edges_plain_matches_pallas(name, point_mode):
+    """The rings tests/test_torch_gpu.py feeds the CUDA walk: the plain
+    version it is held to there agrees with the Pallas kernel here."""
+    case, _ = ring_scenario(name, np.random.default_rng(11))
+    want = np.asarray(pallas_ring.ring_hits(
+        *(jnp.asarray(a) for a in case), point_mode=point_mode,
+        interpret=True))
+    got = ring_hits_plain(*_tensors(case), point_mode=point_mode)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # (PR, PW, RR, RW): every lane on, each side alone, and mixed gaps
