@@ -26,7 +26,22 @@ Phases:
      profile only after their drives), so the main path's drives run
      before any profiler session;
   7. the first batches of each stream replayed on Resolver(device="cpu"):
-     statuses and all 12 state fields must be equal.
+     statuses and all 12 state fields must be equal;
+  8. the database, its launch counts zeroed first: Cluster() on the card
+     with default knobs, preloaded with CLUSTER_PRELOAD ``user%08d`` rows
+     of YCSB's 1 KB records through commit_batch, then
+     CLUSTER_CLIENT_TXNS client transactions (db.run: a get_range of 8
+     keys and a set, Zipfian keys; enough calls for a p99), a scripted
+     OCC pair that must fail with 1020, and the range-heavy and mixed
+     streams as client commit requests, 12 batches of 1024 through
+     commit_batch and one backlog of 12 through commit_batches (committed
+     txns/s, per-batch commit latency p50 / p99 and the slowest of the
+     12 batches for each); fused_accept
+     must have launched; then, after the counts are read, where a
+     commit_batch call spends its time (host ms by stage, the card's
+     busy share); then a card cluster and a CPU cluster, given the same
+     small preload and the same first mixed batches, must give the same
+     outcomes, rows and resolver state.
 
 Any failure raises and the script exits non-zero; without a card it exits
 non-zero before printing any result. The line before the last is
@@ -47,6 +62,10 @@ RESOLVE_BATCHES = 12  # per stream, one resolve() each
 BACKLOG = 12
 STREAM_BATCHES = RESOLVE_BATCHES + 2 * BACKLOG  # then two resolve_many
 REPLAY_BATCHES = 4
+CLUSTER_PRELOAD = 1_000_000  # workloads.NKEYS rows of 1 KB
+CLUSTER_CLIENT_TXNS = 512  # a p99 over 512 calls is the 6th slowest
+CLUSTER_BATCHES = 12  # per stream through commit_batch, then one backlog
+CLUSTER_REPLAY_PRELOAD = 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # no integer peak is published for the CUDA cores; the non-tensor
 # float32 rate is the fastest rate any 32-bit scalar op could retire at,
@@ -501,6 +520,244 @@ def phase_replay(streams):
             f"(statuses and 12 state fields)")
 
 
+def _outcomes(results):
+    """Each request's commit version, or ("error", code)."""
+    from foundationdb_tpu_torch.core.errors import FDBError
+
+    return [("error", r.code) if isinstance(r, FDBError) else r
+            for r in results]
+
+
+def phase_cluster(streams):
+    """The database on the card (phase 8): preload, then client
+    transactions, the OCC pair and the two streams through the commit
+    proxy, with the kernel launch counts of that traffic."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.core.errors import FDBError
+    from foundationdb_tpu_torch.ops import _kernels
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    _kernels.reset_launches()
+    c = Cluster()
+    limbs = c.knobs.key_limbs
+    proxy = c.commit_proxy
+    t0 = time.perf_counter()
+    for reqs in workloads.preload_requests(
+            CLUSTER_PRELOAD, limbs, batch=c.knobs.batch_txn_capacity, seed=SEED):
+        assert all(isinstance(v, int) for v in proxy.commit_batch(reqs))
+    preload_s = time.perf_counter() - t0
+    log(f"[cluster] preloaded {CLUSTER_PRELOAD} rows of "
+        f"{workloads.FIELDS * workloads.FIELD_BYTES} B through commit_batch "
+        f"in {preload_s:.1f} s ({CLUSTER_PRELOAD / preload_s:.0f} rows/s)")
+    gc.collect()
+    report = dict(preload_rows=CLUSTER_PRELOAD, preload_s=preload_s)
+    db = c.database()
+    rng = np.random.default_rng(SEED + 3)
+    ids = workloads.zipfian_sampler(CLUSTER_PRELOAD, workloads.THETA, rng)(
+        CLUSTER_CLIENT_TXNS).tolist()
+
+    def client_txn(tr, i):
+        rows = tr.get_range(workloads.user_key(i), workloads.user_key(i + 8))
+        tr.set(workloads.user_key(i), rows[0][1][:workloads.FIELD_BYTES] * 2)
+        return len(rows)
+
+    walls = []
+    for i in ids:
+        t0 = time.perf_counter()
+        n = db.run(lambda tr, i=i: client_txn(tr, i))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        assert n == min(8, CLUSTER_PRELOAD - i), (i, n)
+    report["client"] = dict(
+        txns=len(ids), txns_per_s=len(ids) / (sum(walls) / 1e3),
+        p50_ms=float(np.percentile(walls, 50)),
+        p99_ms=float(np.percentile(walls, 99)), max_ms=max(walls))
+    log(f"[cluster client] {len(ids)} db.run txns (get_range of 8 + set): "
+        f"{report['client']['txns_per_s']:.0f} txns/s, p50 "
+        f"{report['client']['p50_ms']:.3f} ms, p99 "
+        f"{report['client']['p99_ms']:.3f} ms, max "
+        f"{report['client']['max_ms']:.3f} ms per txn")
+    k = workloads.user_key(ids[0])
+    t1, t2 = db.create_transaction(), db.create_transaction()
+    t1.get(k)
+    t2.set(k, b"t2")
+    t2.commit()
+    t1.set(workloads.user_key(ids[0] + 1), b"t1")
+    try:
+        t1.commit()
+        raise AssertionError("the OCC pair's second commit succeeded")
+    except FDBError as e:
+        assert e.code == 1020, e.code
+    log("[cluster occ] the reader whose key was overwritten failed with 1020")
+    value = b"u" * workloads.FIELD_BYTES
+    for name in ("range_heavy", "mixed"):
+        stream = streams[name]
+
+        def requests(b):
+            txns, cv, _ = b
+            return workloads.commit_requests(
+                txns, cv, c.sequencer.committed_version, limbs, value)
+
+        walls, outs = [], []
+        for b in stream[:CLUSTER_BATCHES]:
+            reqs = requests(b)
+            t0 = time.perf_counter()
+            outs.append(_outcomes(proxy.commit_batch(reqs)))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        backlog = [requests(b)
+                   for b in stream[CLUSTER_BATCHES:2 * CLUSTER_BATCHES]]
+        t0 = time.perf_counter()
+        back = [_outcomes(r) for r in proxy.commit_batches(backlog)]
+        backlog_ms = (time.perf_counter() - t0) * 1e3
+        ok = [sum(isinstance(v, int) for b in o for v in b)
+              for o in (outs, back)]
+        codes = {v[1] for b in outs + back for v in b if isinstance(v, tuple)}
+        assert codes <= {1020, 1007}, codes
+        report[name] = dict(
+            commit_batch_txns=sum(map(len, outs)),
+            commit_batch_committed=ok[0],
+            commit_batch_committed_per_s=ok[0] / (sum(walls) / 1e3),
+            commit_batch_p50_ms=float(np.percentile(walls, 50)),
+            # of 12 samples, the p99 lies between the two slowest
+            commit_batch_p99_ms=float(np.percentile(walls, 99)),
+            commit_batch_max_ms=max(walls),
+            commit_batches_txns=sum(map(len, back)),
+            commit_batches_committed=ok[1],
+            commit_batches_committed_per_s=ok[1] / (backlog_ms / 1e3),
+            commit_batches_ms=backlog_ms)
+        r = report[name]
+        log(f"[cluster {name}] commit_batch x{CLUSTER_BATCHES}: "
+            f"{r['commit_batch_committed']} of {r['commit_batch_txns']} "
+            f"committed, {r['commit_batch_committed_per_s']:.0f} committed "
+            f"txns/s, p50 {r['commit_batch_p50_ms']:.3f} ms, p99 "
+            f"{r['commit_batch_p99_ms']:.3f} ms, max "
+            f"{r['commit_batch_max_ms']:.3f} ms of {len(walls)} batches; "
+            "commit_batches "
+            f"(one backlog of {CLUSTER_BATCHES}): "
+            f"{r['commit_batches_committed']} of {r['commit_batches_txns']} "
+            f"committed, {r['commit_batches_committed_per_s']:.0f} committed "
+            f"txns/s, every batch's latency {backlog_ms:.3f} ms")
+    launches = dict(_kernels.launches)
+    assert proxy.pack_flat_batches > 0
+    assert c.storage.version == c.sequencer.committed_version
+    # a committed write reads back: the last client txn's set
+    i = ids[-1]
+    assert db[workloads.user_key(i)] is not None
+    report.update(launches=launches, flat_batches=proxy.pack_flat_batches,
+                  legacy_batches=proxy.pack_legacy_batches,
+                  flat_fallbacks=c.resolvers[0].counters["flat_fallbacks"])
+    log(f"[cluster] launches {launches}; flat batches "
+        f"{proxy.pack_flat_batches}, legacy {proxy.pack_legacy_batches}, "
+        f"flat fallbacks {c.resolvers[0].counters['flat_fallbacks']}")
+    assert launches["fused_accept"] > 0, "fused_accept never launched"
+    for name in ("range_heavy", "mixed"):
+        batches = streams[name][2 * CLUSTER_BATCHES:
+                                2 * CLUSTER_BATCHES + SPLIT_BATCHES]
+        report[name]["stage_split"] = split = commit_stage_split(
+            c, [lambda t=t, cv=cv: workloads.commit_requests(
+                t, cv, c.sequencer.committed_version, limbs, value)
+                for t, cv, _ in batches])
+        log(f"[cluster {name}] {SPLIT_BATCHES} commit_batch calls, host ms "
+            "per batch: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in split["host_ms"].items())
+            + f" of {split['wall_ms']:.3f} wall; device busy "
+            f"{split['device_busy_ms']:.3f} ms per batch "
+            f"({split['device_busy_share']:.1%})")
+    c.close()
+    del c, db
+    gc.collect()
+    return report, launches
+
+
+SPLIT_BATCHES = 6  # per stream, for the stage split after the timed drives
+
+
+def commit_stage_split(c, batches):
+    """Where a commit_batch call spends its time, over ``batches`` (each
+    a call that builds a batch's requests, outside the timed calls)
+    after the timed drives: host ms per batch in the
+    scheduler, the batch build, the resolver (pack, copy, device step
+    and the status copy back), and the finalize (results, tlog push,
+    storage apply, the apply also alone), by timers around those
+    methods; and the card's busy time over the same calls by
+    torch.profiler (device events only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    proxy, resolver, storage = c.commit_proxy, c.resolvers[0], c.storage
+    sites = {"schedule": (proxy, "_maybe_schedule"),
+             "build": (proxy, "_build_txns"),
+             "resolve": (resolver, "resolve"),
+             "finalize": (proxy, "_finalize_batch"),
+             "storage_apply": (storage, "apply")}
+    spent = dict.fromkeys(sites, 0.0)
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    for name, (obj, attr) in sites.items():
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    try:
+        wall = 0.0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for make in batches:
+                reqs = make()
+                t0 = time.perf_counter()
+                proxy.commit_batch(reqs)  # ends in the statuses' copy back
+                wall += time.perf_counter() - t0
+    finally:
+        for obj, attr in sites.values():
+            delattr(obj, attr)  # the instance wrapper; the method is back
+    busy_us = sum(getattr(e, "self_device_time_total", 0)
+                  for e in prof.key_averages())
+    n = len(batches)
+    return dict(host_ms={k: v * 1e3 / n for k, v in spent.items()},
+                wall_ms=wall * 1e3 / n, device_busy_ms=busy_us / 1e3 / n,
+                device_busy_share=busy_us / 1e6 / wall)
+
+
+def phase_cluster_replay(streams):
+    """A card cluster and a CPU cluster with the same preload and the same
+    first mixed batches (two commit_batch calls, then a backlog of two):
+    outcomes, rows and the 12 state fields must be equal."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.convert import state_to_numpy
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    def drive(c):
+        limbs = c.knobs.key_limbs
+        out = []
+        for reqs in workloads.preload_requests(
+                CLUSTER_REPLAY_PRELOAD, limbs,
+                batch=c.knobs.batch_txn_capacity, seed=SEED):
+            out.append(_outcomes(c.commit_proxy.commit_batch(reqs)))
+
+        def requests(b):
+            return workloads.commit_requests(
+                b[0], b[1], c.sequencer.committed_version, limbs, b"r")
+
+        first = streams["mixed"][:REPLAY_BATCHES]
+        for b in first[:2]:
+            out.append(_outcomes(c.commit_proxy.commit_batch(requests(b))))
+        out += [_outcomes(r) for r in c.commit_proxy.commit_batches(
+            [requests(b) for b in first[2:]])]
+        return out, c.database().get_range(b"", b"\xff"), state_to_numpy(
+            c.resolvers[0].state)
+
+    gpu, cpu = drive(Cluster()), drive(Cluster(device="cpu"))
+    assert gpu[0] == cpu[0], "cluster outcomes differ between card and CPU"
+    assert gpu[1] == cpu[1], "cluster rows differ between card and CPU"
+    for f, a, b in zip(type(gpu[2])._fields, gpu[2], cpu[2]):
+        assert np.array_equal(a, b), f"cluster state field {f} differs"
+    log(f"[cluster replay] preload {CLUSTER_REPLAY_PRELOAD} rows + "
+        f"{REPLAY_BATCHES} mixed batches: card == CPU ({len(gpu[1])} rows, "
+        f"outcomes and 12 state fields)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -532,20 +789,23 @@ def main():
         Knobs(accept_kernel="off", ring_kernel="on"), "ring-route")
     phase_parts(checks)
     phase_replay(streams)
+    cluster_report, cluster_launches = phase_cluster(streams)
+    phase_cluster_replay(streams)
 
     kernels = []
-    for name, src, replaces, launches in (
+    for name, src, replaces in (
             ("fused_accept", "foundationdb_tpu_torch/csrc/accept.cu",
-             "foundationdb_tpu/ops/pallas_scan.py:81",
-             main_launches["fused_accept"]),
+             "foundationdb_tpu/ops/pallas_scan.py:81"),
             ("ring_hits", "foundationdb_tpu_torch/csrc/ring.cu",
-             "foundationdb_tpu/ops/pallas_ring.py:62",
-             ring_launches["ring_hits"])):
+             "foundationdb_tpu/ops/pallas_ring.py:62")):
         cases = checks[name]
         head = cases[0]
+        by_path = {"main": main_launches[name],
+                   "ring_route": ring_launches[name],
+                   "cluster": cluster_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches,
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in cases),
             mismatches=sum(c["mismatches"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -554,10 +814,14 @@ def main():
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, cases=cases))
     summary = dict(card=card, main=main_report, ring_route=ring_report,
+                   cluster=cluster_report,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
+    paths = {"fused_accept": ("main", "cluster"), "ring_hits": ("ring_route",)}
     for k in kernels:
-        assert k["launches"] > 0, f"{k['name']} never launched on its path"
+        for path in paths[k["name"]]:
+            assert k["launches_by_path"][path] > 0, \
+                f"{k['name']} never launched on the {path} path"
         assert k["mismatches"] == 0 and k["max_abs_err"] == 0, k["name"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,55 @@
-"""foundationdb_tpu_torch — FoundationDB's Resolver on PyTorch and CUDA.
+"""foundationdb_tpu_torch — FoundationDB's in-process database on PyTorch
+and CUDA.
 
-The PyTorch port of ``foundationdb_tpu``'s conflict-detection step: the
-same packed batches, the same device state, the same verdicts bit for
-bit, with the two Pallas TPU kernels rewritten by hand in CUDA C++ for
-Hopper (``csrc/``). The package imports ``torch`` and numpy only and
-keeps its own copy of every module it needs.
+The PyTorch port of ``foundationdb_tpu``: the conflict-detection step of
+the Resolver runs on an NVIDIA card with the two Pallas TPU kernels
+rewritten by hand in CUDA C++ for Hopper (``csrc/``), the same verdicts
+bit for bit; around it, the sequencer, GRV and commit proxies, the log,
+storage and client transactions of the in-process cluster. The package
+imports ``torch`` and numpy only and keeps its own copy of every module
+it needs.
 
-Entry point: :class:`foundationdb_tpu_torch.resolver.resolver.Resolver`,
-which runs on ``cuda:0`` unless the caller passes ``device="cpu"``.
+Entry points: :func:`open` returns a Database whose resolver runs on
+``cuda:0`` (``device="cpu"`` runs it on the CPU);
+:class:`foundationdb_tpu_torch.server.cluster.Cluster` is the cluster
+behind it; :class:`foundationdb_tpu_torch.resolver.resolver.Resolver`
+the resolver alone. Without a card and without ``device="cpu"`` they
+raise.
 """
 
-__version__ = "0.1.0"
+import functools
+
+from foundationdb_tpu_torch.core.errors import FDBError
+from foundationdb_tpu_torch.core.keys import KeyRange, KeySelector, key_successor, strinc
+
+__version__ = "0.2.0"
+__all__ = ["FDBError", "KeyRange", "KeySelector", "key_successor", "open",
+           "strinc", "transactional"]
+
+
+def open(cluster_file=None, device=None, **knobs):
+    """Open a database and return a Database handle (ref parity:
+    fdb.open() in bindings/python/fdb/__init__.py). The cluster runs
+    in-process; ``knobs`` are Knobs fields or Cluster arguments."""
+    if cluster_file is not None:
+        raise NotImplementedError(
+            "cluster_file: the RPC client is not ported; open() runs the "
+            "cluster in-process")
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    return Cluster(device=device, **knobs).database()
+
+
+def transactional(func):
+    """Decorator: run ``func(tr, ...)`` in a retry loop, or directly when
+    given a Transaction (ref parity: @fdb.transactional)."""
+
+    @functools.wraps(func)
+    def wrapper(db_or_tr, *args, **kwargs):
+        from foundationdb_tpu_torch.txn.transaction import Transaction
+
+        if isinstance(db_or_tr, Transaction):
+            return func(db_or_tr, *args, **kwargs)
+        return db_or_tr.run(lambda tr: func(tr, *args, **kwargs))
+
+    return wrapper

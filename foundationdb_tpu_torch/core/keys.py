@@ -15,11 +15,16 @@ Keys longer than the capacity are *rounded conservatively*: lower bounds
 round down to their 4L-byte prefix and upper bounds round up to the
 prefix's successor. Widening a conflict range can only add false
 conflicts (a spurious retry), never miss one.
+
+Also here: the client's key model — :class:`KeyRange`,
+:class:`KeySelector`, :func:`strinc`, :func:`key_successor` and the
+key and value size limits (ref: fdbclient/FDBTypes.h, fdbclient/Knobs.h).
 """
 
 import numpy as np
 
 MAX_KEY_SIZE = 10_000  # bytes; ref: CLIENT_KNOBS->KEY_SIZE_LIMIT
+MAX_VALUE_SIZE = 100_000  # ref: CLIENT_KNOBS->VALUE_SIZE_LIMIT
 DEFAULT_LIMBS = 8  # 32-byte exact prefix
 
 
@@ -102,3 +107,102 @@ class KeyCodec:
         for i in long:
             out[nb + i] = self.encode_upper(ends[i])
         return out[:nb], out[nb:]
+
+
+def key_successor(key):
+    """Smallest key strictly greater than ``key``: key + b'\\x00'.
+
+    Ref: keyAfter() in fdbclient/FDBTypes.h.
+    """
+    return bytes(key) + b"\x00"
+
+
+def strinc(key):
+    """Smallest key not prefixed by ``key`` (ref: strinc() in flow):
+    increments the last non-0xFF byte and truncates after it."""
+    key = bytes(key)
+    stripped = key.rstrip(b"\xff")
+    if not stripped:
+        raise ValueError("strinc of all-0xFF key has no successor")
+    return stripped[:-1] + bytes([stripped[-1] + 1])
+
+
+class KeyRange:
+    """Half-open byte-key range [begin, end). Ref: KeyRangeRef."""
+
+    __slots__ = ("begin", "end")
+
+    def __init__(self, begin, end):
+        begin, end = bytes(begin), bytes(end)
+        if begin > end:
+            from foundationdb_tpu_torch.core.errors import err
+
+            raise err("inverted_range")
+        self.begin = begin
+        self.end = end
+
+    @classmethod
+    def single_key(cls, key):
+        return cls(key, key_successor(key))
+
+    @classmethod
+    def prefix(cls, p):
+        return cls(p, strinc(p))
+
+    def __contains__(self, key):
+        return self.begin <= bytes(key) < self.end
+
+    def intersects(self, other):
+        return self.begin < other.end and other.begin < self.end
+
+    def empty(self):
+        return self.begin == self.end
+
+    def __eq__(self, other):
+        return (isinstance(other, KeyRange) and self.begin == other.begin
+                and self.end == other.end)
+
+    def __hash__(self):
+        return hash((self.begin, self.end))
+
+    def __repr__(self):
+        return f"KeyRange({self.begin!r}, {self.end!r})"
+
+
+class KeySelector:
+    """FDB key selector, resolved against the database's key order: start
+    from the last key <= (or <) ``key``, then move ``offset`` keys
+    forward. Ref: KeySelectorRef and the storage server's findKey."""
+
+    __slots__ = ("key", "or_equal", "offset")
+
+    def __init__(self, key, or_equal, offset):
+        self.key = bytes(key)
+        self.or_equal = bool(or_equal)
+        self.offset = int(offset)
+
+    @classmethod
+    def last_less_than(cls, key):
+        return cls(key, False, 0)
+
+    @classmethod
+    def last_less_or_equal(cls, key):
+        return cls(key, True, 0)
+
+    @classmethod
+    def first_greater_than(cls, key):
+        return cls(key, True, 1)
+
+    @classmethod
+    def first_greater_or_equal(cls, key):
+        return cls(key, False, 1)
+
+    def __add__(self, n):
+        return KeySelector(self.key, self.or_equal, self.offset + n)
+
+    def __sub__(self, n):
+        return KeySelector(self.key, self.or_equal, self.offset - n)
+
+    def __repr__(self):
+        return (f"KeySelector({self.key!r}, or_equal={self.or_equal}, "
+                f"offset={self.offset})")

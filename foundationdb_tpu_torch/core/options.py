@@ -1,9 +1,10 @@
-"""Resolver knobs.
+"""Knobs — tunable constants, mirroring flow/Knobs.h / fdbclient/Knobs.h.
 
 ``resolver_backend="cuda"`` packs batches into device tensors and runs
 ops/conflict.py's step on a CUDA device (or on the CPU when the
 Resolver is given ``device="cpu"``); ``"cpu"`` runs the exact host
-ConflictSet (resolver/skiplist.py).
+ConflictSet (resolver/skiplist.py). The other knobs are those the
+database's commit path and client read, with the JAX package's defaults.
 """
 
 import dataclasses
@@ -11,6 +12,7 @@ import dataclasses
 
 @dataclasses.dataclass
 class Knobs:
+    # --- resolver ---
     resolver_backend: str = "cuda"  # "cuda" | "cpu" (exact host set)
     batch_txn_capacity: int = 1024  # T: txns per resolver batch
     point_reads_per_txn: int = 4  # PR
@@ -31,6 +33,27 @@ class Knobs:
     # tri-state, and "auto" also stays off for shapes the kernel does
     # not take (txns > 1024). Subsumes ring_kernel when engaged.
     accept_kernel: str = "auto"
+
+    # --- commit path ---
+    # "flat": the client pre-encodes conflict ranges into columnar limb
+    # blobs (core/flatpack.py) and the proxy and packer consume them
+    # without per-txn Python; "legacy" keeps the TxnRequest path. Flat
+    # engages per batch only when every request carries blobs of the
+    # resolver's width and the resolver accepts them.
+    commit_pack_path: str = "flat"
+
+    # --- versions / MVCC ---
+    max_read_transaction_life_versions: int = 5_000_000
+
+    # --- transaction limits (ref: fdbclient/Knobs.h CLIENT_KNOBS) ---
+    key_size_limit: int = 10_000
+    value_size_limit: int = 100_000
+    transaction_size_limit: int = 10_000_000
+
+    # --- retry loop (ref: CLIENT_KNOBS backoff) ---
+    max_retry_delay_s: float = 1.0
+    initial_backoff_s: float = 0.01
+    backoff_growth: float = 2.0
 
 
 DEFAULT_KNOBS = Knobs()

@@ -1,9 +1,13 @@
-"""Host-side packing: TxnRequests → fixed-shape ResolveBatch arrays.
+"""Host-side packing: TxnRequests or flat columnar batches → fixed-shape
+ResolveBatch arrays.
 
 The analog of ResolveTransactionBatchRequest serialization (ref:
 fdbserver/ResolverInterface.h): the commit proxy packs a batch's conflict
 ranges into fixed-shape numpy arrays once per batch; all key comparison
-then happens on the device.
+then happens on the device. Two lanes give identical arrays: ``pack``
+from TxnRequest objects, and ``pack_flat`` / ``pack_flat_group`` from the
+clients' pre-encoded limb blobs (core/flatpack.py) with no per-txn
+Python.
 
 Host hashing and bucketing must match the device (ops/intervals.fnv_hash):
 the hash table and coarse buckets are written with values the host
@@ -12,6 +16,7 @@ computed.
 
 import numpy as np
 
+from foundationdb_tpu_torch.core import flatpack
 from foundationdb_tpu_torch.core.keys import KeyCodec
 from foundationdb_tpu_torch.ops.conflict import ResolveBatch, ResolverParams
 from foundationdb_tpu_torch.resolver.skiplist import TxnRequest
@@ -50,6 +55,163 @@ class BatchPacker:
         self.params = params
         self.codec = KeyCodec(num_limbs=params.key_width - 1)
         self._empty = None  # cached zero-txn pad batch (pack_empty)
+        self._staging = {}  # B → the reusable staging set of that shape
+        self._zero_hash = fnv_hash_np(
+            np.zeros((1, params.key_width), np.uint32))[0]
+        self.flat_reuse_hits = 0
+        self.flat_reuse_misses = 0
+
+    # ── flat columnar lane (core/flatpack.py FlatTxnBatch) ──
+    def flat_fits(self, flat):
+        """Whether pack_flat_group can serve this batch: the resolver's
+        limb width and every txn's op counts inside the packed lanes
+        (the legacy lane's spill/coalesce has no flat twin)."""
+        p = self.params
+        return (
+            flat.num_limbs == p.key_width - 1
+            and len(flat) <= p.txns
+            and flat.prc.max(initial=0) <= p.point_reads
+            and flat.pwc.max(initial=0) <= p.point_writes
+            and flat.rrc.max(initial=0) <= p.range_reads
+            and flat.rwc.max(initial=0) <= p.range_writes
+        )
+
+    def _flat_staging(self, B):
+        """A cleared staging set of stacked (B, T, ...) arrays, one per
+        shape, refilled in place (masks and keys 0, hashes the hash of an
+        all-zero key row) instead of allocated. One set is enough: the
+        batch is copied out (convert.batch_from_numpy) before the next
+        pack."""
+        p = self.params
+        zh = self._zero_hash
+        bufs = self._staging.get(B)
+        if bufs is None:
+            self.flat_reuse_misses += 1
+            T, W = p.txns, p.key_width
+            u32, i32, b8 = np.uint32, np.int32, np.bool_
+            PR, PW, RR, RW = (p.point_reads, p.point_writes, p.range_reads,
+                              p.range_writes)
+            bufs = {
+                "rv": np.zeros((B, T), u32),
+                "txn_mask": np.zeros((B, T), b8),
+                "pr_key": np.zeros((B, T, PR, W), u32),
+                "pr_hash": np.full((B, T, PR), zh, u32),
+                "pr_bucket": np.zeros((B, T, PR), i32),
+                "pr_mask": np.zeros((B, T, PR), b8),
+                "pw_key": np.zeros((B, T, PW, W), u32),
+                "pw_hash": np.full((B, T, PW), zh, u32),
+                "pw_bucket": np.zeros((B, T, PW), i32),
+                "pw_mask": np.zeros((B, T, PW), b8),
+                "rr_b": np.zeros((B, T, RR, W), u32),
+                "rr_e": np.zeros((B, T, RR, W), u32),
+                "rr_lo": np.zeros((B, T, RR), i32),
+                "rr_hi": np.zeros((B, T, RR), i32),
+                "rr_mask": np.zeros((B, T, RR), b8),
+                "rw_b": np.zeros((B, T, RW, W), u32),
+                "rw_e": np.zeros((B, T, RW, W), u32),
+                "rw_lo": np.zeros((B, T, RW), i32),
+                "rw_hi": np.zeros((B, T, RW), i32),
+                "rw_mask": np.zeros((B, T, RW), b8),
+                "cv": np.zeros(B, u32),
+                "nws": np.zeros(B, u32),
+            }
+            self._staging[B] = bufs
+            return bufs
+        self.flat_reuse_hits += 1
+        for name, a in bufs.items():
+            if name in ("pr_hash", "pw_hash"):
+                a.fill(zh)
+            elif name not in ("cv", "nws"):  # fully overwritten below
+                a.fill(0)
+        return bufs
+
+    def pack_flat_group(self, flats, metas, base_version, B):
+        """Pack a backlog group of FlatTxnBatches into one stacked
+        ResolveBatch (leading dim ``B``, padded past ``len(flats)`` with
+        empty batches at the last batch's versions, like resolve_many's
+        pads), equal to packing each with :meth:`pack` and stacking:
+        blob bytes become limb rows with one frombuffer per lane, slot
+        indices come from cumsums, hashes and buckets are computed once
+        over the stacked arrays.
+
+        ``metas``: [(commit_version, new_window_start)] per flat batch, at
+        least one. Callers have checked :meth:`flat_fits` for each batch.
+        """
+        p = self.params
+        nb = len(flats)
+        bufs = self._flat_staging(B)
+        u32 = np.uint32
+        n_txns = np.fromiter((len(f) for f in flats), np.int64, count=nb)
+        rv_all = np.concatenate([f.rv for f in flats])
+        prc, pwc, rrc, rwc = (np.concatenate([getattr(f, c) for f in flats])
+                              for c in ("prc", "pwc", "rrc", "rwc"))
+        pr_blob, pw_blob, rr_blob, rw_blob = (
+            b"".join([getattr(f, c) for f in flats])
+            for c in ("pr_blob", "pw_blob", "rr_blob", "rw_blob"))
+        # b_of / t_of map a group-global txn row to its (batch, txn) slot
+        b_of = np.repeat(np.arange(nb), n_txns)
+        _, t_of = _slots(n_txns)
+        if len(rv_all):
+            bufs["rv"][b_of, t_of] = np.clip(
+                rv_all - base_version, 0, 0xFFFFFFFF).astype(u32)
+            bufs["txn_mask"][b_of, t_of] = True
+        L = p.key_width - 1
+        if len(pr_blob):
+            t, i = _slots(prc)
+            bufs["pr_key"][b_of[t], t_of[t], i] = flatpack.point_limbs(pr_blob, L)
+            bufs["pr_mask"][b_of[t], t_of[t], i] = True
+        if len(pw_blob):
+            t, i = _slots(pwc)
+            bufs["pw_key"][b_of[t], t_of[t], i] = flatpack.point_limbs(pw_blob, L)
+            bufs["pw_mask"][b_of[t], t_of[t], i] = True
+        if len(rr_blob):
+            t, i = _slots(rrc)
+            lo, hi = flatpack.range_limbs(rr_blob, L)
+            bufs["rr_b"][b_of[t], t_of[t], i] = lo
+            bufs["rr_e"][b_of[t], t_of[t], i] = hi
+            bufs["rr_mask"][b_of[t], t_of[t], i] = True
+        if len(rw_blob):
+            t, i = _slots(rwc)
+            lo, hi = flatpack.range_limbs(rw_blob, L)
+            bufs["rw_b"][b_of[t], t_of[t], i] = lo
+            bufs["rw_e"][b_of[t], t_of[t], i] = hi
+            bufs["rw_mask"][b_of[t], t_of[t], i] = True
+        for b, (cv, ws) in enumerate(metas):
+            bufs["cv"][b] = u32(cv - base_version)
+            bufs["nws"][b] = u32(max(0, ws - base_version))
+        # pads share the last batch's version scalars
+        bufs["cv"][nb:] = bufs["cv"][nb - 1]
+        bufs["nws"][nb:] = bufs["nws"][nb - 1]
+        # hash and bucket the live batches only: pad rows already hold
+        # the all-zero key's hash and bucket 0
+        bb = p.bucket_bits
+        bufs["pr_hash"][:nb] = fnv_hash_np(bufs["pr_key"][:nb])
+        bufs["pr_bucket"][:nb] = bucket_of(bufs["pr_key"][:nb], bb)
+        bufs["pw_hash"][:nb] = fnv_hash_np(bufs["pw_key"][:nb])
+        bufs["pw_bucket"][:nb] = bucket_of(bufs["pw_key"][:nb], bb)
+        bufs["rr_lo"][:nb] = bucket_of(bufs["rr_b"][:nb], bb)
+        bufs["rr_hi"][:nb] = bucket_of(bufs["rr_e"][:nb], bb)
+        bufs["rw_lo"][:nb] = bucket_of(bufs["rw_b"][:nb], bb)
+        bufs["rw_hi"][:nb] = bucket_of(bufs["rw_e"][:nb], bb)
+        return ResolveBatch(
+            rv=bufs["rv"], txn_mask=bufs["txn_mask"],
+            pr_hash=bufs["pr_hash"], pr_key=bufs["pr_key"],
+            pr_bucket=bufs["pr_bucket"], pr_mask=bufs["pr_mask"],
+            pw_hash=bufs["pw_hash"], pw_key=bufs["pw_key"],
+            pw_bucket=bufs["pw_bucket"], pw_mask=bufs["pw_mask"],
+            rr_b=bufs["rr_b"], rr_e=bufs["rr_e"],
+            rr_lo=bufs["rr_lo"], rr_hi=bufs["rr_hi"], rr_mask=bufs["rr_mask"],
+            rw_b=bufs["rw_b"], rw_e=bufs["rw_e"],
+            rw_lo=bufs["rw_lo"], rw_hi=bufs["rw_hi"], rw_mask=bufs["rw_mask"],
+            cv=bufs["cv"], new_window_start=bufs["nws"],
+        )
+
+    def pack_flat(self, flat, base_version, commit_version, new_window_start):
+        """Single-batch flat pack: one group slot with the leading dim
+        dropped, shaped as :meth:`pack`'s output."""
+        stacked = self.pack_flat_group(
+            [flat], [(commit_version, new_window_start)], base_version, B=1)
+        return ResolveBatch(*(a[0] for a in stacked))
 
     def pack_empty(self, base_version, commit_version, new_window_start):
         """A zero-txn pad batch (resolve_many's padding): one cached

@@ -12,6 +12,13 @@ caller passes ``device="cpu"`` (the tests do); without a card and
 without that, construction raises. ``"cpu"`` runs the exact host
 ConflictSet (resolver/skiplist.py).
 
+Batches come as lists of TxnRequests or as columnar FlatTxnBatches
+(core/flatpack.py, the commit proxy's default). A flat batch the flat
+lane cannot serve (a read version below the device base, lane overflow,
+a limb-width mismatch) decodes to TxnRequests and takes the legacy
+packer: the same semantics by another route, counted in
+``flat_fallbacks``.
+
 A kernel that fails to build or launch raises: there is no fallback.
 """
 
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from foundationdb_tpu_torch.convert import batch_from_numpy
+from foundationdb_tpu_torch.core.flatpack import FlatTxnBatch
 from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
 from foundationdb_tpu_torch.core.status import COMMITTED, CONFLICT, TOO_OLD
 from foundationdb_tpu_torch.core.versions import REBASE_THRESHOLD
@@ -123,7 +131,10 @@ class Resolver:
         self.alive = True
         self.counters = {"resolve_batches": 0, "resolve_txns": 0,
                          "backlog_dispatches": 0, "backlog_depth": 0,
-                         "respawns": 0}
+                         "flat_fallbacks": 0, "respawns": 0}
+        # the device lanes take the flat columnar batches; the exact host
+        # set works on byte ranges
+        self.accepts_flat = self.backend == "cuda"
         if self.backend == "cuda":
             self.device = _device_of(device)
             on_cuda = self.device.type == "cuda"
@@ -200,10 +211,16 @@ class Resolver:
         self.counters["resolve_txns"] += ntxns
 
     def resolve(self, txns, commit_version, new_window_start):
-        """txns: list[TxnRequest] in arrival order → list of statuses."""
+        """txns: list[TxnRequest] or a FlatTxnBatch, in arrival order →
+        list of statuses."""
         if not self.alive:
             raise ResolverDown()
         self._count(1, len(txns))
+        if isinstance(txns, FlatTxnBatch):
+            return self._resolve_flat(txns, commit_version, new_window_start)
+        return self._resolve_txns(txns, commit_version, new_window_start)
+
+    def _resolve_txns(self, txns, commit_version, new_window_start):
         if self.backend == "cpu":
             return self.cset.resolve(txns, commit_version, new_window_start)
         self._maybe_rebase(commit_version)
@@ -230,6 +247,51 @@ class Resolver:
                 statuses[i] = s
         return statuses
 
+    def _resolve_flat(self, flat, commit_version, new_window_start):
+        """Resolve one columnar batch: its limb rows are packed straight
+        from the blobs into the staging ring. A batch the flat lane
+        cannot serve decodes to TxnRequests and takes the legacy route."""
+        if self.backend == "cpu":
+            return self.cset.resolve(flat.to_txn_requests(), commit_version,
+                                     new_window_start)
+        self._maybe_rebase(commit_version)
+        if self._flat_refused(flat):
+            # counted again as a batch of its own, as the reference counts
+            self.counters["flat_fallbacks"] += 1
+            return self.resolve(flat.to_txn_requests(), commit_version,
+                                new_window_start)
+        use_fast = self._pick_fast_flat([flat])
+        packer, resolve_fn = self._fast if use_fast else (
+            self.packer, self._resolve)
+        batch = packer.pack_flat(flat, self.base_version, commit_version,
+                                 new_window_start)
+        status, _accepted, self.state = resolve_fn(
+            self.state, batch_from_numpy(batch, self.device))
+        return status[: len(flat)].tolist()
+
+    def _flat_refused(self, flat):
+        """Whether this flat batch must take the legacy lane: a read
+        version below the device base (the host answers it), more txns
+        or ops than the packed lanes, or another limb width."""
+        return bool(len(flat) and int(flat.rv.min()) < self.base_version
+                    or not self.packer.flat_fits(flat))
+
+    def _pick_fast_flat(self, flats):
+        """_pick_fast's columnar twin, on count maxima. Lane-overflowing
+        batches were routed to the legacy lane before, so only range
+        presence matters here."""
+        if self._fast is None:
+            return False
+        point_only = True
+        for f in flats:
+            if f.rwc.max(initial=0) > 0:
+                self._range_history = True
+                point_only = False
+                break
+            if f.rrc.max(initial=0) > 0:
+                point_only = False
+        return point_only and not self._range_history
+
     def _pick_fast(self, txns):
         """Whether the point-specialized variant may serve these txns —
         and the sticky _range_history update when a range write (or a
@@ -253,9 +315,10 @@ class Resolver:
         """Resolve a backlog of batches in one dispatch.
 
         ``batches``: list of (txns, commit_version, new_window_start) in
-        commit order. Semantically identical to :meth:`resolve` per
-        batch. ``lazy=True`` returns a :class:`ResolveHandle`; the device
-        work is enqueued and the host sync waits for ``wait()``.
+        commit order, txns a TxnRequest list or a FlatTxnBatch.
+        Semantically identical to :meth:`resolve` per batch.
+        ``lazy=True`` returns a :class:`ResolveHandle`; the device work is
+        enqueued and the host sync waits for ``wait()``.
         """
         if len(batches) > 1:
             self.counters["backlog_dispatches"] += 1
@@ -279,6 +342,23 @@ class Resolver:
             raise ResolverDown()
         self._maybe_rebase(batches[-1][1])
         self._count(len(batches), sum(len(t) for t, _, _ in batches))
+        flats_present = any(isinstance(t, FlatTxnBatch) for t, _, _ in batches)
+        if flats_present:
+            if all(isinstance(t, FlatTxnBatch) for t, _, _ in batches):
+                handle = self._dispatch_flat(batches)
+                if handle is not None:
+                    return handle
+                # counted only here, as the reference counts: a mixed
+                # backlog is no refusal of the flat lane
+                self.counters["flat_fallbacks"] += 1
+            # a flat batch the lane cannot serve, or flat and legacy
+            # batches in one backlog (one scan threads one history):
+            # the whole backlog decodes
+            batches = [
+                (t.to_txn_requests() if isinstance(t, FlatTxnBatch) else t,
+                 cv, ws)
+                for t, cv, ws in batches
+            ]
         per_batch = []
         all_live = []
         for txns, cv, ws in batches:
@@ -317,6 +397,27 @@ class Resolver:
                     statuses[i] = s
                 out.append(statuses)
             return out
+
+        return ResolveHandle(materialize=materialize)
+
+    def _dispatch_flat(self, batches):
+        """The columnar backlog dispatch: the whole group packs into one
+        stacked staging set and takes the same scan. None when any batch
+        needs the legacy lane."""
+        flats = [t for t, _, _ in batches]
+        if any(self._flat_refused(f) for f in flats):
+            return None
+        use_fast = self._pick_fast_flat(flats)
+        packer = self._fast[0] if use_fast else self.packer
+        stacked = packer.pack_flat_group(
+            flats, [(cv, ws) for _, cv, ws in batches], self.base_version,
+            B=self._pad_bucket(len(flats)))
+        self.state, st = self._get_scan_fn(use_fast)(
+            self.state, batch_from_numpy(stacked, self.device))
+
+        def materialize():
+            arr = st.cpu().numpy()  # the one host sync for the backlog
+            return [arr[b][: len(f)].tolist() for b, f in enumerate(flats)]
 
         return ResolveHandle(materialize=materialize)
 

@@ -79,6 +79,18 @@ class CpuConflictSet:
             self.set_oldest_version(new_window_start)
         return statuses
 
+    def conflicting_ranges(self, txn):
+        """The subset of ``txn``'s read ranges that overlap a write newer
+        than its read version; called right after the resolve that
+        rejected it, so the batch's accepted writes count too."""
+        out = []
+        for rb, re_ in txn.read_ranges():
+            for wb, we, wv in self._entries:
+                if wv > txn.read_version and rb < we and wb < re_:
+                    out.append((rb, re_))
+                    break
+        return out
+
     def set_oldest_version(self, version):
         """Advance the MVCC window (monotone); prune entries no read can
         see anymore."""

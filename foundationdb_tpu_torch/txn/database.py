@@ -1,0 +1,90 @@
+"""Database handle + retry loop.
+
+Ref parity: fdbclient Database/DatabaseContext plus the Python binding's
+``@fdb.transactional`` retry protocol (bindings/python/fdb/impl.py):
+run the function, commit, catch retryable errors via on_error, loop.
+"""
+
+from foundationdb_tpu_torch.core.errors import FDBError
+from foundationdb_tpu_torch.txn.transaction import Transaction
+
+
+def retry_loop(tr, fn):
+    """Run ``fn(tr)`` and commit until it succeeds; ``on_error``
+    re-raises what is not retryable."""
+    while True:
+        try:
+            result = fn(tr)
+            tr.commit()
+            return result
+        except FDBError as e:
+            tr.on_error(e)
+
+
+class Database:
+    def __init__(self, cluster):
+        self._cluster = cluster
+
+    @property
+    def _knobs(self):
+        return self._cluster.knobs
+
+    def create_transaction(self):
+        return Transaction(self)
+
+    def run(self, fn):
+        """Execute ``fn(tr)`` transactionally with automatic retries."""
+        return retry_loop(self.create_transaction(), fn)
+
+    transact = run
+
+    # one-shot conveniences (binding parity: db[key] etc.)
+    def get(self, key):
+        return self.run(lambda tr: tr.get(key))
+
+    def set(self, key, value):
+        self.run(lambda tr: tr.set(key, value))
+
+    def clear(self, key):
+        self.run(lambda tr: tr.clear(key))
+
+    def clear_range(self, begin, end):
+        self.run(lambda tr: tr.clear_range(begin, end))
+
+    def get_range(self, begin, end, **kw):
+        return self.run(lambda tr: tr.get_range(begin, end, **kw))
+
+    def get_range_startswith(self, prefix, **kw):
+        return self.run(lambda tr: tr.get_range_startswith(prefix, **kw))
+
+    def get_key(self, selector):
+        return self.run(lambda tr: tr.get_key(selector))
+
+    def watch(self, key):
+        out = {}
+
+        def _w(tr):
+            out["w"] = tr.watch(key)
+
+        self.run(_w)
+        return out["w"]
+
+    def add(self, key, param):
+        self.run(lambda tr: tr.add(key, param))
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            return self.get_range(key.start, key.stop)
+        return self.get(key)
+
+    def __setitem__(self, key, value):
+        self.set(key, value)
+
+    def __delitem__(self, key):
+        if isinstance(key, slice):
+            self.clear_range(key.start, key.stop)
+        else:
+            self.clear(key)
+
+    def status(self):
+        return self._cluster.status()

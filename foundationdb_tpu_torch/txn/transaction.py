@@ -1,0 +1,576 @@
+"""Client Transaction: snapshot reads, read-your-writes, OCC commit.
+
+Ref parity: fdbclient/NativeAPI.actor.cpp (Transaction) layered with
+fdbclient/ReadYourWrites.actor.cpp, in the shape of FDB's Python binding
+(bindings/python/fdb/impl.py): tr[key], tr[b:e], tr.get_range, key
+selectors, atomic ops, versionstamps, the snapshot view, watches and the
+on_error retry protocol.
+
+At commit the client encodes its conflict ranges into flat limb blobs
+(core/flatpack.py) when ``commit_pack_path="flat"``, so the proxy and
+packer never re-parse a key. Special keys, transaction repair, tenants,
+tags, idempotency ids and tracing are not ported yet.
+"""
+
+import time
+
+from foundationdb_tpu_torch.core import flatpack
+from foundationdb_tpu_torch.core.commit import CommitRequest
+from foundationdb_tpu_torch.core.errors import FDBError, err
+from foundationdb_tpu_torch.core.keys import (
+    MAX_KEY_SIZE,
+    MAX_VALUE_SIZE,
+    key_successor,
+    strinc,
+)
+from foundationdb_tpu_torch.core.mutations import Mutation, Op
+from foundationdb_tpu_torch.core.versions import Versionstamp
+from foundationdb_tpu_torch.txn.futures import FutureRange, FutureValue
+from foundationdb_tpu_torch.txn.rows import WriteMap
+from foundationdb_tpu_torch.utils.backoff import Backoff
+
+
+def _check_key(key, limit=MAX_KEY_SIZE):
+    key = bytes(key)
+    if len(key) > limit:
+        raise err("key_too_large")
+    return key
+
+
+def _check_value(value, limit=MAX_VALUE_SIZE):
+    value = bytes(value)
+    if len(value) > limit:
+        raise err("value_too_large")
+    return value
+
+
+class TransactionOptions:
+    def __init__(self, tr):
+        self._tr = tr
+
+    def set_read_your_writes_disable(self):
+        self._tr._ryw_disabled = True
+
+    def set_next_write_no_write_conflict_range(self):
+        self._tr._next_write_no_conflict = True
+
+    def set_report_conflicting_keys(self):
+        self._tr._report_conflicting_keys = True
+
+    def set_retry_limit(self, n):
+        self._tr._retry_limit = int(n)
+
+    def set_max_retry_delay(self, seconds):
+        self._tr._max_retry_delay = float(seconds)
+
+
+
+class _Snapshot:
+    """Snapshot-isolation view: reads add no read conflict ranges."""
+
+    def __init__(self, tr):
+        self._tr = tr
+
+    def get(self, key):
+        return self._tr.get(key, snapshot=True)
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            return self._tr.get_range(key.start, key.stop, snapshot=True)
+        return self._tr.get(key, snapshot=True)
+
+    def get_range(self, begin, end, **kw):
+        kw["snapshot"] = True
+        return self._tr.get_range(begin, end, **kw)
+
+    def get_key(self, selector):
+        return self._tr.get_key(selector, snapshot=True)
+
+    def get_range_startswith(self, prefix, **kw):
+        kw["snapshot"] = True
+        return self._tr.get_range_startswith(prefix, **kw)
+
+
+class Transaction:
+    def __init__(self, database):
+        self.db = database
+        self._reset()
+
+    @property
+    def _cluster(self):
+        return self.db._cluster
+
+    def _reset(self):
+        self._pending_reads = []  # issued reads not yet waited on
+        knobs = self.db._knobs
+        self._knobs = knobs
+        self._read_version = None
+        self._writes = WriteMap()
+        self._mutation_log = []  # [Mutation] in sequence order
+        self._read_conflicts = []  # [(begin, end)]
+        self._write_conflicts = []
+        self._committed_version = None
+        self._versionstamp = None
+        self._state = "active"  # active | committed | error | cancelled
+        self._ryw_disabled = False
+        self._next_write_no_conflict = False
+        self._report_conflicting_keys = False
+        self._retry_limit = None
+        self._max_retry_delay = knobs.max_retry_delay_s
+        self._backoff = Backoff(initial_s=knobs.initial_backoff_s,
+                                max_s=knobs.max_retry_delay_s,
+                                growth=knobs.backoff_growth)
+        self._retries = 0
+        self._size = 0
+        self._conflicting_ranges = None  # from a failed reporting commit
+        self._watches_pending = []
+        self._options = None
+        self._snapshot_view = None
+
+    @property
+    def options(self):
+        if self._options is None:
+            self._options = TransactionOptions(self)
+        return self._options
+
+    @property
+    def snapshot(self):
+        if self._snapshot_view is None:
+            self._snapshot_view = _Snapshot(self)
+        return self._snapshot_view
+
+    # ─────────────────────────── versions ─────────────────────────────
+    def get_read_version(self):
+        if self._read_version is None:
+            self._read_version = self._cluster.grv_proxy.get_read_version()
+        return self._read_version
+
+    def set_read_version(self, version):
+        self._read_version = int(version)
+
+    def get_committed_version(self):
+        if self._committed_version is None:
+            raise err("no_commit_version")
+        return self._committed_version
+
+    def get_versionstamp(self):
+        """A callable giving the txn's 10-byte versionstamp after commit
+        (the binding returns a future)."""
+        return self._require_versionstamp
+
+    def _require_versionstamp(self):
+        if self._versionstamp is None:
+            raise err("no_commit_version")
+        return self._versionstamp
+
+    # ───────────────────────────── reads ──────────────────────────────
+    def _guard(self):
+        if self._state in ("committed", "committing"):
+            raise err("used_during_commit")
+        if self._state == "cancelled":
+            raise err("transaction_cancelled")
+
+    def _read_future(self, key, rv, snapshot, fold_entry=None):
+        """One storage point read; its read conflict range and RYW fold
+        happen on the consuming wait()."""
+        writes = self._writes if fold_entry is not None else None
+
+        def finalize(val, error):
+            if error is not None:
+                return None
+            if not snapshot:
+                self._add_read_conflict(key, key_successor(key))
+            return writes.fold(fold_entry, val) if writes is not None else val
+
+        try:
+            val, e = self._cluster.read_storage(key).get(key, rv), None
+        except FDBError as exc:
+            val, e = None, exc
+        fut = FutureValue(val, e, finalize)
+        self._pending_reads.append(fut)
+        return fut
+
+    def get_async(self, key, snapshot=False):
+        """Future-returning point read; :meth:`get` waits on it."""
+        self._guard()
+        key = _check_key(key)
+        rv = self.get_read_version()
+        if not self._ryw_disabled:
+            known, needs_base, entry = self._writes.lookup(key)
+            if known:
+                if not needs_base:
+                    return FutureValue(self._writes.fold(entry, None))
+                return self._read_future(key, rv, snapshot, fold_entry=entry)
+        return self._read_future(key, rv, snapshot)
+
+    def get(self, key, snapshot=False):
+        return self.get_async(key, snapshot=snapshot).wait()
+
+    def get_key_async(self, selector, snapshot=False):
+        """Future-returning key-selector resolution."""
+        self._guard()
+        rv = self.get_read_version()
+
+        def finalize(k, error):
+            if error is not None:
+                return None
+            if not snapshot and k not in (b"", b"\xff"):
+                self._add_read_conflict(k, key_successor(k))
+            return k
+
+        try:
+            k, e = self._cluster.read_storage().resolve_selector(selector, rv), None
+        except FDBError as exc:
+            k, e = None, exc
+        fut = FutureValue(k, e, finalize)
+        self._pending_reads.append(fut)
+        return fut
+
+    def get_key(self, selector, snapshot=False):
+        return self.get_key_async(selector, snapshot=snapshot).wait()
+
+    def get_range_async(self, begin, end, limit=0, reverse=False,
+                        snapshot=False, streaming_mode=None):
+        """Future-returning range read: snapshot rows overlaid with this
+        txn's writes as they stand when the read is issued. begin/end:
+        bytes or KeySelector (selectors resolve at issue)."""
+        self._guard()
+        rv = self.get_read_version()
+        st = self._cluster.read_storage()
+        if begin is None:
+            begin = b""
+        if end is None:
+            end = b"\xff"
+        b = begin if isinstance(begin, bytes) else st.resolve_selector(begin, rv)
+        e = end if isinstance(end, bytes) else st.resolve_selector(end, rv)
+        if b > e:
+            raise err("inverted_range")
+        overlaps = not self._ryw_disabled and (
+            self._writes.cleared_in(b, e)
+            or next(self._writes.overlay_range(b, e), None) is not None)
+        if overlaps:
+            # merge: fetch the whole base range, overlay the writes
+            cleared = list(self._writes.cleared_in(b, e))
+            overlay = list(self._writes.overlay_range(b, e))
+            req_limit, req_reverse = 0, False
+        else:
+            # no uncommitted writes in range: limit and reverse go to storage
+            cleared = overlay = None
+            req_limit, req_reverse = limit, reverse
+        writes = self._writes
+
+        def postprocess(rows):
+            if overlay is None:
+                return rows
+            d = dict(rows)
+            for cb, ce in cleared:
+                for k in [k for k in d if cb <= k < ce]:
+                    del d[k]
+            for k, entry in overlay:
+                base = d.get(k) if not entry.independent else None
+                v = writes.fold(entry, base)
+                if v is None:
+                    d.pop(k, None)
+                else:
+                    d[k] = v
+            out = sorted(d.items(), reverse=reverse)
+            return out[:limit] if limit else out
+
+        def finalize(rows, error):
+            if error is not None:
+                return None
+            out = postprocess(rows)
+            if not snapshot:
+                # the conflict range covers what was actually observed
+                if limit and out:
+                    hi = key_successor(out[-1][0]) if not reverse else e
+                    lo = b if not reverse else out[-1][0]
+                    self._add_read_conflict(lo, hi)
+                else:
+                    self._add_read_conflict(b, e)
+            return out
+
+        try:
+            rows, exc = st.get_range(b, e, rv, limit=req_limit,
+                                     reverse=req_reverse), None
+        except FDBError as x:
+            rows, exc = None, x
+        fut = FutureRange(rows, exc, finalize)
+        self._pending_reads.append(fut)
+        return fut
+
+    def get_range(self, begin, end, limit=0, reverse=False, snapshot=False,
+                  streaming_mode=None):
+        """Merged range read → list[(key, value)]."""
+        return self.get_range_async(begin, end, limit=limit, reverse=reverse,
+                                    snapshot=snapshot).wait()
+
+    def get_range_startswith(self, prefix, **kw):
+        prefix = bytes(prefix)
+        return self.get_range(prefix, strinc(prefix), **kw)
+
+    # ───────────────────────────── writes ─────────────────────────────
+    def _add_read_conflict(self, begin, end):
+        self._read_conflicts.append((begin, end))
+
+    def _add_write_conflict(self, begin, end):
+        if self._next_write_no_conflict:
+            self._next_write_no_conflict = False
+            return
+        self._write_conflicts.append((begin, end))
+
+    def add_read_conflict_range(self, begin, end):
+        self._guard()
+        self._read_conflicts.append((bytes(begin), bytes(end)))
+
+    def add_read_conflict_key(self, key):
+        self.add_read_conflict_range(key, key_successor(key))
+
+    def add_write_conflict_range(self, begin, end):
+        self._guard()
+        self._write_conflicts.append((bytes(begin), bytes(end)))
+
+    def add_write_conflict_key(self, key):
+        self.add_write_conflict_range(key, key_successor(key))
+
+    def _log_mutation(self, m):
+        self._mutation_log.append(m)
+        self._size += len(m.key) + len(m.param or b"")
+        if self._size > self._knobs.transaction_size_limit:
+            raise err("transaction_too_large")
+
+    def set(self, key, value):
+        self._guard()
+        key = _check_key(key, self._knobs.key_size_limit)
+        value = _check_value(value, self._knobs.value_size_limit)
+        self._writes.set(key, value)
+        self._log_mutation(Mutation(Op.SET, key, value))
+        self._add_write_conflict(key, key + b"\x00")
+
+    def clear(self, key):
+        self._guard()
+        key = _check_key(key)
+        self._writes.clear(key)
+        self._log_mutation(Mutation(Op.CLEAR_RANGE, key, key_successor(key)))
+        self._add_write_conflict(key, key_successor(key))
+
+    def clear_range(self, begin, end):
+        self._guard()
+        begin, end = _check_key(begin), _check_key(end)
+        if begin > end:
+            raise err("inverted_range")
+        self._writes.clear_range(begin, end)
+        self._log_mutation(Mutation(Op.CLEAR_RANGE, begin, end))
+        self._add_write_conflict(begin, end)
+
+    def clear_range_startswith(self, prefix):
+        prefix = bytes(prefix)
+        self.clear_range(prefix, strinc(prefix))
+
+    def _atomic(self, op, key, param):
+        self._guard()
+        key = _check_key(key)
+        param = bytes(param)
+        self._writes.atomic(op, key, param)
+        self._log_mutation(Mutation(op, key, param))
+        self._add_write_conflict(key, key_successor(key))
+
+    def add(self, key, param):
+        self._atomic(Op.ADD, key, param)
+
+    def bit_and(self, key, param):
+        self._atomic(Op.BIT_AND, key, param)
+
+    def bit_or(self, key, param):
+        self._atomic(Op.BIT_OR, key, param)
+
+    def bit_xor(self, key, param):
+        self._atomic(Op.BIT_XOR, key, param)
+
+    def min(self, key, param):
+        self._atomic(Op.MIN, key, param)
+
+    def max(self, key, param):
+        self._atomic(Op.MAX, key, param)
+
+    def byte_min(self, key, param):
+        self._atomic(Op.BYTE_MIN, key, param)
+
+    def byte_max(self, key, param):
+        self._atomic(Op.BYTE_MAX, key, param)
+
+    def append_if_fits(self, key, param):
+        self._atomic(Op.APPEND_IF_FITS, key, param)
+
+    def compare_and_clear(self, key, param):
+        self._atomic(Op.COMPARE_AND_CLEAR, key, param)
+
+    def set_versionstamped_key(self, key, value):
+        self._guard()
+        # the key is known only at commit, so it declares no write
+        # conflict (versionstamped keys are unique)
+        self._log_mutation(Mutation(Op.SET_VERSIONSTAMPED_KEY, key, value))
+
+    def set_versionstamped_value(self, key, value):
+        self._guard()
+        key = _check_key(key)
+        self._log_mutation(Mutation(Op.SET_VERSIONSTAMPED_VALUE, key, value))
+        self._add_write_conflict(key, key_successor(key))
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            return self.get_range(key.start, key.stop)
+        return self.get(key)
+
+    def __setitem__(self, key, value):
+        self.set(key, value)
+
+    def __delitem__(self, key):
+        if isinstance(key, slice):
+            self.clear_range(key.start, key.stop)
+        else:
+            self.clear(key)
+
+    def get_approximate_size(self):
+        """The commit payload this transaction has accumulated so far."""
+        self._guard()
+        return self._size
+
+    # ─────────────────────────── watches ──────────────────────────────
+    def watch(self, key):
+        """Register interest in a key's changes; active after commit."""
+        self._guard()
+        key = _check_key(key)
+        handle = _WatchHandle(key, self.get(key, snapshot=True))
+        self._watches_pending.append(handle)
+        return handle
+
+    def _activate_watches(self):
+        for h in self._watches_pending:
+            h._bind(self._cluster.read_storage(h.key).watch(h.key, h.seen_value))
+        self._watches_pending = []
+
+    # ─────────────────────────── commit ───────────────────────────────
+    def _drain_reads(self):
+        """Settle every issued read before the commit request is built,
+        so each adds its conflict range; per-read errors stay with
+        their futures."""
+        pending, self._pending_reads = self._pending_reads, []
+        for fut in pending:
+            try:
+                fut.wait()
+            except FDBError:
+                pass
+
+    def _build_commit_request(self):
+        self._drain_reads()
+        # a read-free txn needs no GRV: the proxy assigns its read
+        # version (the resolver compares nothing against it)
+        if self._read_version is None and not self._read_conflicts:
+            rv = None
+        else:
+            rv = self.get_read_version()
+        rcr = _coalesce(self._read_conflicts)
+        wcr = _coalesce(self._write_conflicts)
+        flat = None
+        if self._knobs.commit_pack_path == "flat":
+            flat = flatpack.encode_conflicts(rcr, wcr, self._knobs.key_limbs)
+        return CommitRequest(
+            read_version=rv,
+            mutations=list(self._mutation_log),
+            read_conflict_ranges=rcr,
+            write_conflict_ranges=wcr,
+            report_conflicting_keys=self._report_conflicting_keys,
+            flat_conflicts=flat,
+        )
+
+    def commit(self):
+        self._guard()
+        self._drain_reads()
+        if not self._mutation_log and not self._write_conflicts:
+            # read-only: nothing to resolve
+            self._state = "committed"
+            self._activate_watches()
+            return
+        result = self._cluster.commit_proxy.commit(self._build_commit_request())
+        if isinstance(result, FDBError):
+            self._state = "error"
+            self._conflicting_ranges = getattr(
+                result, "conflicting_key_ranges", None)
+            raise result
+        self._committed_version = result
+        self._versionstamp = Versionstamp.from_version(result).tr_version
+        self._state = "committed"
+        self._activate_watches()
+
+    def on_error(self, error):
+        """The retry protocol (ref: Transaction::onError): back off and
+        reset for retryable errors, re-raise others."""
+        if not isinstance(error, FDBError) or not error.is_retryable:
+            raise error
+        self._retries += 1
+        if self._retry_limit is not None and self._retries > self._retry_limit:
+            raise error
+        self._backoff.max_s = self._max_retry_delay
+        self._backoff.sleep()
+        # the retry count, backoff schedule and these options survive the
+        # reset, as in the reference binding
+        keep = (self._retries, self._backoff, self._retry_limit,
+                self._max_retry_delay)
+        self._reset()
+        (self._retries, self._backoff, self._retry_limit,
+         self._max_retry_delay) = keep
+
+    def reset(self):
+        self._reset()
+
+    def cancel(self):
+        """Ref: fdb_transaction_cancel — further use raises 1025 until
+        reset()."""
+        self._state = "cancelled"
+        self._pending_reads = []
+
+
+class _WatchHandle:
+    """Client-side watch future (ref: Watch in NativeAPI)."""
+
+    def __init__(self, key, seen_value):
+        self.key = key
+        self.seen_value = seen_value
+        self._watch = None
+
+    def _bind(self, storage_watch):
+        self._watch = storage_watch
+
+    @property
+    def active(self):
+        return self._watch is not None
+
+    def is_set(self):
+        return self._watch is not None and self._watch.fired
+
+    def wait(self, timeout=None, poll=0.001):
+        """Block until fired (in-process commits fire synchronously)."""
+        if self._watch is None:
+            raise err("operation_failed")
+        start = time.monotonic()
+        poller = Backoff(initial_s=poll, max_s=0.02, growth=1.5)
+        while not self._watch.fired:
+            if timeout is not None and time.monotonic() - start > timeout:
+                raise err("timed_out")
+            poller.sleep()
+        return True
+
+
+def _coalesce(ranges):
+    """Sort and merge overlapping conflict ranges."""
+    if len(ranges) <= 1:
+        return list(ranges)
+    rs = sorted(ranges)
+    out = [list(rs[0])]
+    for b, e in rs[1:]:
+        if b <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([b, e])
+    return [(b, e) for b, e in out]

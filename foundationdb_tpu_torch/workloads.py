@@ -14,17 +14,26 @@ lag of up to ``lag`` versions behind the batch's commit version, and a
 - :func:`mixed`: up to 4 point reads, 4 point writes, 2 range reads and
   2 range writes per txn.
 
+For the database (server/cluster.py), the same streams become client
+commit requests (:func:`commit_requests`), and :func:`preload_requests`
+loads ``user%08d`` rows as YCSB's 1 KB records (10 fields of 100 bytes)
+in batches of blind sets.
+
 Everything is drawn from ``numpy.random.default_rng(seed)``.
 """
 
 import numpy as np
 
+from foundationdb_tpu_torch.core import flatpack
+from foundationdb_tpu_torch.core.commit import CommitRequest
+from foundationdb_tpu_torch.core.mutations import Mutation, Op
 from foundationdb_tpu_torch.core.versions import MAX_READ_TRANSACTION_LIFE_VERSIONS
 from foundationdb_tpu_torch.resolver.skiplist import TxnRequest
 
 NKEYS = 1_000_000
 THETA = 0.99
 FIRST_VERSION = 10_000_000
+FIELDS, FIELD_BYTES = 10, 100  # a YCSB record: 10 fields of 100 bytes
 
 
 def user_key(i):
@@ -122,3 +131,53 @@ def mixed(nbatches, txns=1024, seed=0, nkeys=NKEYS, theta=THETA, lag=1000,
 
 
 STREAMS = {"ycsb_a": ycsb_a, "range_heavy": range_heavy, "mixed": mixed}
+
+
+def records(n, seed=0, record_bytes=FIELDS * FIELD_BYTES):
+    """``n`` random YCSB records of ``record_bytes`` each."""
+    blob = np.random.default_rng(seed).bytes(n * record_bytes)
+    return [blob[i:i + record_bytes]
+            for i in range(0, n * record_bytes, record_bytes)]
+
+
+def _request(read_version, mutations, reads, writes, key_limbs):
+    """A CommitRequest as a client builds it, with its flat blobs."""
+    return CommitRequest(
+        read_version, mutations, reads, writes,
+        flat_conflicts=flatpack.encode_conflicts(reads, writes, key_limbs))
+
+
+def preload_requests(nkeys, key_limbs, batch=1024, seed=0,
+                     record_bytes=FIELDS * FIELD_BYTES):
+    """Batches of blind-set CommitRequests loading ``user%08d`` rows
+    0..nkeys-1 with random records (read-free: the proxy assigns their
+    read version). A generator: one batch's records at a time."""
+    for start in range(0, nkeys, batch):
+        n = min(batch, nkeys - start)
+        vals = records(n, seed=seed + start, record_bytes=record_bytes)
+        out = []
+        for i, v in zip(range(start, start + n), vals):
+            k = user_key(i)
+            out.append(_request(None, [Mutation(Op.SET, k, v)], [],
+                                [(k, k + b"\x00")], key_limbs))
+        yield out
+
+
+def commit_requests(txns, commit_version, read_version, key_limbs, value):
+    """A stream batch (``txns`` at ``commit_version``) as client commit
+    requests: conflict ranges are the txn's (a point as ``[k, k+\\x00)``),
+    mutations a set of ``value`` per point write and a clear of each
+    range write. Each read lags ``read_version`` as far as the txn's
+    lags its batch; a read-free txn leaves its read version to the
+    proxy."""
+    out = []
+    for t in txns:
+        reads = list(t.read_ranges())
+        writes = list(t.write_ranges())
+        muts = [Mutation(Op.SET, k, value) for k in t.point_writes]
+        muts += [Mutation(Op.CLEAR_RANGE, b, e) for b, e in t.range_writes]
+        rv = None
+        if reads:
+            rv = max(0, read_version - (commit_version - 1 - t.read_version))
+        out.append(_request(rv, muts, reads, writes, key_limbs))
+    return out

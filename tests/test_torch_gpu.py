@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card, each against its plain PyTorch version.
+"""The CUDA kernels on the card, each against its plain PyTorch version,
+and the Resolver and the database on the card against the CPU.
 
 Every case is marked ``gpu`` and asks for the ``cuda`` fixture, which
 skips where no card is present: the decision is made when the test runs,
@@ -10,10 +11,15 @@ runs on a machine that has only PyTorch:
 Outputs are bits and statuses, so the tolerance is 0.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+import foundationdb_tpu_torch as tfdb
 from foundationdb_tpu_torch.convert import state_to_numpy, tensor_from_numpy
 from foundationdb_tpu_torch.core.options import Knobs
 from foundationdb_tpu_torch.ops import _kernels
@@ -37,6 +43,8 @@ from foundationdb_tpu_torch.ops.ring import (
     ring_slot_hits,
 )
 from foundationdb_tpu_torch.resolver.resolver import Resolver
+from foundationdb_tpu_torch.server.cluster import Cluster
+from foundationdb_tpu_torch import workloads
 from foundationdb_tpu_torch.workloads import STREAMS
 
 from torch_ring_cases import RING_SCENARIOS, V0, ring_scenario
@@ -222,3 +230,115 @@ def test_wrappers_do_not_sync_with_the_host(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(got_r, ring_hits_plain(*args))
     assert torch.equal(got_a, fused_accept_plain(*case))
+
+
+CLUSTER_KNOBS = dict(batch_txn_capacity=64, key_limbs=4, hash_table_bits=14,
+                     range_ring_capacity=256, coarse_buckets_bits=10)
+
+
+def _drive_cluster(c, name):
+    """A small preload, client transactions (a range read and a set, and
+    an OCC pair), then a stream's batches as client commit requests:
+    three through commit_batch, ten through one commit_batches. Returns
+    every outcome, the rows and the resolver state."""
+    results = []
+    for reqs in workloads.preload_requests(300, c.knobs.key_limbs, batch=64,
+                                           record_bytes=16):
+        results.append(c.commit_proxy.commit_batch(reqs))
+    db = c.database()
+    rng = np.random.default_rng(4)
+    for i in rng.integers(0, 290, 8).tolist():
+        def txn(tr, i=i):
+            rows = tr.get_range(workloads.user_key(i), workloads.user_key(i + 8))
+            tr.set(workloads.user_key(i), b"%d" % len(rows))
+            return rows
+        results.append(db.run(txn))
+    t1, t2 = db.create_transaction(), db.create_transaction()
+    t1.get(b"user00000001")
+    t2.set(b"user00000001", b"t2")
+    t2.commit()
+    t1.set(b"user00000002", b"t1")
+    try:
+        t1.commit()
+    except tfdb.FDBError as e:
+        results.append(e.code)
+    stream = STREAMS[name](13, txns=64, seed=2, nkeys=300, lag=900)
+
+    def reqs(b):
+        txns, cv, _ = b
+        return workloads.commit_requests(txns, cv, c.sequencer.committed_version,
+                                         c.knobs.key_limbs, b"w")
+
+    for b in stream[:3]:
+        results.append(c.commit_proxy.commit_batch(reqs(b)))
+    backlog = c.commit_proxy.commit_batches([reqs(b) for b in stream[3:]])
+    results.extend(backlog)
+    out = [[r.code if isinstance(r, tfdb.FDBError) else r for r in res]
+           if isinstance(res, list) else res for res in results]
+    return out, db.get_range(b"", b"\xff"), state_to_numpy(c.resolvers[0].state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["range_heavy", "mixed"])
+@pytest.mark.parametrize("pack_path", ["flat", "legacy"])
+def test_cluster_on_card_equals_cpu(cuda, name, pack_path):
+    """The database on cuda:0 (its default device) and with device="cpu"
+    give the same outcomes, rows and resolver state."""
+    gpu = Cluster(commit_pack_path=pack_path, **CLUSTER_KNOBS)
+    assert gpu.device == torch.device("cuda:0")
+    cpu = Cluster(device="cpu", commit_pack_path=pack_path, **CLUSTER_KNOBS)
+    got, want = _drive_cluster(gpu, name), _drive_cluster(cpu, name)
+    assert got[0] == want[0]
+    assert 1020 in got[0]
+    assert got[1] == want[1]
+    for f, a, b in zip(ck.ResolverState._fields, got[2], want[2]):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert (gpu.commit_proxy.pack_flat_batches > 0) == (pack_path == "flat")
+
+
+@pytest.mark.gpu
+def test_proxy_range_traffic_launches_fused_accept(cuda):
+    """Point-only commits take the fast variant (no kernel); a range read
+    through a client transaction, and range writes through commit_batch,
+    launch fused_accept."""
+    c = Cluster(**CLUSTER_KNOBS)
+    db = c.database()
+    _kernels.reset_launches()
+    db[b"user00000001"] = b"a"
+    assert _kernels.launches["fused_accept"] == 0
+    db.run(lambda tr: (tr.get_range(b"user", b"userz"), tr.set(b"x", b"1")))
+    assert _kernels.launches["fused_accept"] == 1
+    stream = STREAMS["range_heavy"](1, txns=64, seed=3, nkeys=300)
+    txns, cv, _ = stream[0]
+    c.commit_proxy.commit_batch(workloads.commit_requests(
+        txns, cv, c.sequencer.committed_version, c.knobs.key_limbs, b"w"))
+    assert _kernels.launches["fused_accept"] == 2
+    assert _kernels.launches["ring_hits"] == 0
+
+
+def test_cluster_and_open_raise_without_a_card():
+    """With no card visible, Cluster() and open() raise; only
+    device="cpu" runs on the CPU. In a subprocess with
+    CUDA_VISIBLE_DEVICES="", so it holds on any machine."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import foundationdb_tpu_torch as fdb\n"
+        "from foundationdb_tpu_torch.server.cluster import Cluster\n"
+        "for f in (Cluster, fdb.open):\n"
+        "    try:\n"
+        "        f()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('no error without a card')\n"
+        "db = fdb.open(device='cpu', batch_txn_capacity=8,\n"
+        "              hash_table_bits=10, range_ring_capacity=16,\n"
+        "              coarse_buckets_bits=6)\n"
+        "db[b'k'] = b'v'\n"
+        "assert db[b'k'] == b'v'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

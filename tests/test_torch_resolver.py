@@ -242,13 +242,18 @@ def test_packer_matches_jax_packer(use_native, key_limbs):
 
 def test_port_imports_without_jax_or_the_jax_package():
     """The port and every one of its modules import with ``jax`` and
-    ``foundationdb_tpu`` blocked."""
+    ``foundationdb_tpu`` blocked: the cluster, the client transaction and
+    the package's ``open`` by name, then every module of the package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['foundationdb_tpu'] = None\n"
         "import foundationdb_tpu_torch as p\n"
+        "from foundationdb_tpu_torch import open, transactional\n"
+        "import foundationdb_tpu_torch.server.cluster\n"
+        "import foundationdb_tpu_torch.txn.transaction\n"
+        "assert callable(open) and callable(transactional)\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
@@ -260,7 +265,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 35
 
 
 @pytest.mark.parametrize("name", sorted(workloads.STREAMS))
