@@ -41,7 +41,22 @@ Phases:
      commit_batch call spends its time (host ms by stage, the card's
      busy share); then a card cluster and a CPU cluster, given the same
      small preload and the same first mixed batches, must give the same
-     outcomes, rows and resolver state.
+     outcomes, rows and resolver state;
+  9. the batching commit pipeline, its launch counts zeroed first:
+     Cluster(commit_pipeline="thread") on the card with default knobs
+     (depth 2, batch cap 1024, 0.5 ms window); PIPE_PRELOAD ``user%08d``
+     rows of 1 KB from PIPE_CLIENTS threads of 100-row db.run
+     transactions; then PIPE_TXNS mako-style transactions (BASELINE
+     config 3: GRV, get, set of a 100-byte field, Zipfian keys) and
+     PIPE_TXNS range-heavy ones (config 5's shapes: an 8-key get_range
+     and a 4-key clear_range) on the same threads, the range stream
+     once more with the batch cap at PIPE_SMALL_CAP so windows split
+     into backlog groups that pipeline (fused_accept must launch and
+     groups must pipeline); for each stream committed txns/s, retries,
+     client and submit→settle latency, batch sizes, the pipeline's
+     effective depth and stage means; a 3-proxy fleet's exact
+     read-modify-write counters; one deterministic _run_batch on a card
+     and a CPU thread cluster: outcomes, rows and state must be equal.
 
 Any failure raises and the script exits non-zero; without a card it exits
 non-zero before printing any result. The line before the last is
@@ -758,6 +773,354 @@ def phase_cluster_replay(streams):
         f"outcomes and 12 state fields)")
 
 
+PIPE_PRELOAD = 1_000_000  # BASELINE config 2's key count, 1 KB rows
+PIPE_PRELOAD_ROWS = 100  # rows per blind-set preload transaction
+PIPE_CLIENTS = 64  # client threads (BASELINE config 3: 64 clients)
+PIPE_TXNS = 20_032  # per client stream: 313 transactions a thread
+FLEET_PROXIES = 3
+FLEET_INCREMENTS = 200  # read-modify-write increments per thread
+FLEET_COUNTERS = 16
+PIPE_REPLAY_REQUESTS = 128  # 8 chunks of 16: two pipelined groups of 4
+PIPE_SMALL_CAP = 16  # requests per chunk in the pipelined range stream
+CLIENT_DEADLINE_S = 400  # a client stream that outlasts this has hung
+
+
+def run_clients(n, body):
+    """``body(i)`` on ``n`` daemon threads started together; returns the
+    wall seconds. Raises the first client error, or if a thread hangs."""
+    import threading
+
+    errors = []
+    start = threading.Barrier(n + 1)
+    deadline = time.monotonic() + CLIENT_DEADLINE_S
+
+    def run(i):
+        try:
+            start.wait(60)
+            body(i)
+        except BaseException as e:
+            errors.append(e)
+
+    ts = [threading.Thread(target=run, args=(i,), daemon=True)
+          for i in range(n)]
+    for t in ts:
+        t.start()
+    start.wait(60)
+    t0 = time.perf_counter()
+    for t in ts:
+        t.join(max(0.0, deadline - time.monotonic()))
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in ts):
+        raise RuntimeError("a client thread hung")
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def pipeline_report(c, wall, txns, walls_ms, retries, launches0, label):
+    """One client stream's numbers: committed txns/s, retries, client
+    latency, the batcher's submit→settle latency, batch sizes, the
+    pipeline's effective depth and stage split, and the kernel launches
+    of the stream."""
+    from foundationdb_tpu_torch.ops import _kernels
+
+    bp = c.commit_proxy
+    summ = bp.stage_summary()
+    r = dict(
+        txns=txns, wall_s=wall, committed_txns_per_s=txns / wall,
+        conflicts_retried=retries,
+        client_p50_ms=float(np.percentile(walls_ms, 50)),
+        client_p99_ms=float(np.percentile(walls_ms, 99)),
+        batches=bp.batches_committed,
+        mean_batch=bp.txns_batched / max(bp.batches_committed, 1),
+        max_batch=bp.max_batch_seen,
+        launches={k: v - launches0[k] for k, v in _kernels.launches.items()},
+        stages=summ)
+    log(f"[pipeline {label}] {txns} txns on {PIPE_CLIENTS} threads in "
+        f"{wall:.3f} s: {r['committed_txns_per_s']:.1f} committed txns/s, "
+        f"{retries} conflicts retried; client p50 {r['client_p50_ms']:.3f} "
+        f"/ p99 {r['client_p99_ms']:.3f} ms; submit->settle p50 "
+        f"{summ['commit_e2e_p50_ms']:.3f} / p99 {summ['commit_e2e_p99_ms']:.3f}"
+        f" ms; {r['batches']} batches, mean {r['mean_batch']:.2f} txns, max "
+        f"{r['max_batch']}; pipeline depth effective "
+        f"{summ['pipeline_depth_effective']} over {summ['pipelined_groups']} "
+        f"pipelined groups; stage ms pack {summ['stage_pack_ms']}, dispatch "
+        f"{summ['stage_dispatch_ms']}, resolve {summ['stage_resolve_ms']}, "
+        f"apply {summ['stage_apply_ms']}; launches {r['launches']}")
+    return r
+
+
+def timed_client_stream(c, db, make_txn):
+    """PIPE_TXNS transactions, PIPE_TXNS / PIPE_CLIENTS on each thread:
+    ``make_txn(i, j)`` gives thread i's j-th transaction body. Returns
+    the report's raw inputs."""
+    from foundationdb_tpu_torch.ops import _kernels
+
+    per = PIPE_TXNS // PIPE_CLIENTS
+    walls = [[] for _ in range(PIPE_CLIENTS)]
+    retries = [0] * PIPE_CLIENTS
+
+    def client(i):
+        for j in range(per):
+            fn = make_txn(i, j)
+            tries = [0]
+
+            def body(tr):
+                tries[0] += 1
+                return fn(tr)
+
+            t0 = time.perf_counter()
+            db.run(body)
+            walls[i].append((time.perf_counter() - t0) * 1e3)
+            retries[i] += tries[0] - 1
+
+    c.commit_proxy.reset_stats()
+    launches0 = dict(_kernels.launches)
+    wall = run_clients(PIPE_CLIENTS, client)
+    return wall, per * PIPE_CLIENTS, [w for ws in walls for w in ws], \
+        sum(retries), launches0
+
+
+def phase_pipeline():
+    """Phase 9: the batching commit pipeline on the card. Launch counts
+    are zeroed at the start and read at the end."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.ops import _kernels
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    _kernels.reset_launches()
+    report = {}
+    c = Cluster(commit_pipeline="thread")
+    db = c.database()
+    bp = c.commit_proxy
+    log(f"[pipeline] Cluster(commit_pipeline='thread') on {c.device}: depth "
+        f"{bp.pipeline_depth}, batch cap {bp.max_batch}, interval "
+        f"{bp.interval_s * 1e3} ms")
+    n_txn = PIPE_PRELOAD // PIPE_PRELOAD_ROWS
+
+    def preload(i):
+        for t in range(i, n_txn, PIPE_CLIENTS):
+            start = t * PIPE_PRELOAD_ROWS
+            vals = workloads.records(PIPE_PRELOAD_ROWS, seed=SEED + start)
+
+            def load(tr, start=start, vals=vals):
+                for k, v in enumerate(vals):
+                    tr.set(workloads.user_key(start + k), v)
+
+            db.run(load)
+
+    launches0 = dict(_kernels.launches)
+    wall = run_clients(PIPE_CLIENTS, preload)
+    report["preload"] = dict(
+        rows=PIPE_PRELOAD, txns=n_txn, wall_s=wall,
+        rows_per_s=PIPE_PRELOAD / wall, batches=bp.batches_committed,
+        mean_batch=bp.txns_batched / max(bp.batches_committed, 1),
+        max_batch=bp.max_batch_seen,
+        launches={k: v - launches0[k] for k, v in _kernels.launches.items()},
+        stages=bp.stage_summary())
+    r = report["preload"]
+    log(f"[pipeline preload] {PIPE_PRELOAD} rows of "
+        f"{workloads.FIELDS * workloads.FIELD_BYTES} B as {n_txn} "
+        f"{PIPE_PRELOAD_ROWS}-row db.run txns on {PIPE_CLIENTS} threads in "
+        f"{wall:.3f} s ({r['rows_per_s']:.1f} rows/s); {r['batches']} "
+        f"batches, mean {r['mean_batch']:.2f} txns, max {r['max_batch']}; "
+        f"launches {r['launches']}")
+    assert db[workloads.user_key(PIPE_PRELOAD - 1)] is not None
+    gc.collect()
+
+    field = workloads.FIELD_BYTES
+    cdf = workloads.zipfian_cdf(PIPE_PRELOAD, workloads.THETA)
+
+    def sampler(seed):
+        return workloads.zipfian_sampler(
+            PIPE_PRELOAD, workloads.THETA, np.random.default_rng(seed), cdf)
+
+    mako_keys = [sampler(SEED + 100 + i) for i in range(PIPE_CLIENTS)]
+
+    def mako(i, j):
+        # BASELINE config 3: GRV, get, set of a 100-byte field, Zipfian
+        k = workloads.user_key(int(mako_keys[i](1)[0]))
+        new = bytes([65 + (i + j) % 26]) * field
+
+        def txn(tr):
+            v = tr.get(k)
+            tr.set(k, new + v[field:])
+
+        return txn
+
+    report["mako"] = pipeline_report(
+        c, *timed_client_stream(c, db, mako), "mako")
+
+    range_keys = [sampler(SEED + 200 + i) for i in range(PIPE_CLIENTS)]
+
+    def range_txn(i, j):
+        # BASELINE config 5's shapes: an 8-key scan and a 4-key clear
+        a, b = (int(x) for x in range_keys[i](2))
+
+        def txn(tr):
+            rows = tr.get_range(workloads.user_key(a), workloads.user_key(a + 8))
+            tr.clear_range(workloads.user_key(b), workloads.user_key(b + 4))
+            return len(rows)
+
+        return txn
+
+    report["range"] = pipeline_report(
+        c, *timed_client_stream(c, db, range_txn), "range")
+    assert report["range"]["launches"]["fused_accept"] > 0, \
+        "fused_accept never launched on the range-heavy client stream"
+    # at the 1024-request cap, 64 synchronous clients never queue more
+    # than one chunk, so no backlog group forms; with the cap at 16 their
+    # commits fill several chunks a window and the groups pipeline
+    bp.max_batch = PIPE_SMALL_CAP
+    report["range_cap16"] = pipeline_report(
+        c, *timed_client_stream(c, db, range_txn),
+        f"range, cap {PIPE_SMALL_CAP}")
+    r = report["range_cap16"]
+    assert r["launches"]["fused_accept"] > 0, \
+        "fused_accept never launched on the pipelined range-heavy stream"
+    assert r["stages"]["pipelined_groups"] > 0, \
+        "no group took the pipelined route"
+    assert c.storage.version == c.sequencer.committed_version
+    c.close()
+    del c, db, bp
+    gc.collect()
+
+    report["fleet"] = phase_fleet()
+    report["replay"] = phase_pipeline_replay()
+    launches = dict(_kernels.launches)
+    log(f"[pipeline] launches {launches}")
+    return report, launches
+
+
+def phase_fleet():
+    """Phase 9.4: a 3-proxy fleet on the card; 64 threads of exact
+    read-modify-write increments on 16 counters."""
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    c = Cluster(commit_pipeline="thread", n_commit_proxies=FLEET_PROXIES)
+    db = c.database()
+    keys = [b"counter%02d" % i for i in range(FLEET_COUNTERS)]
+    retries = [0] * PIPE_CLIENTS
+
+    def client(i):
+        for j in range(FLEET_INCREMENTS):
+            k = keys[(i * 7 + j) % FLEET_COUNTERS]
+            tries = [0]
+
+            def inc(tr):
+                tries[0] += 1
+                v = tr[k]
+                tr[k] = b"%d" % ((int(v) if v is not None else 0) + 1)
+
+            db.run(inc)
+            retries[i] += tries[0] - 1
+
+    wall = run_clients(PIPE_CLIENTS, client)
+    total = sum(int(db[k]) for k in keys)
+    want = PIPE_CLIENTS * FLEET_INCREMENTS
+    cp = c.commit_proxy
+    out = dict(increments=want, total=total, wall_s=wall,
+               committed_per_s=want / wall, retries=sum(retries),
+               per_member=[p.commit_count for p in cp.inners],
+               stages=cp.stage_summary())
+    log(f"[pipeline fleet] {FLEET_PROXIES} proxies, {PIPE_CLIENTS} threads x "
+        f"{FLEET_INCREMENTS} increments on {FLEET_COUNTERS} counters: total "
+        f"{total} of {want} in {wall:.3f} s ({out['committed_per_s']:.1f} "
+        f"increments/s, {out['retries']} retries); commits per member "
+        f"{out['per_member']}")
+    assert total == want, f"fleet counters {total} != {want}"
+    assert all(n > 0 for n in out["per_member"])
+    c.close()
+    return out
+
+
+def pipeline_stream(c, n):
+    """``n`` CommitRequests in user keyspace reaching every verdict:
+    blind writes, read-modify-writes of one hot key at one read version
+    (one commits, the rest conflict), 8-key range reads over keys the
+    stream writes, 4-key clears, and a read version older than the
+    window (1007). Built after a few commits through the cluster."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.core.mutations import Mutation, Op
+
+    db = c.database()
+    uk = workloads.user_key
+    limbs = c.knobs.key_limbs
+    db[uk(0)] = b"hot"
+    rv_old = c.grv_proxy.get_read_version()
+    for i in range(12):
+        db[uk(900_000 + i)] = b"pad"
+    rv = c.grv_proxy.get_read_version()
+    rng = np.random.default_rng(SEED + 9)
+    out = []
+    for i in range(n):
+        kind = i % 8
+        k = uk(1 + int(rng.integers(0, 4 * n)))
+        pt = [(k, k + b"\x00")]
+        if kind == 7:
+            out.append(workloads._request(rv_old, [Mutation(Op.SET, k, b"s")],
+                                          [(uk(0), uk(0) + b"\x00")], pt, limbs))
+        elif kind in (2, 3):
+            out.append(workloads._request(
+                rv, [Mutation(Op.SET, uk(0), b"h%d" % i)],
+                [(uk(0), uk(0) + b"\x00")], [(uk(0), uk(0) + b"\x00")], limbs))
+        elif kind == 4:
+            s = 1 + int(rng.integers(0, 4 * n))
+            out.append(workloads._request(rv, [Mutation(Op.SET, k, b"r")],
+                                          [(uk(s), uk(s + 8))], pt, limbs))
+        elif kind == 5:
+            s = 1 + int(rng.integers(0, 4 * n))
+            out.append(workloads._request(
+                rv, [Mutation(Op.CLEAR_RANGE, uk(s), uk(s + 4))], [],
+                [(uk(s), uk(s + 4))], limbs))
+        else:
+            out.append(workloads._request(rv, [Mutation(Op.SET, k, b"v")], [],
+                                          pt, limbs))
+    return out
+
+
+def phase_pipeline_replay():
+    """Phase 9.5: one deterministic _run_batch of pipeline_stream on a
+    card thread cluster and a CPU thread cluster, depth 2, four chunks a
+    group: outcomes, rows and the 12 state fields must be equal."""
+    from foundationdb_tpu_torch.convert import state_to_numpy
+    from foundationdb_tpu_torch.core.errors import FDBError
+    from foundationdb_tpu_torch.server.batcher import CommitFuture
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    def drive(device):
+        c = Cluster(device=device, commit_pipeline="thread",
+                    commit_batch_max=16, commit_pipeline_depth=2,
+                    max_read_transaction_life_versions=12_000)
+        try:
+            bp = c.commit_proxy
+            reqs = pipeline_stream(c, PIPE_REPLAY_REQUESTS)
+            bp._backlog_target = 4
+            pairs = [(r, CommitFuture(bp)) for r in reqs]
+            bp._run_batch(pairs)
+            bp.drain_pipeline()
+            out = [f.result(timeout=300) for _, f in pairs]
+            return ([("error", r.code) if isinstance(r, FDBError) else r
+                     for r in out], bp.stages.count("apply"),
+                    c.database().get_range(b"", b"\xff"),
+                    state_to_numpy(c.resolvers[0].state))
+        finally:
+            c.close()
+
+    gpu, cpu = drive(None), drive("cpu")
+    assert gpu[0] == cpu[0], "pipeline outcomes differ between card and CPU"
+    assert gpu[2] == cpu[2], "pipeline rows differ between card and CPU"
+    for f, a, b in zip(type(gpu[3])._fields, gpu[3], cpu[3]):
+        assert np.array_equal(a, b), f"pipeline state field {f} differs"
+    codes = {o[1] for o in gpu[0] if isinstance(o, tuple)}
+    assert {1007, 1020} <= codes and gpu[1] >= 2, (codes, gpu[1])
+    log(f"[pipeline replay] {PIPE_REPLAY_REQUESTS} requests, chunks of 16, "
+        f"depth 2, {gpu[1]} pipelined groups: card == CPU (outcomes with "
+        f"codes {sorted(codes)}, {len(gpu[2])} rows, 12 state fields)")
+    return dict(requests=PIPE_REPLAY_REQUESTS, pipelined_groups=gpu[1],
+                codes=sorted(codes))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -791,6 +1154,9 @@ def main():
     phase_replay(streams)
     cluster_report, cluster_launches = phase_cluster(streams)
     phase_cluster_replay(streams)
+    del streams
+    gc.collect()
+    pipeline_report_, pipeline_launches = phase_pipeline()
 
     kernels = []
     for name, src, replaces in (
@@ -802,7 +1168,8 @@ def main():
         head = cases[0]
         by_path = {"main": main_launches[name],
                    "ring_route": ring_launches[name],
-                   "cluster": cluster_launches[name]}
+                   "cluster": cluster_launches[name],
+                   "pipeline": pipeline_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -814,10 +1181,11 @@ def main():
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, cases=cases))
     summary = dict(card=card, main=main_report, ring_route=ring_report,
-                   cluster=cluster_report,
+                   cluster=cluster_report, pipeline=pipeline_report_,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
-    paths = {"fused_accept": ("main", "cluster"), "ring_hits": ("ring_route",)}
+    paths = {"fused_accept": ("main", "cluster", "pipeline"),
+             "ring_hits": ("ring_route",)}
     for k in kernels:
         for path in paths[k["name"]]:
             assert k["launches_by_path"][path] > 0, \

@@ -5,9 +5,11 @@ The PyTorch port of ``foundationdb_tpu``: the conflict-detection step of
 the Resolver runs on an NVIDIA card with the two Pallas TPU kernels
 rewritten by hand in CUDA C++ for Hopper (``csrc/``), the same verdicts
 bit for bit; around it, the sequencer, GRV and commit proxies, the log,
-storage and client transactions of the in-process cluster. The package
-imports ``torch`` and numpy only and keeps its own copy of every module
-it needs.
+storage and client transactions of the in-process cluster, with the
+batching commit pipeline that forms shared-version batches from
+concurrent clients (``commit_pipeline="thread"``). The package imports
+``torch`` and numpy only and keeps its own copy of every module it
+needs.
 
 Entry points: :func:`open` returns a Database whose resolver runs on
 ``cuda:0`` (``device="cpu"`` runs it on the CPU);
@@ -27,17 +29,25 @@ __all__ = ["FDBError", "KeyRange", "KeySelector", "key_successor", "open",
            "strinc", "transactional"]
 
 
-def open(cluster_file=None, device=None, **knobs):
+def open(cluster_file=None, device=None, commit_pipeline="sync",
+         commit_batch_max=None, commit_flush_after=4, n_commit_proxies=1,
+         **knobs):
     """Open a database and return a Database handle (ref parity:
     fdb.open() in bindings/python/fdb/__init__.py). The cluster runs
-    in-process; ``knobs`` are Knobs fields or Cluster arguments."""
+    in-process; ``commit_pipeline`` ("sync", "thread" or "manual"),
+    ``commit_batch_max``, ``commit_flush_after`` and
+    ``n_commit_proxies`` are passed to the Cluster, ``knobs`` are Knobs
+    fields."""
     if cluster_file is not None:
         raise NotImplementedError(
             "cluster_file: the RPC client is not ported; open() runs the "
             "cluster in-process")
     from foundationdb_tpu_torch.server.cluster import Cluster
 
-    return Cluster(device=device, **knobs).database()
+    return Cluster(device=device, commit_pipeline=commit_pipeline,
+                   commit_batch_max=commit_batch_max,
+                   commit_flush_after=commit_flush_after,
+                   n_commit_proxies=n_commit_proxies, **knobs).database()
 
 
 def transactional(func):

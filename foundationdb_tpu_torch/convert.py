@@ -32,14 +32,21 @@ _TO_NUMPY_WIDE = {
 }
 
 
-def tensor_from_numpy(a, device="cpu"):
+def tensor_from_numpy(a, device="cpu", non_blocking=False):
+    """A tensor on ``device`` from a numpy array, through a fresh host
+    copy in the tensor's dtype: the caller may refill ``a`` as soon as
+    this returns. ``non_blocking`` leaves out PyTorch's stream
+    synchronisation after a copy to a card. The fresh copy is pageable
+    memory, which CUDA stages into its own pinned buffer before the
+    call returns, so no host buffer is read afterwards either way
+    (staging may still wait on the stream)."""
     a = np.asarray(a)
     dtype = _TO_TORCH.get(a.dtype)
     if dtype is None:
         raise TypeError(f"no tensor dtype for numpy {a.dtype}")
     # np.array keeps 0-d scalars 0-d (ascontiguousarray would make them 1-d)
     t = torch.from_numpy(np.array(a, dtype=_TO_NUMPY_WIDE[dtype], order="C"))
-    return t.to(device)
+    return t.to(device, non_blocking=non_blocking)
 
 
 def tensor_to_numpy(t):
@@ -63,7 +70,8 @@ def state_to_numpy(state):
     return ResolverState(*(tensor_to_numpy(f) for f in state))
 
 
-def batch_from_numpy(batch, device="cpu"):
+def batch_from_numpy(batch, device="cpu", non_blocking=False):
     """ResolveBatch of tensors from a numpy (packer) ResolveBatch —
     single or stacked [B, ...]."""
-    return ResolveBatch(*(tensor_from_numpy(f, device) for f in batch))
+    return ResolveBatch(*(tensor_from_numpy(f, device, non_blocking)
+                          for f in batch))

@@ -41,6 +41,10 @@ class Knobs:
     # engages per batch only when every request carries blobs of the
     # resolver's width and the resolver accepts them.
     commit_pack_path: str = "flat"
+    # proxy-side intra-batch scheduling (server/scheduler.py): reorder a
+    # batch host-side so reads resolve before the writes they overlap.
+    # On by default, as in the reference; False commits in arrival order.
+    commit_batch_scheduling: bool = True
 
     # --- versions / MVCC ---
     max_read_transaction_life_versions: int = 5_000_000
@@ -54,6 +58,21 @@ class Knobs:
     max_retry_delay_s: float = 1.0
     initial_backoff_s: float = 0.01
     backoff_growth: float = 2.0
+
+    # --- proxy batching (server/batcher.py, server/grv.py) ---
+    commit_batch_interval_s: float = 0.0005
+    grv_batch_interval_s: float = 0.0005
+    # backlog groups in flight at once in a thread pipeline: group N+1
+    # packs and dispatches its resolve while group N logs and applies.
+    # 1 = the serial loop; manual mode always runs 1.
+    commit_pipeline_depth: int = 2
+    # a proxy-fleet version-gate turn unclaimed this long means a peer
+    # died between its grant and its advance: 1021, and the proxy kills
+    # itself (server/proxy.py GateTimeout)
+    gate_timeout_s: float = 60.0
+    # bounds the batcher's stranded-batch watchdog only (two commit
+    # deadlines plus a grace); the port has no RPC deadlines
+    rpc_deadline_commit_s: float = 15.0
 
 
 DEFAULT_KNOBS = Knobs()

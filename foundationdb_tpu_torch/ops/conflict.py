@@ -165,8 +165,10 @@ def _range_max(levels, lo, hi):
     lo = lo.to(torch.int64)
     hi = hi.to(torch.int64)
     length = (hi - lo + 1).clamp(min=1)
-    pow2 = torch.tensor([1 << l for l in range(1, len(levels))],
-                        dtype=torch.int64, device=lo.device)
+    # 2, 4, ..., made on the device: a tensor built from a Python list
+    # would be a host copy that synchronises the stream
+    pow2 = torch.arange(1, len(levels), dtype=torch.int64, device=lo.device)
+    pow2 = torch.ones_like(pow2) << pow2
     j = (length[..., None] >= pow2).sum(dim=-1)
     stacked = torch.stack(levels)  # [L, C]
     a = stacked[j, lo.clamp(0, n - 1)]

@@ -22,6 +22,8 @@ packer: the same semantics by another route, counted in
 A kernel that fails to build or launch raises: there is no fallback.
 """
 
+import time
+
 import numpy as np
 import torch
 
@@ -56,8 +58,9 @@ class ResolveHandle:
 
     CUDA work is enqueued when ``resolve_many`` returns; ``wait()`` makes
     the one host sync (the copy of the statuses) and unpacks per-batch
-    status lists. Host backends resolve eagerly — their handle hands the
-    finished result back."""
+    status lists, on any thread (the commit pipeline dispatches on its
+    batcher thread and waits on its apply thread). Host backends resolve
+    eagerly — their handle hands the finished result back."""
 
     __slots__ = ("_materialize", "_result")
 
@@ -132,6 +135,11 @@ class Resolver:
         self.counters = {"resolve_batches": 0, "resolve_txns": 0,
                          "backlog_dispatches": 0, "backlog_depth": 0,
                          "flat_fallbacks": 0, "respawns": 0}
+        # cumulative wall seconds of resolve_many's dispatch (the batch
+        # copy and the scan call; a host backend's eager resolve): the
+        # batcher subtracts it from its stage-A+B timer so host packing
+        # and dispatch report as separate stages
+        self.dispatch_wall_s = 0.0
         # the device lanes take the flat columnar batches; the exact host
         # set works on byte ranges
         self.accepts_flat = self.backend == "cuda"
@@ -330,8 +338,10 @@ class Resolver:
         if (self.backend != "cuda" or len(batches) <= 1
                 or any(len(t) > self.params.txns for t, _, _ in batches)):
             # host backend / degenerate backlogs resolve eagerly
-            return ResolveHandle(result=[
-                self.resolve(t, cv, ws) for t, cv, ws in batches])
+            t0 = time.perf_counter()
+            result = [self.resolve(t, cv, ws) for t, cv, ws in batches]
+            self.dispatch_wall_s += time.perf_counter() - t0
+            return ResolveHandle(result=result)
         widest = self._scan_pad_buckets[-1]
         if len(batches) > widest:
             handles = [self._dispatch_many(batches[i:i + widest])
@@ -353,12 +363,14 @@ class Resolver:
                 self.counters["flat_fallbacks"] += 1
             # a flat batch the lane cannot serve, or flat and legacy
             # batches in one backlog (one scan threads one history):
-            # the whole backlog decodes
+            # the whole backlog decodes, as dispatch work
+            t_dec = time.perf_counter()
             batches = [
                 (t.to_txn_requests() if isinstance(t, FlatTxnBatch) else t,
                  cv, ws)
                 for t, cv, ws in batches
             ]
+            self.dispatch_wall_s += time.perf_counter() - t_dec
         per_batch = []
         all_live = []
         for txns, cv, ws in batches:
@@ -385,11 +397,10 @@ class Resolver:
             pad = packer.pack_empty(self.base_version, last_cv, last_ws)
             packed.extend([pad] * (B - len(packed)))
         stacked = ck.ResolveBatch(*(np.stack(f) for f in zip(*packed)))
-        self.state, st = self._get_scan_fn(use_fast)(
-            self.state, batch_from_numpy(stacked, self.device))
+        read = self._scan(use_fast, stacked)
 
         def materialize():
-            arr = st.cpu().numpy()  # the one host sync for the backlog
+            arr = read()  # the one host sync for the backlog
             out = []
             for b, (statuses, live, _cv, _ws) in enumerate(per_batch):
                 row = arr[b][: len(live)].tolist()
@@ -412,14 +423,37 @@ class Resolver:
         stacked = packer.pack_flat_group(
             flats, [(cv, ws) for _, cv, ws in batches], self.base_version,
             B=self._pad_bucket(len(flats)))
-        self.state, st = self._get_scan_fn(use_fast)(
-            self.state, batch_from_numpy(stacked, self.device))
+        read = self._scan(use_fast, stacked)
 
         def materialize():
-            arr = st.cpu().numpy()  # the one host sync for the backlog
+            arr = read()  # the one host sync for the backlog
             return [arr[b][: len(f)].tolist() for b, f in enumerate(flats)]
 
         return ResolveHandle(materialize=materialize)
+
+    def _scan(self, use_fast, stacked):
+        """Copy a stacked backlog to the device and enqueue its scan,
+        with no host sync (the copy leaves out PyTorch's stream
+        synchronisation, convert.py). Returns ``read()``, which gives
+        the statuses [B, T] as numpy on any thread: they are a fresh
+        output of this dispatch, which no later dispatch writes, and on
+        a card ``read`` first waits for an event recorded behind the
+        scan on the dispatching thread's stream."""
+        t0 = time.perf_counter()
+        batch = batch_from_numpy(stacked, self.device, non_blocking=True)
+        self.state, st = self._get_scan_fn(use_fast)(self.state, batch)
+        done = None
+        if st.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(st.device))
+        self.dispatch_wall_s += time.perf_counter() - t0
+
+        def read():
+            if done is not None:
+                done.synchronize()
+            return st.cpu().numpy()
+
+        return read
 
     def _get_scan_fn(self, use_fast):
         scan_fn = self._scan_fns.get(use_fast)

@@ -5,15 +5,25 @@ pipeline is getVersion → resolve → tlog push → storage apply → reply.
 The whole batch shares one commit version. The device resolver makes
 large batches cheaper per txn, so the proxy's job is to keep batches
 full. ``commit_batches`` resolves a backlog of batches in one resolver
-dispatch (``Resolver.resolve_many``), each batch with its own version.
+dispatch (``Resolver.resolve_many``), each batch with its own version;
+``commit_batches_begin`` / ``commit_batches_finish`` split that backlog
+into stages for the batcher's pipeline (server/batcher.py).
+
+A proxy FLEET (server/fleet.py) shares two :class:`VersionGate`\\ s that
+order the stateful stages — resolver history, then log and storage —
+in the sequencer's chained grant order, so several proxies pack and
+route at once while the state changes serially.
 
 The port's proxy serves one resolver and one storage server holding the
-whole keyspace; the version gates of a proxy fleet, tenants,
-idempotency ids, system keys, regions and the pipelined (lazy) backlog
-are not ported yet.
+whole keyspace. Not ported, and so absent from every branch below: the
+database lock, tenant modes, the ratekeeper's admission of read-free
+requests, idempotency ids and their dedupe, system keys, regions, data
+distribution, metrics and spans. Where the reference tests for one of
+them, the port takes the branch the reference takes when it is absent.
 """
 
 import threading
+import time
 
 from foundationdb_tpu_torch.core import flatpack
 from foundationdb_tpu_torch.core.commit import CommitRequest  # noqa: F401
@@ -33,19 +43,88 @@ def _errors(name, n):
     return [FDBError.from_name(name) for _ in range(n)]
 
 
+class GateTimeout(Exception):
+    """A gate turn no one will take (a peer proxy died between its
+    grant and its advance): the fleet is wedged until a txn-system
+    recovery rebuilds the gates. Callers answer a retryable 1021 and
+    mark the proxy dead; it never reaches a client."""
+
+
+class VersionGate:
+    """Version-ordered turnstile for a commit-proxy fleet (ref: the
+    sequencer's prevVersion chaining, resolvers and logs taking batches
+    in version order). A batch granted (prev, v) passes once every
+    earlier grant has: ``enter(prev)`` blocks until the frontier reaches
+    ``prev``; ``advance(v)`` moves it."""
+
+    def __init__(self, start, timeout=60.0):
+        self._v = start
+        self.timeout = timeout
+        self._cond = threading.Condition()
+
+    def enter(self, prev, timeout=None):
+        with self._cond:
+            if not self._cond.wait_for(
+                lambda: self._v >= prev,
+                self.timeout if timeout is None else timeout,
+            ):
+                raise GateTimeout(
+                    f"version gate stuck at {self._v}, waiting for {prev}")
+
+    def advance(self, v):
+        with self._cond:
+            if v > self._v:
+                self._v = v
+            self._cond.notify_all()
+
+
+class _PipelinedGroup:
+    """One backlog group mid-pipeline: versions granted, txns packed,
+    resolve dispatched lazily (stages A+B). ``commit_batches_finish``
+    runs stage C. A group that failed in begin carries its results and
+    whether its grant's gate turns are still owed; ``resolve_s`` /
+    ``apply_s`` are stage-C timings for the batcher's StageStats."""
+
+    __slots__ = ("request_batches", "metas", "handle", "first_prev",
+                 "last_cv", "granted", "results_list", "error",
+                 "resolve_s", "apply_s", "plans")
+
+    def __init__(self, request_batches):
+        self.request_batches = request_batches
+        self.metas = None
+        # per-batch SchedulePlans: finish maps position-ordered results
+        # back to request order through these
+        self.plans = None
+        self.handle = None
+        self.first_prev = self.last_cv = None
+        self.granted = False
+        self.results_list = None
+        self.error = None
+        self.resolve_s = 0.0
+        self.apply_s = 0.0
+
+
 class CommitProxy:
-    def __init__(self, sequencer, resolver, tlog, storage, knobs):
+    def __init__(self, sequencer, resolver, tlog, storage, knobs,
+                 resolve_gate=None, log_gate=None):
         self.alive = True
         self.sequencer = sequencer
         self.resolver = resolver
         self.tlog = tlog
         self.storage = storage
         self.knobs = knobs
+        # fleet ordering (None when this proxy is the whole fleet)
+        self.resolve_gate = resolve_gate
+        self.log_gate = log_gate
         self.commit_count = 0
         self.conflict_count = 0
         # how many request batches packed columnar vs legacy
         self.pack_flat_batches = 0
         self.pack_legacy_batches = 0
+        # the batch scheduler's decisions (zero with the knob off)
+        self.sched_batches = 0
+        self.sched_reordered_total = 0
+        self.sched_deferred_total = 0
         # client threads may drive the proxy directly: the pipeline's
         # state (resolver history, log order, storage) changes serially
         self._commit_mu = threading.RLock()
@@ -75,21 +154,83 @@ class CommitProxy:
             return []
         if not self.alive or not self.sequencer.alive:
             return _errors("commit_unknown_result", len(requests))
-        with self._commit_mu:
-            try:
-                cv = self.sequencer.next_commit_versions(1)[0][1]
-            except SequencerDown:
-                return _errors("commit_unknown_result", len(requests))
-            window = self._window(cv)
-            requests, plan = self._maybe_schedule(requests)
+        try:
+            with self._commit_mu:
+                return self._commit_batch_locked(requests)
+        except GateTimeout:
+            return self._gate_wedged(len(requests))
+
+    def _gate_wedged(self, n):
+        """A gate turn went unclaimed (a peer died between grant and
+        advance): mark this proxy dead, so a recovery can build fresh
+        gates, and answer 1021 — the batch's fate is unknown."""
+        self.kill()
+        return _errors("commit_unknown_result", n)
+
+    def _commit_batch_locked(self, requests):
+        # (the reference's idempotency dedupe, constrained-ratekeeper
+        # admission, database lock and tenant-mode partitions run here;
+        # none is ported, so every request passes)
+        try:
+            prev, cv = self.sequencer.next_commit_versions(1)[0]
+        except SequencerDown:
+            # the kill raced past the entry check: the same 1021
+            return _errors("commit_unknown_result", len(requests))
+        window = self._window(cv)
+        requests, plan = self._maybe_schedule(requests)
+        try:
             txns = self._build_txns(requests)
-            try:
-                statuses = self.resolver.resolve(txns, cv, window)
-            except ResolverDown:
-                return _errors("not_committed", len(requests))
-            results = self._finalize_batch(requests, txns, statuses, cv,
-                                           window)
+        except BaseException:
+            # granted but neither gate consumed: skip both turns or
+            # every successor waits on a turn no one will take
+            self._skip_turns_quiet(prev, cv)
+            raise
+        try:
+            statuses = self._resolve_ordered(txns, cv, window, prev)
+        except ResolverDown:
+            # resolution never ran: definitively not committed; the
+            # granted version still consumes its log turn
+            self._skip_turns_quiet(prev, cv)
+            return _errors("not_committed", len(requests))
+        except GateTimeout:
+            raise
+        except BaseException:
+            # the resolve gate's finally already advanced; the log turn
+            # is still owed
+            self._skip_turns_quiet(prev, cv)
+            raise
+        results = self._finalize_batch(requests, txns, statuses, cv, window,
+                                       prev)
         return plan.restore(results) if plan is not None else results
+
+    def _resolve_ordered(self, txns, cv, window, prev):
+        """Resolution in global version order: the history is stateful,
+        so a fleet's batches enter it exactly in grant order."""
+        if self.resolve_gate is None:
+            return self.resolver.resolve(txns, cv, window)
+        self.resolve_gate.enter(prev)
+        try:
+            return self.resolver.resolve(txns, cv, window)
+        finally:
+            # advance even on failure: the version is consumed either way
+            self.resolve_gate.advance(cv)
+
+    def _skip_turns_quiet(self, prev, cv):
+        """Consume a failed batch's turns at both gates without doing its
+        work, in order but quietly: called from failure handlers, a
+        wedged gate must not replace the outcome being propagated. Once
+        one gate proves wedged the other gets a zero wait, and the proxy
+        marks itself dead."""
+        wedged = False
+        for gate in (self.resolve_gate, self.log_gate):
+            if gate is None:
+                continue
+            try:
+                gate.enter(prev, timeout=0.0 if wedged else None)
+                gate.advance(cv)
+            except GateTimeout:
+                wedged = True
+                self.kill()
 
     def commit_batches(self, request_batches):
         """Commit a backlog of batches: each gets its own commit version,
@@ -98,33 +239,182 @@ class CommitProxy:
         batch."""
         if not self.alive or not self.sequencer.alive:
             return [self.commit_batch(reqs) for reqs in request_batches]
+        try:
+            with self._commit_mu:
+                return self._commit_batches_locked(request_batches)
+        except GateTimeout:
+            return [self._gate_wedged(len(reqs)) for reqs in request_batches]
+
+    def _commit_batches_locked(self, request_batches):
+        try:
+            # the whole backlog's versions in one chained grant: no other
+            # proxy's batch lands inside the run, so one gate span covers it
+            pairs = self.sequencer.next_commit_versions(len(request_batches))
+        except SequencerDown:
+            return [_errors("commit_unknown_result", len(reqs))
+                    for reqs in request_batches]
+        first_prev, last_cv = pairs[0][0], pairs[-1][1]
+        try:
+            metas, plans = self._build_group(request_batches, pairs)
+        except BaseException:
+            self._skip_turns_quiet(first_prev, last_cv)
+            raise
+        if self.resolve_gate is not None:
+            self.resolve_gate.enter(first_prev)
+        try:
+            statuses_list = self.resolver.resolve_many(
+                [(txns, cv, window) for _, txns, cv, window in metas])
+        except ResolverDown:
+            self._skip_turns_quiet(first_prev, last_cv)
+            return [_errors("not_committed", len(reqs))
+                    for reqs in request_batches]
+        except BaseException:
+            # resolve_many touches no gate: skip the owed log turn
+            # quietly and let the root cause propagate
+            self._skip_turns_quiet(first_prev, last_cv)
+            raise
+        finally:
+            if self.resolve_gate is not None:
+                self.resolve_gate.advance(last_cv)
+        if self.log_gate is not None:
+            self.log_gate.enter(first_prev)
+        try:
+            return self._finalize_group(metas, statuses_list, plans)
+        finally:
+            if self.log_gate is not None:
+                self.log_gate.advance(last_cv)
+
+    def _build_group(self, request_batches, pairs):
+        """Each batch of a granted backlog scheduled and built: the
+        (requests, txns, cv, window) metas and the SchedulePlans."""
+        metas, plans = [], []
+        for reqs, (_prev, cv) in zip(request_batches, pairs):
+            reqs, plan = self._maybe_schedule(reqs)
+            plans.append(plan)
+            metas.append((reqs, self._build_txns(reqs), cv, self._window(cv)))
+        return metas, plans
+
+    def _finalize_group(self, metas, statuses_list, plans):
+        out = []
+        for (reqs, txns, cv, window), statuses, plan in zip(
+                metas, statuses_list, plans):
+            res = self._finalize_batch(reqs, txns, statuses, cv, window)
+            out.append(plan.restore(res) if plan is not None else res)
+        return out
+
+    # ── pipelined backlog (server/batcher.py's bounded pipeline) ─────
+    # The serial backlog split into stages so the batcher keeps
+    # commit_pipeline_depth groups in flight: stages A+B (begin: grant,
+    # host packing, gate-ordered LAZY resolve dispatch) on the batcher
+    # thread while stage C (finish: status sync, tlog push, storage
+    # apply) runs on the apply thread for the previous group. The
+    # resolve gate orders dispatch, the log gate the tail; without a
+    # fleet the batcher's FIFO apply queue gives the same order.
+
+    def pipeline_eligible(self, request_batches):
+        """Stage-A admission: the pipelined route serves the common case.
+        The reference sends a database lock, a tenant mode, a constrained
+        ratekeeper and an idempotency-dedupe hit back to the serial
+        route; none is ported, so only dead roles do here."""
+        return self.alive and self.sequencer.alive
+
+    def commit_batches_begin(self, request_batches):
+        """Stages A+B of the pipelined backlog: chained version grant,
+        host packing and the gate-ordered lazy resolve dispatch. Always
+        returns a _PipelinedGroup: a failure is captured in the group
+        (results precomputed, owed gate turns recorded) so the caller
+        settles it through commit_batches_finish in order with the rest.
+        Begin runs on one thread in grant order; finish runs FIFO on one
+        thread."""
+        group = _PipelinedGroup(request_batches)
+
+        def err_1021():
+            return [_errors("commit_unknown_result", len(reqs))
+                    for reqs in request_batches]
+
+        try:
+            pairs = self.sequencer.next_commit_versions(len(request_batches))
+        except SequencerDown:
+            group.results_list = err_1021()
+            return group
+        group.first_prev, group.last_cv = pairs[0][0], pairs[-1][1]
+        group.granted = True
+        try:
+            metas, group.plans = self._build_group(request_batches, pairs)
+        except Exception as e:
+            group.error = e
+            group.results_list = err_1021()
+            return group
+        try:
+            if self.resolve_gate is not None:
+                self.resolve_gate.enter(group.first_prev)
+            try:
+                group.handle = self.resolver.resolve_many(
+                    [(txns, cv, window) for _, txns, cv, window in metas],
+                    lazy=True)
+            finally:
+                if self.resolve_gate is not None:
+                    self.resolve_gate.advance(group.last_cv)
+        except GateTimeout:
+            # a wedged fleet: kill and 1021s; no turn is consumed, only
+            # a recovery (fresh gates) unwedges
+            group.granted = False
+            group.results_list = [self._gate_wedged(len(reqs))
+                                  for reqs in request_batches]
+            return group
+        except ResolverDown:
+            # definitively not committed; the log turn is still owed
+            group.results_list = [_errors("not_committed", len(reqs))
+                                  for reqs in request_batches]
+            return group
+        except Exception as e:
+            group.error = e
+            group.results_list = err_1021()
+            return group
+        group.metas = metas
+        return group
+
+    def commit_batches_finish(self, group):
+        """Stage C of the pipelined backlog: materialize the statuses
+        (the one host sync), then the gate-ordered tail — tlog push,
+        storage apply, reporting. Also where a group that failed in
+        begin settles: its owed gate turns are consumed here, in
+        pipeline order."""
+        if group.results_list is not None:
+            if group.granted:
+                self._skip_turns_quiet(group.first_prev, group.last_cv)
+            return group.results_list
+        t0 = time.perf_counter()
+        try:
+            statuses_list = group.handle.wait()
+        except Exception as e:
+            # the dispatched step faulted at materialization: the history
+            # of these versions is suspect, and both turns are owed
+            self._skip_turns_quiet(group.first_prev, group.last_cv)
+            group.error = e
+            return [_errors("commit_unknown_result", len(reqs))
+                    for reqs in group.request_batches]
+        group.resolve_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
         with self._commit_mu:
-            try:
-                # the whole backlog's versions in one chained grant
-                pairs = self.sequencer.next_commit_versions(
-                    len(request_batches))
-            except SequencerDown:
+            if not self.alive or not self.sequencer.alive:
+                # killed mid-pipeline: nothing may reach the log
+                self._skip_turns_quiet(group.first_prev, group.last_cv)
                 return [_errors("commit_unknown_result", len(reqs))
-                        for reqs in request_batches]
-            metas = []
-            plans = []
-            for reqs, (_prev, cv) in zip(request_batches, pairs):
-                reqs, plan = self._maybe_schedule(reqs)
-                plans.append(plan)
-                metas.append((reqs, self._build_txns(reqs), cv,
-                              self._window(cv)))
+                        for reqs in group.request_batches]
             try:
-                statuses_list = self.resolver.resolve_many(
-                    [(txns, cv, window) for _, txns, cv, window in metas])
-            except ResolverDown:
-                return [_errors("not_committed", len(reqs))
-                        for reqs in request_batches]
-            out = []
-            for (reqs, txns, cv, window), statuses, plan in zip(
-                    metas, statuses_list, plans):
-                res = self._finalize_batch(reqs, txns, statuses, cv, window)
-                out.append(plan.restore(res) if plan is not None else res)
-            return out
+                if self.log_gate is not None:
+                    self.log_gate.enter(group.first_prev)
+            except GateTimeout:
+                return [self._gate_wedged(len(reqs))
+                        for reqs in group.request_batches]
+            try:
+                return self._finalize_group(group.metas, statuses_list,
+                                            group.plans)
+            finally:
+                if self.log_gate is not None:
+                    self.log_gate.advance(group.last_cv)
+                group.apply_s = time.perf_counter() - t1
 
     def _window(self, cv):
         return max(0, cv - self.knobs.max_read_transaction_life_versions)
@@ -133,12 +423,16 @@ class CommitProxy:
         """Reorder the batch host-side (server/scheduler.py) so reads
         resolve before the writes they overlap. Returns the request list
         in commit order and the plan that maps results back to request
-        order, or (requests, None)."""
-        if len(requests) < 2:
+        order, or (requests, None) when the knob is off or the pass
+        declined."""
+        if not self.knobs.commit_batch_scheduling or len(requests) < 2:
             return requests, None
         plan = scheduler.schedule(requests)
         if plan is None or plan.identity:
             return requests, None
+        self.sched_batches += 1
+        self.sched_reordered_total += plan.reordered
+        self.sched_deferred_total += plan.deferred
         return [requests[i] for i in plan.order], plan
 
     def _try_build_flat(self, requests):
@@ -180,30 +474,55 @@ class CommitProxy:
                                   range_reads=rr, range_writes=rw))
         return out
 
-    def _finalize_batch(self, requests, txns, statuses, cv, window):
+    def _finalize_batch(self, requests, txns, statuses, cv, window,
+                        prev=None):
         """Everything after resolution: results, the tlog push (1021
         when it fails), storage apply, version reporting and the
-        periodic durability pump."""
-        results = []
-        batch_mutations = []
-        conflicts = 0
-        for i, (req, st) in enumerate(zip(requests, statuses)):
-            if st == COMMITTED:
-                batch_mutations.extend(
-                    substitute_versionstamp(m, cv, batch_order=0, txn_order=i)
-                    if m.op in _STAMPED else m
-                    for m in req.mutations)
-                results.append(cv)
-            elif st == TOO_OLD:
-                results.append(FDBError.from_name("transaction_too_old"))
-                conflicts += 1
-            else:
-                e = FDBError.from_name("not_committed")
-                if req.report_conflicting_keys:
-                    e.conflicting_key_ranges = self._conflicting_ranges(txns[i])
-                    e.conflict_version = cv
-                results.append(e)
-                conflicts += 1
+        periodic durability pump. ``prev`` orders this batch behind the
+        fleet's earlier grants at the log gate (None: the caller holds
+        the order); the results are assembled outside the ordered
+        section."""
+        try:
+            results = []
+            batch_mutations = []
+            conflicts = 0
+            for i, (req, st) in enumerate(zip(requests, statuses)):
+                if st == COMMITTED:
+                    batch_mutations.extend(
+                        substitute_versionstamp(m, cv, batch_order=0,
+                                                txn_order=i)
+                        if m.op in _STAMPED else m
+                        for m in req.mutations)
+                    results.append(cv)
+                elif st == TOO_OLD:
+                    results.append(FDBError.from_name("transaction_too_old"))
+                    conflicts += 1
+                else:
+                    e = FDBError.from_name("not_committed")
+                    if req.report_conflicting_keys:
+                        e.conflicting_key_ranges = self._conflicting_ranges(
+                            txns[i])
+                        e.conflict_version = cv
+                    results.append(e)
+                    conflicts += 1
+        except BaseException:
+            # the version's log turn must still be consumed
+            if prev is not None:
+                self._skip_turns_quiet(prev, cv)
+            raise
+        if prev is not None and self.log_gate is not None:
+            self.log_gate.enter(prev)
+        try:
+            return self._finalize_ordered(results, batch_mutations,
+                                          conflicts, cv, window)
+        finally:
+            if prev is not None and self.log_gate is not None:
+                self.log_gate.advance(cv)
+
+    def _finalize_ordered(self, results, batch_mutations, conflicts, cv,
+                          window):
+        """The version-ordered tail: counters, the tlog push, storage
+        apply and reporting — everything that mutates shared state."""
         self.conflict_count += conflicts
         n_ok = len(results) - conflicts
         # push even empty batches so storage's version advances with cv

@@ -31,6 +31,8 @@ class Sequencer:
         if not self.alive:
             raise SequencerDown()
         with self._mu:
+            if not self.alive:  # the kill raced the lock
+                raise SequencerDown()
             out = []
             for _ in range(k):
                 prev = self._last_granted

@@ -3,6 +3,8 @@
 Ref parity: fdbclient Database/DatabaseContext plus the Python binding's
 ``@fdb.transactional`` retry protocol (bindings/python/fdb/impl.py):
 run the function, commit, catch retryable errors via on_error, loop.
+On a cluster with a batching commit pipeline, concurrent ``run`` calls
+from many threads commit in shared-version batches.
 """
 
 from foundationdb_tpu_torch.core.errors import FDBError

@@ -8,8 +8,11 @@ on_error retry protocol.
 
 At commit the client encodes its conflict ranges into flat limb blobs
 (core/flatpack.py) when ``commit_pack_path="flat"``, so the proxy and
-packer never re-parse a key. Special keys, transaction repair, tenants,
-tags, idempotency ids and tracing are not ported yet.
+packer never re-parse a key. ``commit()`` goes through the cluster's
+commit proxy, which a batching pipeline (server/batcher.py) turns into
+submit-and-wait; ``commit_async`` / ``commit_finish`` split the two.
+Special keys, transaction repair, tenants, tags, idempotency ids and
+tracing are not ported yet.
 """
 
 import time
@@ -111,7 +114,8 @@ class Transaction:
         self._write_conflicts = []
         self._committed_version = None
         self._versionstamp = None
-        self._state = "active"  # active | committed | error | cancelled
+        # active | committing | committed | error | cancelled
+        self._state = "active"
         self._ryw_disabled = False
         self._next_write_no_conflict = False
         self._report_conflicting_keys = False
@@ -492,7 +496,43 @@ class Transaction:
             self._state = "committed"
             self._activate_watches()
             return
-        result = self._cluster.commit_proxy.commit(self._build_commit_request())
+        # through a batching proxy this is submit-and-wait: concurrent
+        # committers share a batch
+        self._finish_commit(
+            self._cluster.commit_proxy.commit(self._build_commit_request()))
+
+    def commit_async(self):
+        """Submit to the batching commit proxy; returns a CommitFuture.
+
+        The caller waits until ``fut.done()`` (or on ``fut.result()``),
+        then calls :meth:`commit_finish` to apply the outcome. Needs a
+        proxy that takes ``submit`` (``commit_pipeline="thread"`` or
+        ``"manual"``); the synchronous proxy does not."""
+        self._guard()
+        self._drain_reads()
+        if not self._mutation_log and not self._write_conflicts:
+            from foundationdb_tpu_torch.server.batcher import CommitFuture
+
+            # the same contract as commit()'s read-only path
+            self._state = "committed"
+            self._activate_watches()
+            fut = CommitFuture()
+            fut.set(None)
+            return fut
+        req = self._build_commit_request()
+        # in flight: further ops, or a second commit, fail with
+        # used_during_commit instead of resubmitting the mutation log
+        self._state = "committing"
+        return self._cluster.commit_proxy.submit(req)
+
+    def commit_finish(self, fut):
+        """Apply a resolved commit_async future (raises FDBError on a
+        conflict, exactly like commit())."""
+        if self._state == "committed":  # the read-only path is done
+            return
+        self._finish_commit(fut.result(timeout=0))
+
+    def _finish_commit(self, result):
         if isinstance(result, FDBError):
             self._state = "error"
             self._conflicting_ranges = getattr(

@@ -40,10 +40,17 @@ def user_key(i):
     return b"user%08d" % i
 
 
-def zipfian_sampler(nkeys, theta, rng):
-    """n → int64[n] key ids, P(id = k) ∝ 1 / (k + 1)^theta."""
+def zipfian_cdf(nkeys, theta):
+    """The cumulative distribution of Zipfian key ids over ``nkeys``."""
     w = 1.0 / np.arange(1, nkeys + 1, dtype=np.float64) ** theta
-    cdf = np.cumsum(w / w.sum())
+    return np.cumsum(w / w.sum())
+
+
+def zipfian_sampler(nkeys, theta, rng, cdf=None):
+    """n → int64[n] key ids, P(id = k) ∝ 1 / (k + 1)^theta. ``cdf`` (from
+    :func:`zipfian_cdf`) lets many samplers share one table."""
+    if cdf is None:
+        cdf = zipfian_cdf(nkeys, theta)
 
     def sample(n):
         return np.minimum(np.searchsorted(cdf, rng.random(n)),

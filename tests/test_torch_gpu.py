@@ -14,6 +14,7 @@ Outputs are bits and statuses, so the tolerance is 0.
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -342,3 +343,112 @@ def test_cluster_and_open_raise_without_a_card():
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# ── the batching commit pipeline on the card ──
+
+def _range_requests(c, n, seed):
+    """``n`` flat client requests of the range-heavy stream (range reads
+    and clear ranges over user keys) at the cluster's current version."""
+    stream = STREAMS["range_heavy"](1, txns=n, seed=seed, nkeys=300)
+    txns, cv, _ = stream[0]
+    return workloads.commit_requests(txns, cv, c.sequencer.committed_version,
+                                     c.knobs.key_limbs, b"w")
+
+
+@pytest.mark.gpu
+def test_commit_batches_begin_makes_no_host_sync(cuda):
+    """Stages A+B of the pipeline (grant, pack, the batch copy and the
+    lazy scan with fused_accept) enqueue on the card without a single
+    host sync; the one sync is the apply stage's status copy."""
+    c = Cluster(**CLUSTER_KNOBS)
+    cp = c.commit_proxy
+    for reqs in workloads.preload_requests(300, c.knobs.key_limbs, batch=64,
+                                           record_bytes=16):
+        cp.commit_batch(reqs)
+    # warm: kernels built, scan shapes and allocator pools in place
+    cp.commit_batches_finish(cp.commit_batches_begin(
+        [_range_requests(c, 64, s) for s in range(3)]))
+    torch.cuda.synchronize()
+    batches = [_range_requests(c, 64, s) for s in range(3, 6)]
+    _kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        group = cp.commit_batches_begin(batches)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert group.results_list is None and group.handle is not None
+    # one launch per scan step: 3 batches padded to the 4-wide bucket
+    assert _kernels.launches["fused_accept"] == c.resolvers[0]._pad_bucket(3)
+    results = cp.commit_batches_finish(group)
+    assert [len(r) for r in results] == [64] * 3
+    assert c.storage.version == c.sequencer.committed_version
+
+
+@pytest.mark.gpu
+def test_dispatch_and_materialise_on_different_threads(cuda):
+    """A backlog dispatched lazily on one thread and materialised on
+    another gives the statuses of a same-thread resolve_many, and the
+    next dispatch does not overwrite an unread group's statuses."""
+    knobs = Knobs(**CLUSTER_KNOBS)
+    stream = STREAMS["mixed"](12, txns=64, seed=8, nkeys=300, lag=900)
+    same = Resolver(knobs)
+    want = same.resolve_many(stream[:6]) + same.resolve_many(stream[6:])
+    split = Resolver(knobs)
+    handles, got = [], []
+
+    def dispatch():
+        handles.append(split.resolve_many(stream[:6], lazy=True))
+        handles.append(split.resolve_many(stream[6:], lazy=True))
+
+    def materialise():
+        for h in handles:
+            got.extend(h.wait())
+
+    for fn in (dispatch, materialise):
+        t = threading.Thread(target=fn, daemon=True)
+        t.start()
+        t.join(120)
+        assert not t.is_alive()
+    assert got == want
+    for f, a, b in zip(ck.ResolverState._fields, state_to_numpy(same.state),
+                       state_to_numpy(split.state)):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+@pytest.mark.gpu
+def test_sixty_four_chunk_backlog_settles_in_grant_order(cuda):
+    """A group of 64 one-request chunks (past the widest pad bucket, so
+    the resolver splits it into scans of 32) commits every chunk at its
+    own version in submission order, as the CPU cluster does."""
+    from foundationdb_tpu_torch.server.batcher import CommitFuture
+
+    def drive(c):
+        bp = c.commit_proxy
+        reqs = _range_requests(c, 64, 5)
+        bp._backlog_target = 64
+        pairs = [(r, CommitFuture(bp)) for r in reqs]
+        bp._run_batch(pairs)
+        bp.drain_pipeline()
+        out = [f.result(timeout=60) for _, f in pairs]
+        return ([("err", r.code) if isinstance(r, tfdb.FDBError) else
+                 ("v", r) for r in out],
+                bp.stages.count("apply"), c.database().get_range(b"", b"\xff"))
+
+    clusters = [Cluster(device=d, commit_pipeline="thread", commit_batch_max=1,
+                        **CLUSTER_KNOBS) for d in (None, "cpu")]
+    try:
+        for c in clusters:
+            for reqs in workloads.preload_requests(
+                    300, c.knobs.key_limbs, batch=64, record_bytes=16):
+                c.commit_proxy.inner.commit_batch(reqs)
+        got, want = drive(clusters[0]), drive(clusters[1])
+    finally:
+        for c in clusters:
+            c.close()
+    assert got == want
+    assert got[1] == 1  # one pipelined group
+    versions = [v for kind, v in got[0] if kind == "v"]
+    assert versions == sorted(versions) and len(set(versions)) == len(versions)
+    ok = [i for i, (kind, _) in enumerate(got[0]) if kind == "v"]
+    assert min(ok) < 32 <= max(ok)  # commits in both halves of the split
