@@ -57,6 +57,25 @@ Phases:
      effective depth and stage means; a 3-proxy fleet's exact
      read-modify-write counters; one deterministic _run_batch on a card
      and a CPU thread cluster: outcomes, rows and state must be equal.
+     Transaction repair is on (the reference's default client path):
+     each stream's repair_attempts / repair_commits / repair_fallbacks,
+     repair_attempts > 0 on mako, and a scripted conflict (read k,
+     another txn rewrites k with its value, write k) that must get the
+     conflicting range and conflict_version and then commit on a
+     verbatim replay, its body run once;
+ 10. the lane-sharded resolver (BASELINE config 5's 3 Resolvers), launch
+     counts zeroed first (both kernels must launch 0 times, as the
+     reference runs no Pallas kernel on the mesh or the partitioned
+     ring): (a) Cluster(n_resolvers=3) on the card in "range" mode,
+     CLUSTER_PRELOAD rows, the range-heavy stream as client requests,
+     12 commit_batch then one commit_batches of 12 (committed txns/s,
+     per-batch p50 / p99 / slowest, the router's per-lane entries and
+     chunk factors, the card memory of the lanes' state); (b) the same
+     in "hash" mode at a smaller preload and depth; (c) a card and a CPU
+     3-lane cluster in both modes, the same small preload and first
+     range-heavy and mixed batches: outcomes, rows and state equal;
+     (d) Resolver(ring_partition_bits=2) on the range-heavy and mixed
+     streams (12 resolve, one resolve_many of 12), then a CPU replay.
 
 Any failure raises and the script exits non-zero; without a card it exits
 non-zero before printing any result. The line before the last is
@@ -81,6 +100,10 @@ CLUSTER_PRELOAD = 1_000_000  # workloads.NKEYS rows of 1 KB
 CLUSTER_CLIENT_TXNS = 512  # a p99 over 512 calls is the 6th slowest
 CLUSTER_BATCHES = 12  # per stream through commit_batch, then one backlog
 CLUSTER_REPLAY_PRELOAD = 2048
+SHARDED_LANES = 3  # BASELINE config 5: "3 Resolvers sharded"
+HASH_PRELOAD = 100_000  # phase 10b's preload
+HASH_BATCHES = 4  # phase 10b: commit_batch calls, then a backlog as deep
+PARTITION_BITS = 2  # phase 10d: 4 sub-rings of 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # no integer peak is published for the CUDA cores; the non-tensor
 # float32 rate is the fastest rate any 32-bit scalar op could retire at,
@@ -468,14 +491,15 @@ def device_profile(fn, top=4):
                      for name, us in ranked])
 
 
-def phase_main(streams, knobs, label):
+def phase_main(streams, knobs, label, reset=True):
     from foundationdb_tpu_torch.core.status import COMMITTED
     from foundationdb_tpu_torch.ops import _kernels
     from foundationdb_tpu_torch.resolver.resolver import Resolver
 
     report = {}
     resolvers = {}
-    _kernels.reset_launches()
+    if reset:
+        _kernels.reset_launches()
     for name, stream in streams.items():
         r = Resolver(knobs)
         out, walls, backlog_ms = drive(r, stream)
@@ -516,14 +540,16 @@ def phase_main(streams, knobs, label):
     return report, launches
 
 
-def phase_replay(streams):
+def phase_replay(streams, knobs=None, label="replay"):
     """The first batches of each stream on the card and on the CPU: the
     statuses and the state must be equal."""
     from foundationdb_tpu_torch.convert import state_to_numpy
+    from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
     from foundationdb_tpu_torch.resolver.resolver import Resolver
 
+    knobs = knobs or DEFAULT_KNOBS
     for name, stream in streams.items():
-        gpu, cpu = Resolver(), Resolver(device="cpu")
+        gpu, cpu = Resolver(knobs), Resolver(knobs, device="cpu")
         first = stream[:REPLAY_BATCHES]
         got = [gpu.resolve(*b) for b in first[:2]] + gpu.resolve_many(first[2:])
         want = [cpu.resolve(*b) for b in first[:2]] + cpu.resolve_many(first[2:])
@@ -531,7 +557,7 @@ def phase_replay(streams):
         for f, a, b in zip(gpu.state._fields, state_to_numpy(gpu.state),
                            state_to_numpy(cpu.state)):
             assert np.array_equal(a, b), f"{name}: state field {f} differs"
-        log(f"[replay {name}] {REPLAY_BATCHES} batches: card == CPU "
+        log(f"[{label} {name}] {REPLAY_BATCHES} batches: card == CPU "
             f"(statuses and 12 state fields)")
 
 
@@ -605,52 +631,9 @@ def phase_cluster(streams):
     log("[cluster occ] the reader whose key was overwritten failed with 1020")
     value = b"u" * workloads.FIELD_BYTES
     for name in ("range_heavy", "mixed"):
-        stream = streams[name]
-
-        def requests(b):
-            txns, cv, _ = b
-            return workloads.commit_requests(
-                txns, cv, c.sequencer.committed_version, limbs, value)
-
-        walls, outs = [], []
-        for b in stream[:CLUSTER_BATCHES]:
-            reqs = requests(b)
-            t0 = time.perf_counter()
-            outs.append(_outcomes(proxy.commit_batch(reqs)))
-            walls.append((time.perf_counter() - t0) * 1e3)
-        backlog = [requests(b)
-                   for b in stream[CLUSTER_BATCHES:2 * CLUSTER_BATCHES]]
-        t0 = time.perf_counter()
-        back = [_outcomes(r) for r in proxy.commit_batches(backlog)]
-        backlog_ms = (time.perf_counter() - t0) * 1e3
-        ok = [sum(isinstance(v, int) for b in o for v in b)
-              for o in (outs, back)]
-        codes = {v[1] for b in outs + back for v in b if isinstance(v, tuple)}
-        assert codes <= {1020, 1007}, codes
-        report[name] = dict(
-            commit_batch_txns=sum(map(len, outs)),
-            commit_batch_committed=ok[0],
-            commit_batch_committed_per_s=ok[0] / (sum(walls) / 1e3),
-            commit_batch_p50_ms=float(np.percentile(walls, 50)),
-            # of 12 samples, the p99 lies between the two slowest
-            commit_batch_p99_ms=float(np.percentile(walls, 99)),
-            commit_batch_max_ms=max(walls),
-            commit_batches_txns=sum(map(len, back)),
-            commit_batches_committed=ok[1],
-            commit_batches_committed_per_s=ok[1] / (backlog_ms / 1e3),
-            commit_batches_ms=backlog_ms)
-        r = report[name]
-        log(f"[cluster {name}] commit_batch x{CLUSTER_BATCHES}: "
-            f"{r['commit_batch_committed']} of {r['commit_batch_txns']} "
-            f"committed, {r['commit_batch_committed_per_s']:.0f} committed "
-            f"txns/s, p50 {r['commit_batch_p50_ms']:.3f} ms, p99 "
-            f"{r['commit_batch_p99_ms']:.3f} ms, max "
-            f"{r['commit_batch_max_ms']:.3f} ms of {len(walls)} batches; "
-            "commit_batches "
-            f"(one backlog of {CLUSTER_BATCHES}): "
-            f"{r['commit_batches_committed']} of {r['commit_batches_txns']} "
-            f"committed, {r['commit_batches_committed_per_s']:.0f} committed "
-            f"txns/s, every batch's latency {backlog_ms:.3f} ms")
+        report[name] = proxy_stream(c, streams[name], CLUSTER_BATCHES,
+                                    CLUSTER_BATCHES, value,
+                                    f"cluster {name}")
     launches = dict(_kernels.launches)
     assert proxy.pack_flat_batches > 0
     assert c.storage.version == c.sequencer.committed_version
@@ -683,10 +666,63 @@ def phase_cluster(streams):
     return report, launches
 
 
+def proxy_stream(c, stream, n_single, n_backlog, value, label):
+    """A stream's batches as client commit requests: ``n_single``
+    commit_batch calls, then one commit_batches of the next
+    ``n_backlog``. Committed txns/s, per-batch latency p50 / p99 /
+    slowest, and the backlog's latency."""
+    from foundationdb_tpu_torch import workloads
+
+    proxy, limbs = c.commit_proxy, c.knobs.key_limbs
+
+    def requests(b):
+        txns, cv, _ = b
+        return workloads.commit_requests(
+            txns, cv, c.sequencer.committed_version, limbs, value)
+
+    walls, outs = [], []
+    for b in stream[:n_single]:
+        reqs = requests(b)
+        t0 = time.perf_counter()
+        outs.append(_outcomes(proxy.commit_batch(reqs)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    backlog = [requests(b) for b in stream[n_single:n_single + n_backlog]]
+    t0 = time.perf_counter()
+    back = [_outcomes(r) for r in proxy.commit_batches(backlog)]
+    backlog_ms = (time.perf_counter() - t0) * 1e3
+    ok = [sum(isinstance(v, int) for b in o for v in b)
+          for o in (outs, back)]
+    codes = {v[1] for b in outs + back for v in b if isinstance(v, tuple)}
+    assert codes <= {1020, 1007}, codes
+    r = dict(
+        commit_batch_txns=sum(map(len, outs)),
+        commit_batch_committed=ok[0],
+        commit_batch_committed_per_s=ok[0] / (sum(walls) / 1e3),
+        commit_batch_p50_ms=float(np.percentile(walls, 50)),
+        # of 12 samples, the p99 lies between the two slowest
+        commit_batch_p99_ms=float(np.percentile(walls, 99)),
+        commit_batch_max_ms=max(walls),
+        commit_batches_txns=sum(map(len, back)),
+        commit_batches_committed=ok[1],
+        commit_batches_committed_per_s=ok[1] / (backlog_ms / 1e3),
+        commit_batches_ms=backlog_ms)
+    log(f"[{label}] commit_batch x{n_single}: "
+        f"{r['commit_batch_committed']} of {r['commit_batch_txns']} "
+        f"committed, {r['commit_batch_committed_per_s']:.0f} committed "
+        f"txns/s, p50 {r['commit_batch_p50_ms']:.3f} ms, p99 "
+        f"{r['commit_batch_p99_ms']:.3f} ms, max "
+        f"{r['commit_batch_max_ms']:.3f} ms of {len(walls)} batches; "
+        f"commit_batches (one backlog of {n_backlog}): "
+        f"{r['commit_batches_committed']} of {r['commit_batches_txns']} "
+        f"committed, {r['commit_batches_committed_per_s']:.0f} committed "
+        f"txns/s, every batch's latency {backlog_ms:.3f} ms")
+    return r
+
+
 SPLIT_BATCHES = 6  # per stream, for the stage split after the timed drives
 
 
-def commit_stage_split(c, batches):
+def commit_stage_split(c, batches, extra_sites=None):
     """Where a commit_batch call spends its time, over ``batches`` (each
     a call that builds a batch's requests, outside the timed calls)
     after the timed drives: host ms per batch in the
@@ -702,7 +738,7 @@ def commit_stage_split(c, batches):
              "build": (proxy, "_build_txns"),
              "resolve": (resolver, "resolve"),
              "finalize": (proxy, "_finalize_batch"),
-             "storage_apply": (storage, "apply")}
+             "storage_apply": (storage, "apply"), **(extra_sites or {})}
     spent = dict.fromkeys(sites, 0.0)
 
     def timed(name, fn):
@@ -773,6 +809,135 @@ def phase_cluster_replay(streams):
         f"outcomes and 12 state fields)")
 
 
+def lanes_report(c):
+    """The lane fleet's router balance and the card memory its state
+    holds (the lanes' global arrays, int64 for uint32 quantities)."""
+    r = c.resolvers[0]
+    routed = r._router is not None
+    return dict(lanes=r.n_lanes, sharding=r.sharding,
+                lane_entries=r.lane_entries.tolist() if routed else None,
+                split_chunks=({str(k): v for k, v in sorted(r.split_chunks.items())}
+                              if routed else None),
+                state_bytes=sum(t.numel() * t.element_size() for t in r.state),
+                state_device=str(r.state.ht.device))
+
+
+def phase_sharded(streams):
+    """Phase 10a and 10b: Cluster(n_resolvers=3) on the card in "range"
+    and "hash" mode. Launch counts are zeroed first and read last, over
+    10a-10d: no kernel may launch on these paths."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.ops import _kernels
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    _kernels.reset_launches()
+    report = {}
+    value = b"u" * workloads.FIELD_BYTES
+    for mode, rows, depth in (("range", CLUSTER_PRELOAD, CLUSTER_BATCHES),
+                              ("hash", HASH_PRELOAD, HASH_BATCHES)):
+        c = Cluster(n_resolvers=SHARDED_LANES, resolver_sharding=mode)
+        assert len(c.resolvers) == 1 and c.resolvers[0].n_lanes == SHARDED_LANES
+        t0 = time.perf_counter()
+        for reqs in workloads.preload_requests(
+                rows, c.knobs.key_limbs, batch=c.knobs.batch_txn_capacity,
+                seed=SEED):
+            assert all(isinstance(v, int)
+                       for v in c.commit_proxy.commit_batch(reqs))
+        preload_s = time.perf_counter() - t0
+        gc.collect()
+        r = dict(preload_rows=rows, preload_s=preload_s)
+        log(f"[sharded {mode}] Cluster(n_resolvers={SHARDED_LANES}, "
+            f"resolver_sharding={mode!r}): preloaded {rows} rows in "
+            f"{preload_s:.3f} s ({rows / preload_s:.0f} rows/s)")
+        r["range_heavy"] = proxy_stream(
+            c, streams["range_heavy"], depth, depth, value,
+            f"sharded {mode} range_heavy")
+        r.update(lanes_report(c))
+        limbs = c.knobs.key_limbs
+        batches = streams["range_heavy"][2 * depth:2 * depth + SPLIT_BATCHES]
+        router = c.resolvers[0]._router
+        r["stage_split"] = split = commit_stage_split(
+            c, [lambda t=t, cv=cv: workloads.commit_requests(
+                t, cv, c.sequencer.committed_version, limbs, value)
+                for t, cv, _ in batches],
+            {"route": (router, "split")} if router is not None else None)
+        log(f"[sharded {mode}] {SPLIT_BATCHES} commit_batch calls, host ms "
+            "per batch: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in split["host_ms"].items())
+            + f" of {split['wall_ms']:.3f} wall; device busy "
+            f"{split['device_busy_ms']:.3f} ms per batch "
+            f"({split['device_busy_share']:.1%})")
+        assert c.storage.version == c.sequencer.committed_version
+        assert c.database()[workloads.user_key(rows - 1)] is not None
+        routed = (f"router lane entries {r['lane_entries']}, chunk factors "
+                  f"{r['split_chunks']}; " if r["lane_entries"] else "")
+        log(f"[sharded {mode}] {routed}lanes' state {r['state_bytes']} "
+            f"bytes on {r['state_device']}")
+        c.close()
+        del c
+        gc.collect()
+        report[mode] = r
+    return report
+
+
+def phase_sharded_replay(streams):
+    """Phase 10c: a card and a CPU 3-lane cluster in each mode, the same
+    small preload, the first range-heavy and mixed batches through
+    commit_batch and the next two through one commit_batches: outcomes,
+    rows and the 12 state fields must be equal."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.convert import state_to_numpy
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    for mode in ("range", "hash"):
+        def drive(device):
+            c = Cluster(device=device, n_resolvers=SHARDED_LANES,
+                        resolver_sharding=mode)
+            limbs = c.knobs.key_limbs
+            out = []
+            for reqs in workloads.preload_requests(
+                    CLUSTER_REPLAY_PRELOAD, limbs,
+                    batch=c.knobs.batch_txn_capacity, seed=SEED):
+                out.append(_outcomes(c.commit_proxy.commit_batch(reqs)))
+
+            def requests(b):
+                return workloads.commit_requests(
+                    b[0], b[1], c.sequencer.committed_version, limbs, b"r")
+
+            rh, mx = streams["range_heavy"], streams["mixed"]
+            for b in (rh[0], mx[0]):
+                out.append(_outcomes(c.commit_proxy.commit_batch(requests(b))))
+            out += [_outcomes(r) for r in c.commit_proxy.commit_batches(
+                [requests(rh[1]), requests(mx[1])])]
+            res = (out, c.database().get_range(b"", b"\xff"),
+                   state_to_numpy(c.resolvers[0].state))
+            c.close()
+            return res
+
+        gpu, cpu = drive(None), drive("cpu")
+        assert gpu[0] == cpu[0], f"{mode}: outcomes differ between card and CPU"
+        assert gpu[1] == cpu[1], f"{mode}: rows differ between card and CPU"
+        for f, a, b in zip(type(gpu[2])._fields, gpu[2], cpu[2]):
+            assert np.array_equal(a, b), f"{mode}: state field {f} differs"
+        log(f"[sharded replay {mode}] preload {CLUSTER_REPLAY_PRELOAD} rows + "
+            f"2 range-heavy and 2 mixed batches on {SHARDED_LANES} lanes: "
+            f"card == CPU ({len(gpu[1])} rows, outcomes and 12 state fields)")
+
+
+def phase_partitioned(streams):
+    """Phase 10d: Resolver(ring_partition_bits=2) on the card over the
+    range-heavy and mixed streams (12 resolve, one resolve_many of 12),
+    then a CPU replay of their first batches."""
+    from foundationdb_tpu_torch.core.options import Knobs
+
+    knobs = Knobs(ring_partition_bits=PARTITION_BITS)
+    part = {name: streams[name][:RESOLVE_BATCHES + BACKLOG]
+            for name in ("range_heavy", "mixed")}
+    report, _ = phase_main(part, knobs, "partitioned", reset=False)
+    phase_replay(part, knobs, "partitioned replay")
+    return report
+
+
 PIPE_PRELOAD = 1_000_000  # BASELINE config 2's key count, 1 KB rows
 PIPE_PRELOAD_ROWS = 100  # rows per blind-set preload transaction
 PIPE_CLIENTS = 64  # client threads (BASELINE config 3: 64 clients)
@@ -782,6 +947,10 @@ FLEET_INCREMENTS = 200  # read-modify-write increments per thread
 FLEET_COUNTERS = 16
 PIPE_REPLAY_REQUESTS = 128  # 8 chunks of 16: two pipelined groups of 4
 PIPE_SMALL_CAP = 16  # requests per chunk in the pipelined range stream
+# the cap-16 stream's depth: under transaction repair its hot-range
+# conflicts resubmit without a backoff and the stream ran 220 s at
+# PIPE_TXNS on an H100 (PERF.md §6); a quarter keeps the run near 7 minutes
+PIPE_SMALL_CAP_TXNS = 5_056  # 79 transactions a thread
 CLIENT_DEADLINE_S = 400  # a client stream that outlasts this has hung
 
 
@@ -817,11 +986,18 @@ def run_clients(n, body):
     return wall
 
 
-def pipeline_report(c, wall, txns, walls_ms, retries, launches0, label):
-    """One client stream's numbers: committed txns/s, retries, client
-    latency, the batcher's submit→settle latency, batch sizes, the
-    pipeline's effective depth and stage split, and the kernel launches
-    of the stream."""
+def repair_counts(c):
+    """The transaction-repair outcomes the clients reported to the commit
+    proxy (a fleet's first member)."""
+    return dict(c._inner_proxies()[0].repair_counts)
+
+
+def pipeline_report(c, wall, txns, walls_ms, retries, launches0, repair0,
+                    label):
+    """One client stream's numbers: committed txns/s, retries (body
+    reruns), repair outcomes, client latency, the batcher's submit→settle
+    latency, batch sizes, the pipeline's effective depth and stage
+    split, and the kernel launches of the stream."""
     from foundationdb_tpu_torch.ops import _kernels
 
     bp = c.commit_proxy
@@ -829,6 +1005,7 @@ def pipeline_report(c, wall, txns, walls_ms, retries, launches0, label):
     r = dict(
         txns=txns, wall_s=wall, committed_txns_per_s=txns / wall,
         conflicts_retried=retries,
+        repair={k: v - repair0[k] for k, v in repair_counts(c).items()},
         client_p50_ms=float(np.percentile(walls_ms, 50)),
         client_p99_ms=float(np.percentile(walls_ms, 99)),
         batches=bp.batches_committed,
@@ -838,7 +1015,8 @@ def pipeline_report(c, wall, txns, walls_ms, retries, launches0, label):
         stages=summ)
     log(f"[pipeline {label}] {txns} txns on {PIPE_CLIENTS} threads in "
         f"{wall:.3f} s: {r['committed_txns_per_s']:.1f} committed txns/s, "
-        f"{retries} conflicts retried; client p50 {r['client_p50_ms']:.3f} "
+        f"{retries} body reruns, repair {r['repair']}; client p50 "
+        f"{r['client_p50_ms']:.3f} "
         f"/ p99 {r['client_p99_ms']:.3f} ms; submit->settle p50 "
         f"{summ['commit_e2e_p50_ms']:.3f} / p99 {summ['commit_e2e_p99_ms']:.3f}"
         f" ms; {r['batches']} batches, mean {r['mean_batch']:.2f} txns, max "
@@ -850,13 +1028,13 @@ def pipeline_report(c, wall, txns, walls_ms, retries, launches0, label):
     return r
 
 
-def timed_client_stream(c, db, make_txn):
-    """PIPE_TXNS transactions, PIPE_TXNS / PIPE_CLIENTS on each thread:
-    ``make_txn(i, j)`` gives thread i's j-th transaction body. Returns
-    the report's raw inputs."""
+def timed_client_stream(c, db, make_txn, txns=None):
+    """``txns`` transactions (PIPE_TXNS by default), txns / PIPE_CLIENTS
+    on each thread: ``make_txn(i, j)`` gives thread i's j-th transaction
+    body. Returns the report's raw inputs."""
     from foundationdb_tpu_torch.ops import _kernels
 
-    per = PIPE_TXNS // PIPE_CLIENTS
+    per = (txns or PIPE_TXNS) // PIPE_CLIENTS
     walls = [[] for _ in range(PIPE_CLIENTS)]
     retries = [0] * PIPE_CLIENTS
 
@@ -876,9 +1054,10 @@ def timed_client_stream(c, db, make_txn):
 
     c.commit_proxy.reset_stats()
     launches0 = dict(_kernels.launches)
+    repair0 = repair_counts(c)
     wall = run_clients(PIPE_CLIENTS, client)
     return wall, per * PIPE_CLIENTS, [w for ws in walls for w in ws], \
-        sum(retries), launches0
+        sum(retries), launches0, repair0
 
 
 def phase_pipeline():
@@ -950,6 +1129,9 @@ def phase_pipeline():
 
     report["mako"] = pipeline_report(
         c, *timed_client_stream(c, db, mako), "mako")
+    # the reference's default client path: hot-key conflicts repair
+    assert report["mako"]["repair"]["repair_attempts"] > 0, \
+        "no transaction repair on the mako stream"
 
     range_keys = [sampler(SEED + 200 + i) for i in range(PIPE_CLIENTS)]
 
@@ -973,13 +1155,14 @@ def phase_pipeline():
     # commits fill several chunks a window and the groups pipeline
     bp.max_batch = PIPE_SMALL_CAP
     report["range_cap16"] = pipeline_report(
-        c, *timed_client_stream(c, db, range_txn),
+        c, *timed_client_stream(c, db, range_txn, PIPE_SMALL_CAP_TXNS),
         f"range, cap {PIPE_SMALL_CAP}")
     r = report["range_cap16"]
     assert r["launches"]["fused_accept"] > 0, \
         "fused_accept never launched on the pipelined range-heavy stream"
     assert r["stages"]["pipelined_groups"] > 0, \
         "no group took the pipelined route"
+    report["repair_repro"] = repair_repro(c)
     assert c.storage.version == c.sequencer.committed_version
     c.close()
     del c, db, bp
@@ -990,6 +1173,50 @@ def phase_pipeline():
     launches = dict(_kernels.launches)
     log(f"[pipeline] launches {launches}")
     return report, launches
+
+
+def repair_repro(c):
+    """Phase 9.3: the conflict the port once answered without repair
+    information, on the card cluster: A reads k, another txn rewrites k
+    with the same value, A writes k and commits. The 1020 must carry
+    k's range and the rejecting version, and the retry loop must commit
+    A on a verbatim replay, its body run once."""
+    from foundationdb_tpu_torch.core.errors import FDBError
+
+    db = c.database()
+    k = b"repair/k"
+    db[k] = b"1"
+    runs, seen = [], []
+    a = db.create_transaction()
+
+    def body(tr):
+        runs.append(tr.get(k))
+        tr[k] = b"A"
+        if len(runs) == 1:
+            db[k] = b"1"  # a concurrent same-value rewrite after the read
+
+    r0 = repair_counts(c)
+    while True:
+        try:
+            if not a.repair_ready:
+                body(a)
+            a.commit()
+            break
+        except FDBError as e:
+            seen.append((e.code, e.conflicting_key_ranges, e.conflict_version))
+            a.on_error(e)
+    counts = {n: v - r0[n] for n, v in repair_counts(c).items()}
+    assert seen and seen[0][0] == 1020, seen
+    assert seen[0][1] == [(k, k + b"\x00")] and seen[0][2] is not None, seen
+    assert len(seen) == 1 and runs == [b"1"], (seen, runs)
+    assert db[k] == b"A"
+    assert counts == {"repair_attempts": 1, "repair_commits": 1,
+                      "repair_fallbacks": 0}, counts
+    log(f"[pipeline repair] 1020 with conflicting ranges {seen[0][1]} at "
+        f"conflict_version {seen[0][2]}; committed on a verbatim replay, "
+        f"body run {len(runs)} time; counters {counts}")
+    return dict(error=[seen[0][0], [list(map(bytes.hex, r)) for r in seen[0][1]],
+                       seen[0][2]], body_runs=len(runs), counters=counts)
 
 
 def phase_fleet():
@@ -1127,6 +1354,7 @@ def main():
         return 1
     from foundationdb_tpu_torch import workloads
     from foundationdb_tpu_torch.core.options import Knobs
+    from foundationdb_tpu_torch.ops import _kernels
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1154,6 +1382,11 @@ def main():
     phase_replay(streams)
     cluster_report, cluster_launches = phase_cluster(streams)
     phase_cluster_replay(streams)
+    sharded_report = phase_sharded(streams)
+    phase_sharded_replay(streams)
+    sharded_report["partitioned"] = phase_partitioned(streams)
+    sharded_launches = dict(_kernels.launches)
+    log(f"[sharded] launches over phase 10 {sharded_launches}")
     del streams
     gc.collect()
     pipeline_report_, pipeline_launches = phase_pipeline()
@@ -1169,7 +1402,8 @@ def main():
         by_path = {"main": main_launches[name],
                    "ring_route": ring_launches[name],
                    "cluster": cluster_launches[name],
-                   "pipeline": pipeline_launches[name]}
+                   "pipeline": pipeline_launches[name],
+                   "sharded_and_partitioned": sharded_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1182,6 +1416,7 @@ def main():
             library_ms=None, cases=cases))
     summary = dict(card=card, main=main_report, ring_route=ring_report,
                    cluster=cluster_report, pipeline=pipeline_report_,
+                   sharded=sharded_report,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
     paths = {"fused_accept": ("main", "cluster", "pipeline"),
@@ -1191,6 +1426,9 @@ def main():
             assert k["launches_by_path"][path] > 0, \
                 f"{k['name']} never launched on the {path} path"
         assert k["mismatches"] == 0 and k["max_abs_err"] == 0, k["name"]
+        # the reference runs no Pallas kernel on the mesh or the
+        # partitioned ring: neither kernel may launch there
+        assert k["launches_by_path"]["sharded_and_partitioned"] == 0, k["name"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

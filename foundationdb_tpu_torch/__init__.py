@@ -7,7 +7,9 @@ rewritten by hand in CUDA C++ for Hopper (``csrc/``), the same verdicts
 bit for bit; around it, the sequencer, GRV and commit proxies, the log,
 storage and client transactions of the in-process cluster, with the
 batching commit pipeline that forms shared-version batches from
-concurrent clients (``commit_pipeline="thread"``). The package imports
+concurrent clients (``commit_pipeline="thread"``), a fleet of resolver
+lanes on one card (``n_resolvers=k``) and client-side transaction repair
+(``txn_repair``, on by default). The package imports
 ``torch`` and numpy only and keeps its own copy of every module it
 needs.
 
@@ -31,12 +33,12 @@ __all__ = ["FDBError", "KeyRange", "KeySelector", "key_successor", "open",
 
 def open(cluster_file=None, device=None, commit_pipeline="sync",
          commit_batch_max=None, commit_flush_after=4, n_commit_proxies=1,
-         **knobs):
+         n_resolvers=1, **knobs):
     """Open a database and return a Database handle (ref parity:
     fdb.open() in bindings/python/fdb/__init__.py). The cluster runs
     in-process; ``commit_pipeline`` ("sync", "thread" or "manual"),
-    ``commit_batch_max``, ``commit_flush_after`` and
-    ``n_commit_proxies`` are passed to the Cluster, ``knobs`` are Knobs
+    ``commit_batch_max``, ``commit_flush_after``, ``n_commit_proxies``
+    and ``n_resolvers`` are passed to the Cluster, ``knobs`` are Knobs
     fields."""
     if cluster_file is not None:
         raise NotImplementedError(
@@ -47,7 +49,8 @@ def open(cluster_file=None, device=None, commit_pipeline="sync",
     return Cluster(device=device, commit_pipeline=commit_pipeline,
                    commit_batch_max=commit_batch_max,
                    commit_flush_after=commit_flush_after,
-                   n_commit_proxies=n_commit_proxies, **knobs).database()
+                   n_commit_proxies=n_commit_proxies,
+                   n_resolvers=n_resolvers, **knobs).database()
 
 
 def transactional(func):

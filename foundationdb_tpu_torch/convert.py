@@ -5,13 +5,21 @@ what ``np.asarray`` gives of its state and what the packers emit); the
 port holds uint32 quantities as zero-extended int64 tensors. With
 :func:`state_from_numpy` a test can start the port from a JAX resolver's
 mid-life history, and compare field by field with
-:func:`state_to_numpy`.
+:func:`state_to_numpy`. A JAX mesh resolver's state (the global arrays
+of its ``shard_map`` fleet: ``ht`` of ``n << HB``, ring fields of
+``n * KR``, ``ring_head`` of ``[n]``) is the port's lane-sharded state
+array for array, so the same two functions carry it; a router's
+``ShardBatch`` goes across with :func:`shard_batch_from_numpy`.
 """
 
 import numpy as np
 import torch
 
-from foundationdb_tpu_torch.ops.conflict import ResolveBatch, ResolverState
+from foundationdb_tpu_torch.ops.conflict import (
+    ResolveBatch,
+    ResolverState,
+    ShardBatch,
+)
 
 # numpy dtype → tensor dtype, and back (int64 holds uint32 only)
 _TO_TORCH = {
@@ -75,3 +83,15 @@ def batch_from_numpy(batch, device="cpu", non_blocking=False):
     single or stacked [B, ...]."""
     return ResolveBatch(*(tensor_from_numpy(f, device, non_blocking)
                           for f in batch))
+
+
+def shard_batch_from_numpy(sb, device="cpu", non_blocking=False):
+    """ShardBatch of tensors from a numpy (router) ShardBatch — single or
+    stacked [B, ...]."""
+    return ShardBatch(*(tensor_from_numpy(f, device, non_blocking)
+                        for f in sb))
+
+
+def shard_batch_to_numpy(sb):
+    """A ShardBatch's fields as numpy arrays in the router's dtypes."""
+    return ShardBatch(*(tensor_to_numpy(f) for f in sb))

@@ -22,7 +22,11 @@ class Knobs:
     hash_table_bits: int = 22  # point-write version table: 2^bits entries
     range_ring_capacity: int = 4096  # recent range-write ring (exact lane)
     coarse_buckets_bits: int = 14  # 2^bits contiguous key buckets
-    ring_partition_bits: int = 0  # only the flat ring (0) is ported
+    # 2^bits bucket-partitioned sub-rings on one device (0 = flat ring):
+    # a query checks only its two end partitions' sub-rings exactly.
+    # Both kernels take the flat ring only: under "auto" a partitioned
+    # ring turns them off, and an explicit "on" is refused
+    ring_partition_bits: int = 0
     key_limbs: int = 8  # 4*L bytes of exact key prefix on device
     # the ring lanes through the hand-written CUDA kernel (ops/ring.py):
     # "auto" = on for a CUDA device, "on" = always (its plain version on
@@ -33,6 +37,13 @@ class Knobs:
     # tri-state, and "auto" also stays off for shapes the kernel does
     # not take (txns > 1024). Subsumes ring_kernel when engaged.
     accept_kernel: str = "auto"
+    # lane ownership of a multi-lane resolver (Cluster(n_resolvers=k),
+    # resolver/meshresolver.py): "range" routes each packed entry on the
+    # host to the lane(s) owning its key range (packing.ShardRouter) and
+    # runs the compacted per-lane step; "hash" copies the batch to every
+    # lane and carves ownership inside the step (hash-sharded point
+    # table, bucket-sharded ring)
+    resolver_sharding: str = "range"
 
     # --- commit path ---
     # "flat": the client pre-encodes conflict ranges into columnar limb
@@ -45,6 +56,16 @@ class Knobs:
     # batch host-side so reads resolve before the writes they overlap.
     # On by default, as in the reference; False commits in arrival order.
     commit_batch_scheduling: bool = True
+    # client-side transaction repair (txn/repair.py): on a 1020 that
+    # carries the conflicting ranges and the rejecting commit version,
+    # re-read only the conflicting keys at that version and replay the
+    # recorded op log (nothing changed) or re-run the body from the
+    # verified read cache, without a GRV and without a backoff. On by
+    # default, as in the reference
+    txn_repair: bool = True
+    # repair rounds in a row before a conflicted transaction falls back
+    # to the cold restart (fresh GRV, backoff): the livelock bound
+    txn_repair_max_rounds: int = 4
 
     # --- versions / MVCC ---
     max_read_transaction_life_versions: int = 5_000_000

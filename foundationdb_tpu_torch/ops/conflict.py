@@ -7,9 +7,28 @@ intersects a write range committed after its read version — including
 writes of earlier transactions *in the same batch* that were themselves
 accepted.
 
-The port of ``foundationdb_tpu/ops/conflict.py`` (single device, flat
-ring), held to it bit for bit: the same four history structures, the
-same lanes, the same statuses and the same state after every batch.
+The port of ``foundationdb_tpu/ops/conflict.py``, held to it bit for
+bit: the same four history structures, the same lanes, the same
+statuses and the same state after every batch. Three layouts:
+
+- one device, flat ring (:func:`resolve_batch`), with the CUDA kernels;
+- one device, a bucket-partitioned ring (``ring_partition_bits > 0``):
+  2^PB sub-rings keyed by the begin key's top bucket bits; a query
+  checks its two end partitions' sub-rings exactly and a per-partition
+  version max for the partitions between them;
+- n resolver lanes (:func:`resolve_batch` with ``n_lanes``, and
+  :func:`resolve_batch_presharded`). The JAX package runs one lane per
+  device of a ``shard_map`` mesh; here the lanes are a leading tensor
+  axis of one device's state. The state keeps the mesh's global shapes
+  (``ht`` of ``n << HB``, ring fields of ``n * KR``, ``ring_head`` of
+  ``[n]``, the coarse summaries once), viewed ``[n, ...]`` inside the
+  step. A ``psum`` of bools becomes an ``any`` over the lane axis and a
+  ``pmax`` of the replicated summaries a single scatter-max into the one
+  copy, which every lane shares.
+
+The kernels run only on the single-device flat ring, as in the JAX
+package (which turns its Pallas kernels off for lanes and for the
+partitioned ring).
 
 1. **Point-version hash table** ``ht[2^HB]``: max commit-version offset
    per key-hash bucket (scatter-max on write, gather on read).
@@ -40,10 +59,13 @@ import torch
 from foundationdb_tpu_torch.core.status import COMMITTED, CONFLICT, TOO_OLD
 from foundationdb_tpu_torch.ops.accept import (
     MAX_TXNS,
+    READ_SENTINEL,
+    WRITE_SENTINEL,
     conflict_matrix,
     fused_accept,
     jacobi_accept,
 )
+from foundationdb_tpu_torch.ops.intervals import point_in, ranges_overlap
 from foundationdb_tpu_torch.ops.ring import ring_slot_hits
 
 
@@ -65,7 +87,9 @@ class ResolverParams(NamedTuple):
     # point-specialized fast variant (Resolver), which shares history
     # with a full variant whose later range reads must see these writes
     record_point_coarse: bool = False
-    ring_partition_bits: int = 0  # only the flat ring (0) is ported
+    # bucket-partitioned ring, single device only: 2^bits sub-rings keyed
+    # by the begin key's top bucket bits (0 = the flat ring)
+    ring_partition_bits: int = 0
     # the whole accept step via csrc/accept.cu (subsumes the ring lanes)
     use_accept_kernel: bool = False
 
@@ -81,7 +105,7 @@ class ResolverState(NamedTuple):
     ring_lo: torch.Tensor  # int32[KR] begin bucket
     ring_hi: torch.Tensor  # int32[KR] end bucket
     ring_mask: torch.Tensor  # bool[KR]
-    ring_head: torch.Tensor  # int32[]
+    ring_head: torch.Tensor  # int32[]; [2^PB] partitioned; [n] lanes
     range_L: torch.Tensor  # int64[C] evicted range-writes: v at begin bucket
     range_R: torch.Tensor  # int64[C] evicted range-writes: v at end bucket
     point_coarse: torch.Tensor  # int64[C] point writes per bucket
@@ -117,23 +141,75 @@ class ResolveBatch(NamedTuple):
     new_window_start: torch.Tensor  # []
 
 
-def init_state(params: ResolverParams, device="cpu") -> ResolverState:
-    kr, c, w = params.ring_capacity, 1 << params.bucket_bits, params.key_width
+class ShardBatch(NamedTuple):
+    """One commit batch compacted per key-range lane, the presharded
+    layout (resolver/packing.py ShardRouter builds it in numpy).
+
+    Each conflict side is a flat slot array of ``n * Q`` entries, lane j
+    owning slots ``[j*Q, (j+1)*Q)``, with the owning txn's index: point
+    entries go to exactly the lane of their key, range entries get a
+    slot in every lane their span touches and carry the whole unclipped
+    range. ``rv``, ``txn_mask``, ``cv`` and ``new_window_start`` are
+    replicated (parallel/mesh.py ``_SHARD_REPLICATED``). Padding slots
+    point at txn 0 with mask False."""
+
+    rv: torch.Tensor  # [T]
+    txn_mask: torch.Tensor  # bool[T]
+    pr_hash: torch.Tensor  # [n*Qpr]
+    pr_key: torch.Tensor  # [n*Qpr, W]
+    pr_bucket: torch.Tensor  # int32[n*Qpr]
+    pr_txn: torch.Tensor  # int32[n*Qpr] owning txn slot in [0, T)
+    pr_mask: torch.Tensor  # bool[n*Qpr]
+    pw_hash: torch.Tensor  # [n*Qpw]
+    pw_key: torch.Tensor  # [n*Qpw, W]
+    pw_bucket: torch.Tensor  # int32[n*Qpw]
+    pw_txn: torch.Tensor  # int32[n*Qpw]
+    pw_mask: torch.Tensor  # bool[n*Qpw]
+    rr_b: torch.Tensor  # [n*Qrr, W]
+    rr_e: torch.Tensor  # [n*Qrr, W]
+    rr_lo: torch.Tensor  # int32[n*Qrr]
+    rr_hi: torch.Tensor  # int32[n*Qrr]
+    rr_txn: torch.Tensor  # int32[n*Qrr]
+    rr_mask: torch.Tensor  # bool[n*Qrr]
+    rw_b: torch.Tensor  # [n*Qrw, W]
+    rw_e: torch.Tensor  # [n*Qrw, W]
+    rw_lo: torch.Tensor  # int32[n*Qrw]
+    rw_hi: torch.Tensor  # int32[n*Qrw]
+    rw_txn: torch.Tensor  # int32[n*Qrw]
+    rw_mask: torch.Tensor  # bool[n*Qrw]
+    cv: torch.Tensor  # []
+    new_window_start: torch.Tensor  # []
+
+
+def init_state(params: ResolverParams, device="cpu",
+               n_lanes=None) -> ResolverState:
+    """A fresh history. ``n_lanes`` gives the lane-sharded layout at the
+    mesh's global shapes (hash table ``n << HB``, ring ``n * KR``, one
+    ring head a lane); else one device's, with one ring head a
+    sub-ring when the ring is partitioned."""
+    n = 1 if n_lanes is None else int(n_lanes)
+    kr, c, w = n * params.ring_capacity, 1 << params.bucket_bits, params.key_width
     i64, i32 = torch.int64, torch.int32
+    if n_lanes is not None:
+        head_shape = (n,)
+    elif params.ring_partition_bits:
+        head_shape = (1 << params.ring_partition_bits,)
+    else:
+        head_shape = ()
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return ResolverState(
         window_start=z((), i64),
-        ht=z((1 << params.hash_bits,), i64),
+        ht=z((n << params.hash_bits,), i64),
         ring_b=z((kr, w), i64),
         ring_e=z((kr, w), i64),
         ring_v=z((kr,), i64),
         ring_lo=z((kr,), i32),
         ring_hi=z((kr,), i32),
         ring_mask=z((kr,), torch.bool),
-        ring_head=z((), i32),
+        ring_head=z(head_shape, i32),
         range_L=z((c,), i64),
         range_R=z((c,), i64),
         point_coarse=z((c,), i64),
@@ -182,21 +258,107 @@ def _scatter_max_(dst, idx, vals):
                         vals.reshape(-1), "amax", include_self=True)
 
 
+def _lex_lt_by_limb(a, b, W):
+    """lex_lt where ``a(i)`` and ``b(i)`` give limb i of each side: a
+    sub-ring gathered per query is built one limb at a time, never as a
+    [..., KRs, W] tensor."""
+    lt = eq = None
+    for i in range(W):
+        ai, bi = a(i), b(i)
+        if lt is None:
+            lt, eq = ai < bi, ai == bi
+        else:
+            lt = lt | (eq & (ai < bi))
+            eq = eq & (ai == bi)
+    return lt
+
+
+class _SubRings:
+    """The partitioned ring's views: P = 2^PB sub-rings of KRs entries,
+    sub-ring p holding the single-partition writes whose begin bucket has
+    top bits p, and each sub-ring's newest live version."""
+
+    def __init__(self, state, params):
+        pb = params.ring_partition_bits
+        self.P = P = 1 << pb
+        self.KRs = KRs = params.ring_capacity // P
+        self.shift = params.bucket_bits - pb
+        self.W = W = params.key_width
+        self.b = state.ring_b.view(P, KRs, W)
+        self.e = state.ring_e.view(P, KRs, W)
+        self.v = state.ring_v.view(P, KRs)
+        self.m = state.ring_mask.view(P, KRs)
+        # the conservative verdict for a query's middle partitions (its
+        # end partitions get exact checks)
+        self.part_max = torch.where(self.m, self.v, 0).amax(dim=1)
+
+    def part(self, bucket):
+        return (bucket.to(torch.int64) >> self.shift).clamp(0, self.P - 1)
+
+    def hits(self, qb, qe, rv, pq, point):
+        """bool[T, S]: each query slot against the live entries newer
+        than its read version in sub-ring ``pq`` [T, S]; a point query
+        (key qb) lies in an entry, a range [qb, qe) meets one."""
+        def sub(x):
+            return lambda i: x[:, :, i][pq]  # [T, S, KRs]
+
+        def qry(x):
+            return lambda i: x[..., i][..., None]  # [T, S, 1]
+
+        W = self.W
+        if point:
+            ov = (~_lex_lt_by_limb(qry(qb), sub(self.b), W)
+                  & _lex_lt_by_limb(qry(qb), sub(self.e), W))
+        else:
+            ov = (_lex_lt_by_limb(qry(qb), sub(self.e), W)
+                  & _lex_lt_by_limb(sub(self.b), qry(qe), W))
+        newer = (self.v[pq] > rv[:, None, None]) & self.m[pq]
+        return (ov & newer).any(dim=2)
+
+
+def _check_lanes(state, n, hash_bits):
+    if state.ht.shape[0] != n << hash_bits or state.ring_head.shape != (n,):
+        raise ValueError(
+            f"a {n}-lane step needs a state of {n} lanes (init_state with "
+            f"n_lanes={n}); got ht of {state.ht.shape[0]} slots and ring "
+            f"heads of shape {tuple(state.ring_head.shape)}: ownership "
+            "would silently un-own part of the key space")
+
+
 def resolve_batch(state: ResolverState, batch: ResolveBatch,
-                  params: ResolverParams, axis_name=None, n_shards=1):
+                  params: ResolverParams, n_lanes=None):
     """One resolver step: (statuses int32[T], accepted bool[T], state).
 
-    Updates ``state`` in place and returns it. Ref parity:
-    Resolver::resolveBatch + ConflictSet::detectConflicts.
+    Updates ``state`` in place and returns it. With ``n_lanes`` it is the
+    "hash" lane-sharded step over a state of the mesh's global shapes
+    (``init_state(..., n_lanes=n)``): every lane sees the whole batch;
+    lane j owns the point hashes h with h mod n == j (its slice of the
+    table) and the range writes whose begin bucket lies in its j-th
+    contiguous share of the buckets (its ring). Whichever lane records a
+    write is a lane whose check sees it, so OR-ing the lanes' verdicts
+    loses nothing. Ref parity: Resolver::resolveBatch +
+    ConflictSet::detectConflicts.
     """
-    if axis_name is not None or n_shards != 1:
-        raise NotImplementedError("the sharded resolver step is not ported yet")
-    if params.ring_partition_bits:
-        raise NotImplementedError("the partitioned ring is not ported yet")
     T = params.txns
     rv = batch.rv  # [T]
     dev = rv.device
-    hb_mask = (1 << params.hash_bits) - 1
+    HB = params.hash_bits
+    hb_mask = (1 << HB) - 1
+    C = state.point_coarse.shape[0]
+    lanes = n_lanes is not None
+    n = int(n_lanes) if lanes else 1
+    if lanes:
+        _check_lanes(state, n, HB)
+    # the partitioned ring is a single-device layout (the lanes shard the
+    # ring by bucket instead); the kernels take the flat ring only
+    PB = 0 if lanes else params.ring_partition_bits
+    sub = _SubRings(state, params) if PB and params.range_writes else None
+    accept_on = params.use_accept_kernel and not lanes and not PB
+    ring_on = (params.use_ring_kernel and not accept_on and not lanes
+               and not PB)
+    # every lane's ring at once: a lane checks the whole batch against
+    # its own ring, and the any over lanes is the check against all
+    ring = (state.ring_b, state.ring_e, state.ring_v, state.ring_mask)
 
     # ───────────────────────── history conflicts ─────────────────────────
     too_old = rv < state.window_start
@@ -208,15 +370,21 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
         pref_L = torch.cummax(state.range_L, dim=0).values
         suf_R = torch.cummax(state.range_R.flip(0), dim=0).values.flip(0)
 
-    accept_on = params.use_accept_kernel
-    ring_on = params.use_ring_kernel and not accept_on
-    ring = (state.ring_b, state.ring_e, state.ring_v, state.ring_mask)
-
     if params.point_reads:
-        ht_v = state.ht[batch.pr_hash & hb_mask]  # [T, PR]
+        h = batch.pr_hash & hb_mask
+        if lanes:
+            # only the owning lane (h mod n) checks a point read, in its
+            # own slice of the table
+            h = h + ((batch.pr_hash % n) << HB)
+        ht_v = state.ht[h]  # [T, PR]
         hit = (ht_v > rv[:, None]) & batch.pr_mask
         if params.range_writes:
-            if not accept_on:  # else the accept kernel checks the ring
+            if sub is not None:
+                # a point's partition is its bucket's: any single-partition
+                # entry holding it lives there (spanning ones are coarse)
+                hit |= sub.hits(batch.pr_key, batch.pr_key, rv,
+                                sub.part(batch.pr_bucket), True) & batch.pr_mask
+            elif not accept_on:  # else the accept kernel checks the ring
                 hit |= ring_slot_hits(batch.pr_key, batch.pr_key, rv,
                                       batch.pr_mask, ring, True, ring_on)
             bk = batch.pr_bucket.to(torch.int64)
@@ -228,7 +396,18 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
         RR = batch.rr_b.shape[1]
         hit = torch.zeros((T, RR), dtype=torch.bool, device=dev)
         if params.range_writes:
-            if not accept_on:
+            if sub is not None:
+                # exact checks against the two end partitions' sub-rings,
+                # the per-partition version max for the ones between
+                p_lo, p_hi = sub.part(batch.rr_lo), sub.part(batch.rr_hi)
+                ring_hit = (sub.hits(batch.rr_b, batch.rr_e, rv, p_lo, False)
+                            | sub.hits(batch.rr_b, batch.rr_e, rv, p_hi, False))
+                pidx = torch.arange(sub.P, device=dev)
+                mid = (pidx > p_lo[..., None]) & (pidx < p_hi[..., None])
+                mid_max = torch.where(mid, sub.part_max, 0).amax(dim=2)
+                ring_hit |= mid_max > rv[:, None]
+                hit |= ring_hit & batch.rr_mask
+            elif not accept_on:
                 hit |= ring_slot_hits(batch.rr_b, batch.rr_e, rv,
                                       batch.rr_mask, ring, False, ring_on)
             coarse_rng = torch.minimum(pref_L[batch.rr_hi.to(torch.int64)],
@@ -246,6 +425,10 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
     if accept_on:
         accepted = fused_accept(state, batch, params, a0)
     else:
+        # With lanes, each lane builds the rows of O from the writes it
+        # owns and the kill vector sums over lanes; the owners partition
+        # the writes (each hash has one residue, each bucket one share),
+        # so that sum reads the OR of the lanes' rows: the whole matrix.
         accepted = jacobi_accept(a0, conflict_matrix(batch, params))
 
     status = torch.where(too_old, TOO_OLD,
@@ -254,16 +437,53 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
 
     # ───────────────────────── history update ─────────────────────────────
     cv = batch.cv
-    C = state.point_coarse.shape[0]
     if params.point_writes:
         ok = batch.pw_mask & accepted[:, None]  # [T, PW]
         val = torch.where(ok, cv, 0)
-        _scatter_max_(state.ht, batch.pw_hash & hb_mask, val)
+        h = batch.pw_hash & hb_mask
+        if lanes:  # only the owning lane records a point write
+            h = h + ((batch.pw_hash % n) << HB)
+        _scatter_max_(state.ht, h, val)
+        # replicated: every lane applies the same update to one copy
         if params.range_reads or params.record_point_coarse:
             _scatter_max_(state.point_coarse, batch.pw_bucket.clamp(0, C - 1), val)
 
     if params.range_writes and batch.rw_b.shape[1]:
-        _append_ring(state, batch, params, accepted, C)
+        W = params.key_width
+        ok = (batch.rw_mask & accepted[:, None]).reshape(-1)  # [T*RW]
+        lo = batch.rw_lo.reshape(-1)
+        hi = batch.rw_hi.reshape(-1)
+        kr = params.ring_capacity
+        head = state.ring_head.to(torch.int64)
+        if lanes:
+            # lane j records the entries whose begin bucket is in its share
+            lane = (lo.to(torch.int64) * n) // C
+            rank, counts = _group_ranks(ok, lane, n)
+            pos = torch.where(ok, lane * kr + (head[lane.clamp(0, n - 1)]
+                                               + rank) % kr, n * kr)
+            new_head = (head + counts) % kr
+        elif sub is not None:
+            # single-partition entries go to their sub-ring; spanning ones
+            # (and a flood overflowing a sub-ring in one batch) fold into
+            # the coarse summaries, the same direction as eviction
+            KRs = sub.KRs
+            part_lo, part_hi = sub.part(lo), sub.part(hi)
+            single = part_lo == part_hi
+            rank, counts = _group_ranks(ok & single, part_lo, sub.P)
+            ok_ring = ok & single & (rank < KRs)
+            ok_coarse = ok & (~single | (single & (rank >= KRs)))
+            pos = torch.where(ok_ring,
+                              part_lo * KRs + (head[part_lo] + rank) % KRs, kr)
+            new_head = (head + counts.clamp(max=KRs)) % KRs
+            c_val = torch.where(ok_coarse, cv, 0)
+            _scatter_max_(state.range_L, lo.clamp(0, C - 1), c_val)
+            _scatter_max_(state.range_R, hi.clamp(0, C - 1), c_val)
+        else:
+            slot_order = torch.cumsum(ok, dim=0) - 1  # position among accepted
+            pos = torch.where(ok, (head + slot_order) % kr, kr)
+            new_head = (head + ok.sum()) % kr
+        _write_ring(state, pos, new_head, batch.rw_b.reshape(-1, W),
+                    batch.rw_e.reshape(-1, W), lo, hi, cv, C)
 
     # monotone: never regress the window (a recovered resolver's fence
     # must survive proxies whose cv-derived window is still behind it)
@@ -272,39 +492,40 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
     return status, accepted, state
 
 
-def _append_ring(state, batch, params, accepted, C):
-    """Append the accepted range writes at the ring head, folding the
-    entries they evict into the coarse interval summaries first."""
-    kr, W = params.ring_capacity, params.key_width
-    ok = (batch.rw_mask & accepted[:, None]).reshape(-1)  # [T*RW]
-    n = ok.shape[0]
-    head = state.ring_head.to(torch.int64)
-    slot_order = torch.cumsum(ok, dim=0) - 1  # position among accepted
-    pos = torch.where(ok, (head + slot_order) % kr, kr)
-    new_head = (head + ok.sum()) % kr
-    # src[k]: the entry that lands in ring slot k, or -1. Valid positions
-    # are distinct (T*RW <= KR, validate_params); every dropped entry
-    # points at the spare slot kr, which is cut off.
-    src = torch.full((kr + 1,), -1, dtype=torch.int64, device=ok.device)
-    src.scatter_(0, pos, torch.arange(n, device=ok.device))
+def _group_ranks(ok, group, n_groups):
+    """Each accepted entry's rank among its group's accepted entries, in
+    entry order, and each group's count. ok: bool[N]; group: int64[N]."""
+    onehot = ok[:, None] & (
+        group[:, None] == torch.arange(n_groups, device=ok.device)[None, :])
+    ranks = torch.cumsum(onehot.to(torch.int64), dim=0) - 1
+    rank = torch.where(onehot, ranks, 0).sum(dim=1)
+    return rank, onehot.sum(dim=0)
+
+
+def _write_ring(state, pos, new_head, b, e, lo, hi, cv, C):
+    """Write the entries at ring positions ``pos`` (the spare position
+    len(ring) for an entry that is not written), folding the live
+    entries they evict into the coarse interval summaries first, and
+    move the ring heads. Valid positions are distinct (the callers' per
+    ring bounds), so each ring slot takes at most one entry."""
+    kr = state.ring_v.shape[0]
+    n = pos.shape[0]
+    # src[k]: the entry that lands in ring slot k, or -1; every dropped
+    # entry points at the spare slot kr, which is cut off
+    src = torch.full((kr + 1,), -1, dtype=torch.int64, device=pos.device)
+    src.scatter_(0, pos, torch.arange(n, device=pos.device))
     src = src[:kr]
     written = src >= 0
-    # fold evicted entries into the coarse interval summary first
     ev_val = torch.where(written & state.ring_mask, state.ring_v, 0)
     _scatter_max_(state.range_L, state.ring_lo.clamp(0, C - 1), ev_val)
     _scatter_max_(state.range_R, state.ring_hi.clamp(0, C - 1), ev_val)
-    # append
     take = src.clamp(min=0)
     col = written[:, None]
-    state.ring_b.copy_(torch.where(col, batch.rw_b.reshape(n, W)[take],
-                                   state.ring_b))
-    state.ring_e.copy_(torch.where(col, batch.rw_e.reshape(n, W)[take],
-                                   state.ring_e))
-    state.ring_v.copy_(torch.where(written, batch.cv, state.ring_v))
-    state.ring_lo.copy_(torch.where(written, batch.rw_lo.reshape(n)[take],
-                                    state.ring_lo))
-    state.ring_hi.copy_(torch.where(written, batch.rw_hi.reshape(n)[take],
-                                    state.ring_hi))
+    state.ring_b.copy_(torch.where(col, b[take], state.ring_b))
+    state.ring_e.copy_(torch.where(col, e[take], state.ring_e))
+    state.ring_v.copy_(torch.where(written, cv, state.ring_v))
+    state.ring_lo.copy_(torch.where(written, lo[take], state.ring_lo))
+    state.ring_hi.copy_(torch.where(written, hi[take], state.ring_hi))
     state.ring_mask.copy_(state.ring_mask | written)
     state.ring_head.copy_(new_head)
 
@@ -324,13 +545,192 @@ def validate_params(params: ResolverParams):
             f"use_accept_kernel requires txns <= {MAX_TXNS}: the sweep "
             f"holds the kill vector in one warp (got {params.txns})"
         )
+    pb = params.ring_partition_bits
+    if pb:
+        if pb > params.bucket_bits:
+            raise ValueError(
+                "ring_partition_bits exceeds bucket_bits: partitions are "
+                "keyed by the top coarse-bucket bits")
+        if params.ring_capacity % (1 << pb):
+            raise ValueError(
+                "ring_capacity must divide evenly into 2^ring_partition_bits "
+                "sub-rings")
+        if params.use_ring_kernel or params.use_accept_kernel:
+            raise ValueError(
+                "ring_partition_bits and the ring/accept kernels are "
+                "mutually exclusive: the kernels take the flat ring layout "
+                "(ignoring an explicit kernel request would misattribute "
+                "measurements)")
+
+
+def resolve_batch_presharded(state: ResolverState, sb: ShardBatch,
+                             params: ResolverParams):
+    """The compacted-lane step, the "range" sharding mode.
+
+    ``sb`` is a ShardBatch whose per-lane fields are viewed ``[n, Q, ...]``
+    (parallel/mesh.py ``lane_view``) and ``state`` has n lanes. Each lane
+    checks only the entries routed to it against its own table slice and
+    ring, so the [Q, KR] ring scan and the pairwise matrix shrink with n.
+    Any read and write that overlap share a key, and both are routed to
+    that key's lane, so every conflict is checked on some lane; the
+    lanes' per-txn hit counts and [T, T] pair counts sum into one before
+    the > 0 threshold (the psum of the JAX package). ``rv``, ``txn_mask``
+    and the versions are replicated, so one verdict vector comes out.
+    """
+    n = sb.pr_txn.shape[0]
+    T = params.txns
+    rv = sb.rv
+    dev = rv.device
+    HB = params.hash_bits
+    hb_mask = (1 << HB) - 1
+    C = state.point_coarse.shape[0]
+    W = params.key_width
+    _check_lanes(state, n, HB)
+    KR = state.ring_v.shape[0] // n
+    rb = state.ring_b.view(n, KR, W)
+    re = state.ring_e.view(n, KR, W)
+    rvv = state.ring_v.view(n, KR)
+    rm = state.ring_mask.view(n, KR)
+    Qpr, Qpw = sb.pr_txn.shape[1], sb.pw_txn.shape[1]
+    Qrr, Qrw = sb.rr_txn.shape[1], sb.rw_txn.shape[1]
+    lane_ids = torch.arange(n, device=dev)[:, None]  # [n, 1]
+
+    # ───────────────────────── history conflicts ─────────────────────────
+    too_old = rv < state.window_start
+    # per-txn hit counts by scatter-add; padding slots point at txn 0 with
+    # mask False and add zero
+    hist_i = torch.zeros((T,), dtype=torch.int32, device=dev)
+
+    if params.range_writes:
+        pref_L = torch.cummax(state.range_L, dim=0).values
+        suf_R = torch.cummax(state.range_R.flip(0), dim=0).values.flip(0)
+
+    if Qpr:
+        txn = sb.pr_txn.to(torch.int64)
+        rv_q = rv[txn]  # [n, Qpr]
+        hit = (state.ht[(lane_ids << HB) + (sb.pr_hash & hb_mask)] > rv_q) \
+            & sb.pr_mask
+        if params.range_writes:
+            in_rng = point_in(sb.pr_key[:, :, None, :], rb[:, None],
+                              re[:, None])  # [n, Qpr, KR]
+            newer = (rvv[:, None, :] > rv_q[:, :, None]) & rm[:, None, :]
+            hit |= (in_rng & newer).any(dim=2) & sb.pr_mask
+            bk = sb.pr_bucket.to(torch.int64)
+            coarse = torch.minimum(pref_L[bk], suf_R[bk])
+            hit |= (coarse > rv_q) & sb.pr_mask
+        hist_i.index_add_(0, txn.reshape(-1), hit.reshape(-1).to(torch.int32))
+
+    if Qrr:
+        txn = sb.rr_txn.to(torch.int64)
+        rv_q = rv[txn]  # [n, Qrr]
+        hit = torch.zeros((n, Qrr), dtype=torch.bool, device=dev)
+        if params.range_writes:
+            ov = ranges_overlap(sb.rr_b[:, :, None, :], sb.rr_e[:, :, None, :],
+                                rb[:, None], re[:, None])  # [n, Qrr, KR]
+            newer = (rvv[:, None, :] > rv_q[:, :, None]) & rm[:, None, :]
+            hit |= (ov & newer).any(dim=2) & sb.rr_mask
+            coarse_rng = torch.minimum(pref_L[sb.rr_hi.to(torch.int64)],
+                                       suf_R[sb.rr_lo.to(torch.int64)])
+            hit |= (coarse_rng > rv_q) & sb.rr_mask
+        if params.point_writes:
+            levels = _sparse_table(state.point_coarse)
+            pmax = _range_max(levels, sb.rr_lo, sb.rr_hi)
+            hit |= (pmax > rv_q) & sb.rr_mask
+        hist_i.index_add_(0, txn.reshape(-1), hit.reshape(-1).to(torch.int32))
+
+    hist = hist_i > 0
+
+    # ─────────────────────── intra-batch conflict matrix ───────────────────
+    # O[t1, t2] counts (write txn, read txn) pairs over every lane; a
+    # spanning write and a spanning read seen on two lanes add twice
+    # before the > 0 threshold
+    O_i = torch.zeros((T * T,), dtype=torch.int32, device=dev)
+
+    def pairs(w_txn, r_txn, val):  # val: bool[n, Qw, Qr]
+        idx = (w_txn.to(torch.int64)[:, :, None] * T
+               + r_txn.to(torch.int64)[:, None, :])
+        O_i.index_add_(0, idx.reshape(-1), val.reshape(-1).to(torch.int32))
+
+    if Qpw and Qpr:
+        wh = torch.where(sb.pw_mask, sb.pw_hash, WRITE_SENTINEL)
+        rh = torch.where(sb.pr_mask, sb.pr_hash, READ_SENTINEL)
+        pairs(sb.pw_txn, sb.pr_txn, wh[:, :, None] == rh[:, None, :])
+    if Qpw and Qrr:
+        inr = point_in(sb.pw_key[:, :, None, :], sb.rr_b[:, None],
+                       sb.rr_e[:, None])  # [n, Qpw, Qrr]
+        pairs(sb.pw_txn, sb.rr_txn,
+              inr & sb.pw_mask[:, :, None] & sb.rr_mask[:, None, :])
+    if Qrw and Qpr:
+        inr = point_in(sb.pr_key[:, None], sb.rw_b[:, :, None, :],
+                       sb.rw_e[:, :, None, :])  # [n, Qrw, Qpr]
+        pairs(sb.rw_txn, sb.pr_txn,
+              inr & sb.rw_mask[:, :, None] & sb.pr_mask[:, None, :])
+    if Qrw and Qrr:
+        ov = ranges_overlap(sb.rr_b[:, None], sb.rr_e[:, None],
+                            sb.rw_b[:, :, None, :], sb.rw_e[:, :, None, :])
+        pairs(sb.rw_txn, sb.rr_txn,
+              ov & sb.rw_mask[:, :, None] & sb.rr_mask[:, None, :])
+
+    upper = torch.ones((T, T), dtype=torch.bool, device=dev).triu(1)
+    O = ((O_i.view(T, T) > 0) & upper & sb.txn_mask[:, None]
+         & sb.txn_mask[None, :])
+    a0 = (~too_old) & (~hist) & sb.txn_mask
+    accepted = jacobi_accept(a0, O)
+
+    status = torch.where(too_old, TOO_OLD,
+                         torch.where(accepted, COMMITTED, CONFLICT))
+    status = torch.where(sb.txn_mask, status, CONFLICT).to(torch.int32)
+
+    # ───────────────────────── history update ─────────────────────────────
+    cv = sb.cv
+    if Qpw:
+        ok = sb.pw_mask & accepted[sb.pw_txn.to(torch.int64)]  # [n, Qpw]
+        val = torch.where(ok, cv, 0)
+        _scatter_max_(state.ht, (lane_ids << HB) + (sb.pw_hash & hb_mask), val)
+        if params.range_reads or params.record_point_coarse:
+            # lanes record different subsets into the one replicated copy
+            # (the JAX package's pmax)
+            _scatter_max_(state.point_coarse, sb.pw_bucket.clamp(0, C - 1), val)
+
+    if Qrw:
+        ok = sb.rw_mask & accepted[sb.rw_txn.to(torch.int64)]  # [n, Qrw]
+        slot = torch.cumsum(ok, dim=1) - 1
+        # a skewed split can overflow a lane's ring in one batch: the
+        # excess folds into the coarse interval summaries, the same
+        # direction as eviction
+        ok_ring = ok & (slot < KR)
+        overflow = ok & (slot >= KR)
+        head = state.ring_head.to(torch.int64)
+        pos = torch.where(ok_ring, lane_ids * KR + (head[:, None] + slot) % KR,
+                          n * KR)
+        new_head = (head + ok.sum(dim=1).clamp(max=KR)) % KR
+        o_val = torch.where(overflow, cv, 0)
+        _scatter_max_(state.range_L, sb.rw_lo.clamp(0, C - 1), o_val)
+        _scatter_max_(state.range_R, sb.rw_hi.clamp(0, C - 1), o_val)
+        _write_ring(state, pos.reshape(-1), new_head, sb.rw_b.reshape(-1, W),
+                    sb.rw_e.reshape(-1, W), sb.rw_lo.reshape(-1),
+                    sb.rw_hi.reshape(-1), cv, C)
+
+    state.window_start.copy_(torch.maximum(state.window_start,
+                                           sb.new_window_start))
+    return status, accepted, state
+
+
+def validate_presharded_params(params: ResolverParams):
+    """Invariants of the compacted-lane step. The flat ring's
+    T*RW <= KR wrap check does not apply: a lane's ring overflow folds
+    into the coarse summaries instead of wrapping."""
+    if params.use_ring_kernel or params.use_accept_kernel:
+        raise ValueError(
+            "the presharded step has no kernel lanes: the kernels take the "
+            "dense [T, K] layout (ignoring an explicit kernel request would "
+            "misattribute measurements)")
     if params.ring_partition_bits:
-        raise NotImplementedError("the partitioned ring is not ported yet")
-
-
-def resolve_batch_presharded(state, sb, params, axis_name=None):
-    """The compacted-lane sharded step: not ported yet."""
-    raise NotImplementedError("resolve_batch_presharded is not ported yet")
+        raise ValueError(
+            "ring_partition_bits is a single-device layout; the presharded "
+            "step shards the ring across lanes instead")
+    if params.bucket_bits > 30 or params.hash_bits > 28:
+        raise ValueError("bucket_bits/hash_bits unreasonably large")
 
 
 def make_resolve_fn(params: ResolverParams):
@@ -348,7 +748,7 @@ def scan_of(step_fn):
         rows = []
         for b in range(batches.rv.shape[0]):
             status, _accepted, state = step_fn(
-                state, ResolveBatch(*(x[b] for x in batches)))
+                state, type(batches)(*(x[b] for x in batches)))
             rows.append(status)
         return state, torch.stack(rows)
 

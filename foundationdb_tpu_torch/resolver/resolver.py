@@ -128,18 +128,7 @@ def _kernel_knob(knobs, name, on_cuda):
 
 class Resolver:
     def __init__(self, knobs=DEFAULT_KNOBS, base_version=0, device=None):
-        self.knobs = knobs
-        self.backend = knobs.resolver_backend
-        self.base_version = base_version
-        self.alive = True
-        self.counters = {"resolve_batches": 0, "resolve_txns": 0,
-                         "backlog_dispatches": 0, "backlog_depth": 0,
-                         "flat_fallbacks": 0, "respawns": 0}
-        # cumulative wall seconds of resolve_many's dispatch (the batch
-        # copy and the scan call; a host backend's eager resolve): the
-        # batcher subtracts it from its stage-A+B timer so host packing
-        # and dispatch report as separate stages
-        self.dispatch_wall_s = 0.0
+        self._init_role(knobs, knobs.resolver_backend, base_version)
         # the device lanes take the flat columnar batches; the exact host
         # set works on byte ranges
         self.accepts_flat = self.backend == "cuda"
@@ -183,13 +172,27 @@ class Resolver:
         else:
             raise ValueError(f"unknown resolver_backend {self.backend!r}")
 
+    def _init_role(self, knobs, backend, base_version):
+        self.knobs = knobs
+        self.backend = backend
+        self.base_version = base_version
+        self.alive = True
+        self.counters = {"resolve_batches": 0, "resolve_txns": 0,
+                         "backlog_dispatches": 0, "backlog_depth": 0,
+                         "flat_fallbacks": 0, "respawns": 0}
+        # cumulative wall seconds of resolve_many's dispatch (the batch
+        # copy and the scan call; a host backend's eager resolve): the
+        # batcher subtracts it from its stage-A+B timer so host packing
+        # and dispatch report as separate stages
+        self.dispatch_wall_s = 0.0
+
     def status(self):
         """This role's status payload."""
         return {
             "alive": self.alive,
             "backend": self.backend,
             "device": str(self.device) if self.device is not None else None,
-            "lanes": 1,
+            "lanes": getattr(self, "n_lanes", 1),
             "metrics": dict(self.counters),
         }
 
@@ -248,9 +251,7 @@ class Resolver:
             chunk = live[c : c + self.params.txns]
             batch = packer.pack([t for _, t in chunk], self.base_version,
                                 commit_version, new_window_start)
-            status, _accepted, self.state = resolve_fn(
-                self.state, batch_from_numpy(batch, self.device))
-            out = status[: len(chunk)].tolist()
+            out = self._run_step(resolve_fn, batch)[: len(chunk)].tolist()
             for (i, _), s in zip(chunk, out):
                 statuses[i] = s
         return statuses
@@ -273,9 +274,14 @@ class Resolver:
             self.packer, self._resolve)
         batch = packer.pack_flat(flat, self.base_version, commit_version,
                                  new_window_start)
+        return self._run_step(resolve_fn, batch)[: len(flat)].tolist()
+
+    def _run_step(self, resolve_fn, batch):
+        """One step on a packed numpy batch: copy it to the device, thread
+        the history through ``resolve_fn`` → statuses int32[T]."""
         status, _accepted, self.state = resolve_fn(
             self.state, batch_from_numpy(batch, self.device))
-        return status[: len(flat)].tolist()
+        return status
 
     def _flat_refused(self, flat):
         """Whether this flat batch must take the legacy lane: a read
@@ -440,8 +446,7 @@ class Resolver:
         a card ``read`` first waits for an event recorded behind the
         scan on the dispatching thread's stream."""
         t0 = time.perf_counter()
-        batch = batch_from_numpy(stacked, self.device, non_blocking=True)
-        self.state, st = self._get_scan_fn(use_fast)(self.state, batch)
+        st = self._run_scan(use_fast, stacked)
         done = None
         if st.device.type == "cuda":
             done = torch.cuda.Event()
@@ -454,6 +459,13 @@ class Resolver:
             return st.cpu().numpy()
 
         return read
+
+    def _run_scan(self, use_fast, stacked):
+        """Copy a stacked numpy backlog to the device (no stream sync) and
+        enqueue its scan → statuses [B, T] on the device."""
+        batch = batch_from_numpy(stacked, self.device, non_blocking=True)
+        self.state, st = self._get_scan_fn(use_fast)(self.state, batch)
+        return st
 
     def _get_scan_fn(self, use_fast):
         scan_fn = self._scan_fns.get(use_fast)

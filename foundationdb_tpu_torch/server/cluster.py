@@ -15,14 +15,23 @@ server/batcher.py; GRVs batch too) or ``"manual"`` (the caller pumps the
 batcher). ``n_commit_proxies > 1`` builds a fleet ordered by version
 gates (server/fleet.py).
 
-The port's cluster has one resolver, one storage server and one log and
-counts versions. Recovery, replication and data distribution are not
-ported yet.
+``n_resolvers=k > 1`` with the ``"cuda"`` backend builds ONE
+MeshResolver of k lanes on the device (resolver/meshresolver.py,
+``resolver_sharding`` "range" or "hash"), which the proxy drives through
+its single-resolver path; with the ``"cpu"`` backend it builds k exact
+host sets, each owning a byte range of keys, behind the proxy's clipped
+fan-out. A dead resolver is replaced by ``recruit_resolvers``, fenced at
+the committed version, as the reference's recovery does.
+
+The port's cluster has one storage server and one log and counts
+versions. Recovery of the other roles, replication and data
+distribution are not ported yet.
 """
 
 import dataclasses
 
 from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
+from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 from foundationdb_tpu_torch.resolver.resolver import Resolver
 from foundationdb_tpu_torch.server.grv import BatchingGrvProxy, GrvProxy
 from foundationdb_tpu_torch.server.proxy import CommitProxy, VersionGate
@@ -36,14 +45,16 @@ COMMIT_PIPELINES = ("sync", "thread", "manual")
 class Cluster:
     def __init__(self, knobs=None, device=None, commit_pipeline="sync",
                  commit_batch_max=None, commit_flush_after=4,
-                 n_commit_proxies=1, **knob_overrides):
+                 n_commit_proxies=1, n_resolvers=1, **knob_overrides):
         if commit_pipeline not in COMMIT_PIPELINES:
             raise ValueError(f"commit_pipeline must be one of "
                              f"{COMMIT_PIPELINES}, got {commit_pipeline!r}")
         if n_commit_proxies < 1:
             raise ValueError(f"n_commit_proxies must be >= 1, got "
                              f"{n_commit_proxies}")
-        # an argument the port does not take (a role count, a path) is
+        if n_resolvers < 1:
+            raise ValueError(f"n_resolvers must be >= 1, got {n_resolvers}")
+        # an argument the port does not take (a log count, a path) is
         # an unknown Knobs field: replace raises TypeError
         knobs = dataclasses.replace(knobs or DEFAULT_KNOBS, **knob_overrides)
         self.knobs = knobs
@@ -51,8 +62,13 @@ class Cluster:
         self._commit_batch_max = commit_batch_max
         self._commit_flush_after = commit_flush_after
         self.n_commit_proxies = n_commit_proxies
-        # the resolver first: it owns the device and raises without a card
-        self.resolvers = [Resolver(knobs, base_version=0, device=device)]
+        # the resolvers first: they own the device and raise without a card
+        if knobs.resolver_backend == "cuda" and n_resolvers > 1:
+            self.resolvers = [MeshResolver(knobs, base_version=0,
+                                           n_lanes=n_resolvers, device=device)]
+        else:
+            self.resolvers = [Resolver(knobs, base_version=0, device=device)
+                              for _ in range(n_resolvers)]
         self.device = self.resolvers[0].device
         self.storages = [StorageServer(
             window_versions=knobs.max_read_transaction_life_versions)]
@@ -61,7 +77,7 @@ class Cluster:
         self.commit_proxy, self.grv_proxy = self._build_txn_frontend()
 
     def _make_commit_proxy(self, resolve_gate=None, log_gate=None):
-        return CommitProxy(self.sequencer, self.resolvers[0], self.tlog,
+        return CommitProxy(self.sequencer, self.resolvers, self.tlog,
                            self.storages[0], self.knobs,
                            resolve_gate=resolve_gate, log_gate=log_gate)
 
@@ -121,6 +137,20 @@ class Cluster:
     def storage(self):
         return self.storages[0]
 
+    def recruit_resolvers(self):
+        """Replace every dead resolver with a fresh one of its own kind (a
+        lane fleet recruits a lane fleet), fenced at the committed
+        version: the replacement's history is empty, so every read
+        version from before it answers TOO_OLD and retries with fresh
+        reads (ref: a resolver failure forcing a recovery that fences the
+        old epoch). Returns the indices replaced."""
+        out = []
+        for i, r in enumerate(self.resolvers):
+            if not r.alive:
+                self.resolvers[i] = r.respawn(self.sequencer.committed_version)
+                out.append(i)
+        return out
+
     def read_storage(self, key=b""):
         """The storage that serves reads of ``key``: the one replica."""
         return self.storages[0]
@@ -134,12 +164,14 @@ class Cluster:
         """A reduced status document: availability, the committed-txn
         counter, the commit pipeline and each role's status."""
         cp = self.commit_proxy
-        resolver = self.resolvers[0]
         inners = self._inner_proxies()
         return {"cluster": {
             "database_available": all(
                 (self.sequencer.alive, self._commit_target().alive,
-                 self.tlog.alive, resolver.alive, self.storage.alive)),
+                 self.tlog.alive, self.storage.alive,
+                 *(r.alive for r in self.resolvers))),
+            # lanes, not host objects: a 3-lane fleet counts 3
+            "resolvers": sum(getattr(r, "n_lanes", 1) for r in self.resolvers),
             "workload": {"transactions": {
                 "committed": {"counter": cp.commit_count},
                 "conflicted": {"counter": cp.conflict_count}}},
@@ -149,7 +181,7 @@ class Cluster:
                                      count=self.n_commit_proxies,
                                      members=[p.status() for p in inners]),
                 "grv_proxy": self.grv_proxy.status(),
-                "resolver": resolver.status(),
+                "resolvers": [r.status() for r in self.resolvers],
                 "log": self.tlog.status(),
                 "storage": self.storage.status(),
             },

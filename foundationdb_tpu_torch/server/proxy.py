@@ -14,12 +14,17 @@ order the stateful stages — resolver history, then log and storage —
 in the sequencer's chained grant order, so several proxies pack and
 route at once while the state changes serially.
 
-The port's proxy serves one resolver and one storage server holding the
-whole keyspace. Not ported, and so absent from every branch below: the
-database lock, tenant modes, the ratekeeper's admission of read-free
-requests, idempotency ids and their dedupe, system keys, regions, data
-distribution, metrics and spans. Where the reference tests for one of
-them, the port takes the branch the reference takes when it is absent.
+The proxy serves one storage server holding the whole keyspace, and
+either one resolver (a single device resolver, a lane fleet of
+resolver/meshresolver.py, or one exact host set) or several host
+resolvers, each owning a contiguous byte range of keys: then every
+batch is clipped per resolver and a txn commits iff every resolver
+accepts it (``_resolve``). Not ported, and so absent from every branch
+below: the database lock, tenant modes, the ratekeeper's admission of
+read-free requests, idempotency ids and their dedupe, system keys,
+regions, data distribution, metrics and spans. Where the reference
+tests for one of them, the port takes the branch the reference takes
+when it is absent.
 """
 
 import threading
@@ -29,7 +34,7 @@ from foundationdb_tpu_torch.core import flatpack
 from foundationdb_tpu_torch.core.commit import CommitRequest  # noqa: F401
 from foundationdb_tpu_torch.core.errors import FDBError
 from foundationdb_tpu_torch.core.mutations import Op, substitute_versionstamp
-from foundationdb_tpu_torch.core.status import COMMITTED, TOO_OLD
+from foundationdb_tpu_torch.core.status import COMMITTED, CONFLICT, TOO_OLD
 from foundationdb_tpu_torch.resolver.resolver import ResolverDown
 from foundationdb_tpu_torch.resolver.skiplist import TxnRequest
 from foundationdb_tpu_torch.server import scheduler
@@ -37,6 +42,7 @@ from foundationdb_tpu_torch.server.sequencer import SequencerDown
 from foundationdb_tpu_torch.server.tlog import TLogDown
 
 _STAMPED = (Op.SET_VERSIONSTAMPED_KEY, Op.SET_VERSIONSTAMPED_VALUE)
+REPAIR_COUNTERS = ("repair_attempts", "repair_commits", "repair_fallbacks")
 
 
 def _errors(name, n):
@@ -105,11 +111,12 @@ class _PipelinedGroup:
 
 
 class CommitProxy:
-    def __init__(self, sequencer, resolver, tlog, storage, knobs,
+    def __init__(self, sequencer, resolvers, tlog, storage, knobs,
                  resolve_gate=None, log_gate=None):
         self.alive = True
         self.sequencer = sequencer
-        self.resolver = resolver
+        # the cluster's own list: a recruit replacing an entry is seen here
+        self.resolvers = resolvers
         self.tlog = tlog
         self.storage = storage
         self.knobs = knobs
@@ -128,15 +135,28 @@ class CommitProxy:
         # client threads may drive the proxy directly: the pipeline's
         # state (resolver history, log order, storage) changes serially
         self._commit_mu = threading.RLock()
+        # transaction-repair outcomes its clients report (txn/repair.py)
+        self.repair_counts = dict.fromkeys(REPAIR_COUNTERS, 0)
+        self._repair_mu = threading.Lock()
         self._batches_since_pump = 0
         self.pump_interval = 64  # batches between durability pumps
+
+    @property
+    def resolver(self):
+        """The first resolver (the only one unless host resolvers fan out)."""
+        return self.resolvers[0]
+
+    def note_repair(self, name, n=1):
+        with self._repair_mu:
+            self.repair_counts[name] += n
 
     def status(self):
         return {"alive": self.alive, "metrics": {
             "txn_committed": self.commit_count,
             "txn_conflicted": self.conflict_count,
             "pack_flat_batches": self.pack_flat_batches,
-            "pack_legacy_batches": self.pack_legacy_batches}}
+            "pack_legacy_batches": self.pack_legacy_batches,
+            **self.repair_counts}}
 
     def kill(self):
         """Process death: every commit answers 1021."""
@@ -207,10 +227,10 @@ class CommitProxy:
         """Resolution in global version order: the history is stateful,
         so a fleet's batches enter it exactly in grant order."""
         if self.resolve_gate is None:
-            return self.resolver.resolve(txns, cv, window)
+            return self._resolve(txns, cv, window)
         self.resolve_gate.enter(prev)
         try:
-            return self.resolver.resolve(txns, cv, window)
+            return self._resolve(txns, cv, window)
         finally:
             # advance even on failure: the version is consumed either way
             self.resolve_gate.advance(cv)
@@ -237,7 +257,9 @@ class CommitProxy:
         resolution for all of them takes one resolver dispatch, then each
         batch finalizes in order. The same results as commit_batch per
         batch."""
-        if not self.alive or not self.sequencer.alive:
+        if (len(self.resolvers) != 1 or not self.alive
+                or not self.sequencer.alive):
+            # several host resolvers take the per-batch fan-out
             return [self.commit_batch(reqs) for reqs in request_batches]
         try:
             with self._commit_mu:
@@ -315,8 +337,10 @@ class CommitProxy:
         """Stage-A admission: the pipelined route serves the common case.
         The reference sends a database lock, a tenant mode, a constrained
         ratekeeper and an idempotency-dedupe hit back to the serial
-        route; none is ported, so only dead roles do here."""
-        return self.alive and self.sequencer.alive
+        route; none is ported, so only the host resolvers' fan-out and
+        dead roles do here."""
+        return (len(self.resolvers) == 1 and self.alive
+                and self.sequencer.alive)
 
     def commit_batches_begin(self, request_batches):
         """Stages A+B of the pipelined backlog: chained version grant,
@@ -439,6 +463,7 @@ class CommitProxy:
         """The columnar batch build (core/flatpack.py), when the knob,
         the resolver and every request agree; else None (legacy)."""
         if (self.knobs.commit_pack_path != "flat"
+                or len(self.resolvers) != 1
                 or not self.resolver.accepts_flat):
             return None
         return flatpack.build_flat_batch(requests, self.knobs.key_limbs)
@@ -459,7 +484,7 @@ class CommitProxy:
             self.pack_flat_batches += 1
             return flat
         self.pack_legacy_batches += 1
-        if self.resolver.backend == "cpu":
+        if all(r.backend == "cpu" for r in self.resolvers):
             # the host set takes a point as the tiny range it is
             return [TxnRequest(read_version=r.read_version,
                                range_reads=r.read_conflict_ranges,
@@ -547,12 +572,49 @@ class CommitProxy:
 
     def _conflicting_ranges(self, txn):
         """Which of a rejected txn's read ranges conflicted: exact from
-        the host set; the device keeps no per-range verdicts, so there
+        the host sets; the device keeps no per-range verdicts, so there
         every read range (conservative)."""
-        cset = getattr(self.resolver, "cset", None)
-        if cset is not None:
-            return sorted(set(cset.conflicting_ranges(txn)))
-        return sorted(set(txn.read_ranges()))
+        ranges = []
+        for r in self.resolvers:
+            cset = getattr(r, "cset", None)
+            if cset is None:
+                return sorted(set(txn.read_ranges()))
+            ranges.extend(cset.conflicting_ranges(txn))
+        return sorted(set(ranges))
+
+    def _resolve(self, txns, cv, window):
+        if len(self.resolvers) == 1:
+            return self.resolvers[0].resolve(txns, cv, window)
+        # Key-range sharded host resolvers (ref: the resolution fan-out of
+        # CommitProxyServer.actor.cpp): each sees the whole batch with its
+        # conflict ranges clipped to its key range, and a txn commits iff
+        # every resolver accepts it. The reference dispatches the
+        # sub-batches on a thread pool; the port's host sets are pure
+        # Python, so they run one after another, in resolver order.
+        n = len(self.resolvers)
+        verdicts = []
+        for ri, res in enumerate(self.resolvers):
+            lo, hi = _resolver_range(ri, n)
+            verdicts.append(res.resolve([
+                TxnRequest(
+                    read_version=t.read_version,
+                    point_reads=_clip_points(t.point_reads, lo, hi),
+                    point_writes=_clip_points(t.point_writes, lo, hi),
+                    range_reads=_clip(t.range_reads, lo, hi),
+                    range_writes=_clip(t.range_writes, lo, hi),
+                )
+                for t in txns
+            ], cv, window))
+        out = []
+        for i in range(len(txns)):
+            vs = [v[i] for v in verdicts]
+            if any(v == TOO_OLD for v in vs):
+                out.append(TOO_OLD)
+            elif all(v == COMMITTED for v in vs):
+                out.append(COMMITTED)
+            else:
+                out.append(CONFLICT)
+        return out
 
     def _pump_durability(self, window):
         """The updateStorage analog: fold versions that left the MVCC
@@ -573,3 +635,25 @@ def _split_ranges(ranges):
         else:
             true_ranges.append((b, e))
     return points, true_ranges
+
+
+def _resolver_range(i, n):
+    """Resolver i's key range: an even first-byte split; the last range's
+    upper bound is None (+infinity), so no key escapes every check."""
+    lo = bytes([256 * i // n]) if i else b""
+    hi = bytes([256 * (i + 1) // n]) if i + 1 < n else None
+    return lo, hi
+
+
+def _clip_points(keys, lo, hi):
+    return [k for k in keys if k >= lo and (hi is None or k < hi)]
+
+
+def _clip(ranges, lo, hi):
+    out = []
+    for b, e in ranges:
+        cb = max(b, lo)
+        ce = e if hi is None else min(e, hi)
+        if cb < ce:
+            out.append((cb, ce))
+    return out

@@ -13,10 +13,15 @@ from foundationdb_tpu_torch.txn.transaction import Transaction
 
 def retry_loop(tr, fn):
     """Run ``fn(tr)`` and commit until it succeeds; ``on_error``
-    re-raises what is not retryable."""
+    re-raises what is not retryable. After a repair that replayed the op
+    log verbatim (``tr.repair_ready``, txn/repair.py) the body does NOT
+    run again: the restored mutations resubmit as they are, and the
+    previous attempt's result is the result."""
+    result = None
     while True:
         try:
-            result = fn(tr)
+            if not tr.repair_ready:
+                result = fn(tr)
             tr.commit()
             return result
         except FDBError as e:

@@ -11,8 +11,13 @@ At commit the client encodes its conflict ranges into flat limb blobs
 packer never re-parse a key. ``commit()`` goes through the cluster's
 commit proxy, which a batching pipeline (server/batcher.py) turns into
 submit-and-wait; ``commit_async`` / ``commit_finish`` split the two.
-Special keys, transaction repair, tenants, tags, idempotency ids and
-tracing are not ported yet.
+
+Transaction repair (txn/repair.py) is on by default (``txn_repair``):
+each attempt records its storage reads, every commit asks for the
+conflicting ranges, and ``on_error`` repairs a 1020 instead of backing
+off — a replay (``repair_ready``: resubmit without the body) or a
+seeded rerun whose reads come from the verified cache. Special keys,
+tenants, tags, idempotency ids and tracing are not ported yet.
 """
 
 import time
@@ -28,6 +33,7 @@ from foundationdb_tpu_torch.core.keys import (
 )
 from foundationdb_tpu_torch.core.mutations import Mutation, Op
 from foundationdb_tpu_torch.core.versions import Versionstamp
+from foundationdb_tpu_torch.txn import repair as repair_mod
 from foundationdb_tpu_torch.txn.futures import FutureRange, FutureValue
 from foundationdb_tpu_torch.txn.rows import WriteMap
 from foundationdb_tpu_torch.utils.backoff import Backoff
@@ -65,6 +71,12 @@ class TransactionOptions:
 
     def set_max_retry_delay(self, seconds):
         self._tr._max_retry_delay = float(seconds)
+
+    def set_transaction_repair(self):
+        """Repair this transaction's conflicts whatever the ``txn_repair``
+        knob says (txn/repair.py)."""
+        if self._tr._repair is None:
+            self._tr._repair = repair_mod.RepairEngine()
 
 
 
@@ -128,6 +140,15 @@ class Transaction:
         self._size = 0
         self._conflicting_ranges = None  # from a failed reporting commit
         self._watches_pending = []
+        # transaction repair (txn/repair.py): the op-log recorder (None =
+        # repair off), the verified read caches a repaired retry serves
+        # from, and the replay and commit flags
+        self._repair = (repair_mod.RepairEngine() if knobs.txn_repair
+                        else None)
+        self._repair_cache = None  # key -> value, proven at _read_version
+        self._repair_range_cache = None  # (b, e, limit, rev) -> tuple(rows)
+        self._repair_ready = False  # op log replayed: commit, skip the body
+        self._repair_assisted = False  # this attempt rode a repair
         self._options = None
         self._snapshot_view = None
 
@@ -175,13 +196,24 @@ class Transaction:
             raise err("transaction_cancelled")
 
     def _read_future(self, key, rv, snapshot, fold_entry=None):
-        """One storage point read; its read conflict range and RYW fold
-        happen on the consuming wait()."""
+        """One storage point read; its op-log record, read conflict range
+        and RYW fold happen on the consuming wait(). A repaired retry
+        serves it from the verified cache, resolver-proven equal to
+        storage at ``rv``."""
         writes = self._writes if fold_entry is not None else None
+        cache = self._repair_cache
+        if cache is not None and key in cache:
+            val = cache[key]
+            self._record_point_read(key, val, snapshot)
+            if not snapshot:
+                self._add_read_conflict(key, key_successor(key))
+            return FutureValue(writes.fold(fold_entry, val)
+                               if writes is not None else val)
 
         def finalize(val, error):
             if error is not None:
                 return None
+            self._record_point_read(key, val, snapshot)
             if not snapshot:
                 self._add_read_conflict(key, key_successor(key))
             return writes.fold(fold_entry, val) if writes is not None else val
@@ -193,6 +225,11 @@ class Transaction:
         fut = FutureValue(val, e, finalize)
         self._pending_reads.append(fut)
         return fut
+
+    def _record_point_read(self, key, val, snapshot):
+        eng = self._repair
+        if eng is not None and not snapshot and key not in eng.point_reads:
+            eng.point_reads[key] = val
 
     def get_async(self, key, snapshot=False):
         """Future-returning point read; :meth:`get` waits on it."""
@@ -214,6 +251,10 @@ class Transaction:
         """Future-returning key-selector resolution."""
         self._guard()
         rv = self.get_read_version()
+        if self._repair is not None:
+            # a selector's resolution is not recorded key by key, so it
+            # cannot be verified at the repair version: never replay
+            self._repair.unreplayable = True
 
         def finalize(k, error):
             if error is not None:
@@ -261,6 +302,7 @@ class Transaction:
             # no uncommitted writes in range: limit and reverse go to storage
             cleared = overlay = None
             req_limit, req_reverse = limit, reverse
+        sig = (b, e, req_limit, req_reverse)
         writes = self._writes
 
         def postprocess(rows):
@@ -280,12 +322,14 @@ class Transaction:
             out = sorted(d.items(), reverse=reverse)
             return out[:limit] if limit else out
 
-        def finalize(rows, error):
-            if error is not None:
-                return None
+        def record(rows):
+            """The op-log entry and the read conflict range, which covers
+            what was actually observed."""
+            eng = self._repair
+            if eng is not None and not snapshot and sig not in eng.range_reads:
+                eng.range_reads[sig] = tuple(rows)
             out = postprocess(rows)
             if not snapshot:
-                # the conflict range covers what was actually observed
                 if limit and out:
                     hi = key_successor(out[-1][0]) if not reverse else e
                     lo = b if not reverse else out[-1][0]
@@ -293,6 +337,15 @@ class Transaction:
                 else:
                     self._add_read_conflict(b, e)
             return out
+
+        rcache = self._repair_range_cache
+        if rcache is not None and sig in rcache:
+            return FutureRange(record(list(rcache[sig])))
+
+        def finalize(rows, error):
+            if error is not None:
+                return None
+            return record(rows)
 
         try:
             rows, exc = st.get_range(b, e, rv, limit=req_limit,
@@ -484,12 +537,34 @@ class Transaction:
             mutations=list(self._mutation_log),
             read_conflict_ranges=rcr,
             write_conflict_ranges=wcr,
-            report_conflicting_keys=self._report_conflicting_keys,
+            # the repair engine needs the conflicting ranges and the
+            # rejecting commit version on every 1020 it might repair
+            report_conflicting_keys=(self._report_conflicting_keys
+                                     or self._repair is not None),
             flat_conflicts=flat,
         )
 
+    @property
+    def repair_ready(self):
+        """True when a conflict repair replayed this transaction's op log
+        verbatim: the retry loop resubmits (``commit()`` /
+        ``commit_async()``) WITHOUT running the body again, which would
+        apply the restored mutations twice."""
+        return self._repair_ready
+
+    def try_repair(self, error):
+        """Repair a failed commit instead of the cold restart
+        (txn/repair.py). True: repaired, read version moved to the
+        rejecting commit version, no backoff owed — retry now, checking
+        :attr:`repair_ready` first. False: restart cold (the caller owns
+        reset and backoff). ``on_error`` calls this itself."""
+        if not isinstance(error, FDBError):
+            return False
+        return repair_mod.attempt(self, error)
+
     def commit(self):
         self._guard()
+        self._repair_ready = False  # consumed: this IS the resubmission
         self._drain_reads()
         if not self._mutation_log and not self._write_conflicts:
             # read-only: nothing to resolve
@@ -509,6 +584,7 @@ class Transaction:
         proxy that takes ``submit`` (``commit_pipeline="thread"`` or
         ``"manual"``); the synchronous proxy does not."""
         self._guard()
+        self._repair_ready = False  # consumed: this IS the resubmission
         self._drain_reads()
         if not self._mutation_log and not self._write_conflicts:
             from foundationdb_tpu_torch.server.batcher import CommitFuture
@@ -538,6 +614,10 @@ class Transaction:
             self._conflicting_ranges = getattr(
                 result, "conflicting_key_ranges", None)
             raise result
+        if self._repair_assisted:
+            # a repaired retry committed: the goodput repair exists for
+            repair_mod.note(self._cluster, "repair_commits")
+            self._repair_assisted = False
         self._committed_version = result
         self._versionstamp = Versionstamp.from_version(result).tr_version
         self._state = "committed"
@@ -551,6 +631,10 @@ class Transaction:
         self._retries += 1
         if self._retry_limit is not None and self._retries > self._retry_limit:
             raise error
+        if self.try_repair(error):
+            # repaired: no backoff owed, retry now (repair_ready decides
+            # whether the body runs again)
+            return
         self._backoff.max_s = self._max_retry_delay
         self._backoff.sleep()
         # the retry count, backoff schedule and these options survive the

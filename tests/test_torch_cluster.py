@@ -468,12 +468,18 @@ def test_api_case_matches_jax(name):
 def test_open_paths_the_port_does_not_take():
     with pytest.raises(NotImplementedError):
         tfdb.open(cluster_file="fdb.cluster", device="cpu")
-    # resolver, log and storage counts are not arguments of the port's
-    # cluster (the commit pipeline and proxy count are: test_torch_pipeline)
+    # log and storage counts are not arguments of the port's cluster (the
+    # commit pipeline and proxy count are: test_torch_pipeline; the
+    # resolver count is: test_torch_sharded)
     with pytest.raises(TypeError):
-        TCluster(device="cpu", n_resolvers=2, **TEST_KNOBS)
+        TCluster(device="cpu", n_storage=2, **TEST_KNOBS)
     with pytest.raises(TypeError):
         tfdb.open(device="cpu", n_tlogs=3, **TEST_KNOBS)
+    with pytest.raises(ValueError):
+        TCluster(device="cpu", n_resolvers=0, **TEST_KNOBS)
+    with pytest.raises(ValueError):
+        TCluster(device="cpu", n_resolvers=2, resolver_sharding="bytes",
+                 **TEST_KNOBS)
     with pytest.raises(ValueError):
         tfdb.open(device="cpu", commit_pipeline="async", **TEST_KNOBS)
 

@@ -48,35 +48,41 @@ def _key(rng):
     return b"k%03d" % rng.randrange(24)
 
 
-def _span(rng):
-    a, b = sorted((_key(rng), _key(rng)))
+def _spread_key(rng):
+    """Keys over the whole first byte, so every bucket, partition and
+    lane of the key space gets traffic."""
+    return bytes([rng.randrange(0, 256, 8)]) + b"%02d" % rng.randrange(3)
+
+
+def _span(rng, key=_key):
+    a, b = sorted((key(rng), key(rng)))
     return (a, b + b"\xff")
 
 
-def _txn(rng, v, kind):
+def _txn(rng, v, kind, key=_key):
     pt = kind in ("point", "mixed")
     rg = kind in ("range", "mixed")
     return TxnRequest(
         # now and then older than the 40-version window: TOO_OLD
         read_version=v - (60 if rng.random() < 0.1 else rng.randrange(12)),
-        point_reads=[_key(rng) for _ in range(rng.randrange(3))] if pt else [],
-        point_writes=[_key(rng) for _ in range(rng.randrange(3))] if pt else [],
-        range_reads=[_span(rng) for _ in range(rng.randrange(2))] if rg else [],
-        range_writes=[_span(rng) for _ in range(rng.randrange(3))] if rg else [],
+        point_reads=[key(rng) for _ in range(rng.randrange(3))] if pt else [],
+        point_writes=[key(rng) for _ in range(rng.randrange(3))] if pt else [],
+        range_reads=[_span(rng, key) for _ in range(rng.randrange(2))] if rg else [],
+        range_writes=[_span(rng, key) for _ in range(rng.randrange(3))] if rg else [],
     )
 
 
-def _batches(seed, n, T):
+def _batches(seed, n, T, key=_key, shape=SHAPE):
     """n packed numpy batches cycling through every kind."""
     rng = random.Random(seed)
-    packer = JPacker(jck.ResolverParams(**SHAPE), use_native=False)
+    packer = JPacker(jck.ResolverParams(**shape), use_native=False)
     kinds = ("mixed", "range", "point", "mixed", "empty", "zero", "range")
     out = []
     v = V0
     for i in range(n):
         kind = kinds[i % len(kinds)]
         cnt = 0 if kind == "zero" else rng.randrange(1, T + 1)
-        txns = [_txn(rng, v, kind) for _ in range(cnt)]
+        txns = [_txn(rng, v, kind, key) for _ in range(cnt)]
         v += rng.randrange(1, 6)
         out.append(packer.pack(txns, 0, v, max(0, v - 40)))
     return out
@@ -90,14 +96,14 @@ def _assert_same_state(jstate, tstate):
         np.testing.assert_array_equal(t, j, err_msg=name)
 
 
-def _drive_pair(route, seed, n=24, rebase_at=14):
+def _drive_pair(route, seed, n=24, rebase_at=14, key=_key, **layout):
     jflags, tflags = ROUTES[route]
-    jp = jck.ResolverParams(**SHAPE, **jflags)
-    tp = tck.ResolverParams(**SHAPE, **tflags)
+    jp = jck.ResolverParams(**SHAPE, **jflags, **layout)
+    tp = tck.ResolverParams(**SHAPE, **tflags, **layout)
     jck.validate_params(jp)
     tck.validate_params(tp)
     jstep = jax.jit(lambda s, b: jck.resolve_batch(s, b, jp))
-    batches = _batches(seed, n, SHAPE["txns"])
+    batches = _batches(seed, n, SHAPE["txns"], key)
     js = jck.init_state(jp)
     for b in batches[:3]:  # the port starts from the JAX mid-life history
         _, _, js = jstep(js, b)
@@ -171,17 +177,76 @@ def test_rebase_saturates_at_zero_like_jax():
 
 
 def test_sharded_and_partitioned_paths_raise():
+    """What the lane and partitioned layouts refuse, as the JAX package
+    refuses it: a kernel on a partitioned ring or on the presharded step,
+    partitions past the bucket bits or not dividing the ring, and a lane
+    count the state was not built for."""
     tp = tck.ResolverParams(**SHAPE)
-    s = tck.init_state(tp)
+    for bad in (dict(ring_partition_bits=2, use_accept_kernel=True),
+                dict(ring_partition_bits=2, use_ring_kernel=True),
+                dict(ring_partition_bits=5),  # > bucket_bits
+                dict(ring_partition_bits=3, ring_capacity=20)):
+        with pytest.raises(ValueError):
+            tck.validate_params(tp._replace(**bad))
+        with pytest.raises(ValueError):
+            jck.validate_params(jck.ResolverParams(**SHAPE)._replace(
+                **{k.replace("use_accept_kernel", "use_pallas_scan")
+                   .replace("use_ring_kernel", "use_pallas"): v
+                   for k, v in bad.items()}))
+    for bad in (dict(use_accept_kernel=True), dict(ring_partition_bits=1)):
+        with pytest.raises(ValueError):
+            tck.validate_presharded_params(tp._replace(**bad))
     b = batch_from_numpy(_batches(0, 1, 8)[0])
-    with pytest.raises(NotImplementedError):
-        tck.resolve_batch(s, b, tp, axis_name="x")
-    with pytest.raises(NotImplementedError):
-        tck.validate_params(tp._replace(ring_partition_bits=2))
-    with pytest.raises(NotImplementedError):
-        tck.resolve_batch_presharded(s, b, tp)
+    with pytest.raises(ValueError):  # a one-device state under 2 lanes
+        tck.resolve_batch(tck.init_state(tp), b, tp, n_lanes=2)
     with pytest.raises(ValueError):
         tck.validate_params(tp._replace(ring_capacity=8))  # T*RW > KR
+
+
+@pytest.mark.parametrize("pb", [1, 2])
+@pytest.mark.parametrize("seed", [4, 8])
+def test_partitioned_ring_matches_jax_field_by_field(pb, seed):
+    """The bucket-partitioned ring (2 and 4 sub-rings of a 16-slot ring)
+    on keys over the whole key space: exact sub-ring checks, middle
+    partitions, spanning writes and sub-ring floods folded into the
+    coarse summaries, all equal to the JAX step."""
+    ts = _drive_pair("plain", seed, n=30, key=_spread_key,
+                     ring_partition_bits=pb)
+    assert ts.ring_head.shape == (1 << pb,)
+    assert int((ts.ring_head != 0).sum()) > 1  # several sub-rings took entries
+    assert int(ts.range_L.max()) > 0
+
+
+def test_partitioned_resolver_matches_jax():
+    """Resolver(ring_partition_bits=2) against the JAX Resolver: resolve
+    and a resolve_many backlog, the kernels off under "auto" on both."""
+    from foundationdb_tpu.core.options import Knobs as JKnobs
+    from foundationdb_tpu.resolver.resolver import Resolver as JResolver
+    from foundationdb_tpu_torch.core.options import Knobs as TKnobs
+    from foundationdb_tpu_torch.resolver.resolver import Resolver as TResolver
+
+    kw = dict(batch_txn_capacity=8, point_reads_per_txn=2,
+              point_writes_per_txn=2, range_reads_per_txn=1,
+              range_writes_per_txn=2, key_limbs=2, hash_table_bits=6,
+              range_ring_capacity=16, coarse_buckets_bits=4,
+              ring_partition_bits=2)
+    jr = JResolver(JKnobs(resolver_backend="tpu", **kw))
+    tr = TResolver(TKnobs(accept_kernel="auto", ring_kernel="auto", **kw),
+                   device="cpu")
+    assert not (tr.params.use_accept_kernel or tr.params.use_ring_kernel)
+    rng = random.Random(3)
+    stream, v = [], V0 // 2
+    for i in range(14):
+        txns = [_txn(rng, v, ("mixed", "range")[i % 2], _spread_key)
+                for _ in range(rng.randrange(1, 9))]
+        v += rng.randrange(1, 6)
+        stream.append((txns, v, max(0, v - 40)))
+    for txns, cv, ws in stream[:8]:
+        assert tr.resolve(txns, cv, ws) == jr.resolve(txns, cv, ws)
+    assert tr.resolve_many(stream[8:]) == jr.resolve_many(stream[8:])
+    _assert_same_state(jr.state, tr.state)
+    with pytest.raises(ValueError):  # an explicit kernel is refused
+        TResolver(TKnobs(accept_kernel="on", **kw), device="cpu")
 
 
 def test_range_max_level_matches_float_log2():

@@ -298,6 +298,53 @@ def test_cluster_on_card_equals_cpu(cuda, name, pack_path):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["range", "hash"])
+def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
+    """Cluster(n_resolvers=3): the lane fleet on the card and on the CPU
+    give the same outcomes, rows and state, and launch no kernel (the
+    lanes run the plain torch step, as the JAX mesh runs jnp)."""
+    from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
+
+    gpu = Cluster(n_resolvers=3, resolver_sharding=mode, **CLUSTER_KNOBS)
+    cpu = Cluster(device="cpu", n_resolvers=3, resolver_sharding=mode,
+                  **CLUSTER_KNOBS)
+    (r,) = gpu.resolvers
+    assert isinstance(r, MeshResolver) and r.n_lanes == 3
+    assert r.state.ht.device.type == "cuda"
+    _kernels.reset_launches()
+    got, want = _drive_cluster(gpu, "mixed"), _drive_cluster(cpu, "mixed")
+    assert sum(_kernels.launches.values()) == 0
+    assert got[0] == want[0] and 1020 in got[0]
+    assert got[1] == want[1]
+    for f, a, b in zip(ck.ResolverState._fields, got[2], want[2]):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs", [dict(resolver_sharding="range"),
+                                   dict(resolver_sharding="hash"),
+                                   dict(ring_partition_bits=2)])
+def test_lane_and_partitioned_resolvers_on_card_equal_cpu(cuda, knobs):
+    """MeshResolver (3 lanes, both modes) and the partitioned ring on the
+    card against the CPU, resolve and resolve_many."""
+    from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
+
+    stream = STREAMS["mixed"](8, txns=64, seed=1, nkeys=5000, lag=300)
+    if "resolver_sharding" in knobs:
+        gpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3)
+        cpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3, device="cpu")
+    else:
+        gpu = Resolver(Knobs(**SMALL, **knobs))
+        cpu = Resolver(Knobs(**SMALL, **knobs), device="cpu")
+    got = [gpu.resolve(*b) for b in stream[:4]] + gpu.resolve_many(stream[4:])
+    want = [cpu.resolve(*b) for b in stream[:4]] + cpu.resolve_many(stream[4:])
+    assert got == want
+    for f, a, b in zip(ck.ResolverState._fields, state_to_numpy(gpu.state),
+                       state_to_numpy(cpu.state)):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+@pytest.mark.gpu
 def test_proxy_range_traffic_launches_fused_accept(cuda):
     """Point-only commits take the fast variant (no kernel); a range read
     through a client transaction, and range writes through commit_batch,
@@ -325,7 +372,7 @@ def test_cluster_and_open_raise_without_a_card():
     code = (
         "import foundationdb_tpu_torch as fdb\n"
         "from foundationdb_tpu_torch.server.cluster import Cluster\n"
-        "for f in (Cluster, fdb.open):\n"
+        "for f in (Cluster, fdb.open, lambda: Cluster(n_resolvers=3)):\n"
         "    try:\n"
         "        f()\n"
         "    except RuntimeError as e:\n"
