@@ -50,8 +50,7 @@ def probe(tree):
     _, cases = cs.kernel_cases()
     out = []
     for c in cases:
-        names = (cs.ACCEPT_PARTS if c["kernel"] == "fused_accept"
-                 else ("ring_hits_kernel",))
+        names = cs.PARTS[c["kernel"]]
         out.append(dict(
             kernel=c["kernel"], case=c["case"],
             ms=cs.cuda_ms(c["fn"], 20),

@@ -11,13 +11,16 @@ Phases:
      plain PyTorch version on the card, on inputs taken from a Resolver's
      own history, with the ring 40% full and after it has wrapped:
      ring_hits in point (Q=4096) and range (Q=2048) mode, fused_accept on
-     a Zipfian mixed batch and on a high-conflict batch; kernel and plain
-     times (``ms``, ``plain_ms``) by CUDA events around back-to-back
-     calls, which include the host's cost of each call;
-  4. the main path: Resolver() with default knobs (accept kernel on)
-     through resolve (12 batches) and two resolve_many backlogs (depth
-     12) on YCSB-A, range-heavy and mixed streams of 1024-txn batches;
-     launch counts are zeroed just before and read just after;
+     a Zipfian mixed batch and on a high-conflict batch, accept_sweep on
+     those two batches' conflict matrices (against jacobi_accept); kernel
+     and plain times (``ms``, ``plain_ms``) by CUDA events around
+     back-to-back calls, which include the host's cost of each call;
+  4. the main path: Resolver() with default knobs (accept kernel on),
+     precompiled (every step captured, timed apart), through resolve (12
+     batches) and two resolve_many backlogs (depth 12) on YCSB-A,
+     range-heavy and mixed streams of 1024-txn batches;
+     launch counts are zeroed just before and read just after; then each
+     stream's host pack and compiled step ms alone, and its busy share;
   5. the ring-kernel path: the mixed stream again with accept_kernel="off",
      ring_kernel="on", counted the same way;
   6. each phase-3 call's device time by torch.profiler: by kernel
@@ -64,9 +67,10 @@ Phases:
      conflicting range and conflict_version and then commit on a
      verbatim replay, its body run once;
  10. the lane-sharded resolver (BASELINE config 5's 3 Resolvers), launch
-     counts zeroed first (both kernels must launch 0 times, as the
-     reference runs no Pallas kernel on the mesh or the partitioned
-     ring): (a) Cluster(n_resolvers=3) on the card in "range" mode,
+     counts zeroed first (fused_accept and ring_hits must launch 0 times,
+     as the reference runs no Pallas kernel on the mesh or the
+     partitioned ring; accept_sweep accepts over their conflict
+     matrix): (a) Cluster(n_resolvers=3) on the card in "range" mode,
      CLUSTER_PRELOAD rows, the range-heavy stream as client requests,
      12 commit_batch then one commit_batches of 12 (committed txns/s,
      per-batch p50 / p99 / slowest, the router's per-lane entries and
@@ -75,7 +79,23 @@ Phases:
      3-lane cluster in both modes, the same small preload and first
      range-heavy and mixed batches: outcomes, rows and state equal;
      (d) Resolver(ring_partition_bits=2) on the range-heavy and mixed
-     streams (12 resolve, one resolve_many of 12), then a CPU replay.
+     streams (12 resolve, one resolve_many of 12), then a CPU replay;
+ 11. (run after 7) the compiled step against the eager step: for each
+     stream of phase 4 and the ring route, a Resolver whose steps are
+     graph replays and a twin whose steps are ops/conflict.resolve_batch
+     run eagerly on a second state on the card take the same batches (12
+     resolve, a resolve_many of 12, then 6 resolve under torch.profiler;
+     each Resolver precompiled first, so the drive captures nothing):
+     statuses and all 12 state fields must be equal; for each, resolved
+     txns/s, p50 / p99 ms a batch, host ms a dispatch, the card's busy
+     share, captures and replays.
+
+Every Resolver step runs as a CUDA graph replay (ops/conflict.StaticStep).
+Each of phases 4, 5, 8, 9 and 10 zeroes the graph counts with the launch
+counts and checks after its drive that it captured, that every dispatch
+was a replay, and that no resolver step ran eagerly on the card (a
+wrapper counts calls of the eager steps on card tensors outside a
+capture); phase 11's twin is the only eager step on the card.
 
 Any failure raises and the script exits non-zero; without a card it exits
 non-zero before printing any result. The line before the last is
@@ -113,6 +133,50 @@ SCALAR_OPS_PER_S = 67e12
 
 def log(*a):
     print(*a, flush=True)
+
+
+EAGER_STEPS = [0]  # eager resolver steps on the card outside a capture
+
+
+def count_eager_steps():
+    """Wrap ops/conflict's eager steps so that each call on card tensors
+    outside a StaticStep's capture (its warm-up on a scratch state, or
+    the capture itself) counts in EAGER_STEPS."""
+    from foundationdb_tpu_torch.ops import conflict as ck
+
+    for name in ("resolve_batch", "resolve_batch_presharded"):
+        def counted(state, *a, _fn=getattr(ck, name), **kw):
+            if state.window_start.device.type == "cuda" and not ck.capturing():
+                EAGER_STEPS[0] += 1
+            return _fn(state, *a, **kw)
+
+        setattr(ck, name, counted)
+
+
+def reset_counts():
+    """Zero the launch, graph and eager-step counts before a path."""
+    from foundationdb_tpu_torch.ops import _kernels
+    from foundationdb_tpu_torch.ops import conflict as ck
+
+    _kernels.reset_launches()
+    ck.reset_graph_counts()
+    EAGER_STEPS[0] = 0
+
+
+def graph_report(label):
+    """The graph counts of the path just driven. Fails unless it
+    captured, every step it dispatched on the card was a replay, and no
+    resolver step ran eagerly on the card."""
+    from foundationdb_tpu_torch.ops import conflict as ck
+
+    g = dict(ck.graph_counts, eager_steps=EAGER_STEPS[0])
+    log(f"[{label}] graphs: {g['captures']} captures, {g['replays']} replays "
+        f"of {g['dispatches']} dispatches, {g['eager_steps']} eager steps "
+        "on the card")
+    assert g["captures"] > 0 and g["dispatches"] > 0, (label, g)
+    assert g["replays"] == g["dispatches"], (label, g)
+    assert g["eager_steps"] == 0, (label, g)
+    return g
 
 
 def cuda_ms(fn, reps):
@@ -245,7 +309,7 @@ def dynamic_smem(p):
                  + 8 * (p.point_writes * (W + 2)
                         + p.range_writes * (2 * W + 1)))
     return {"ring_hits_kernel": ring_walk, "accept_ring_kernel": ring_walk,
-            "accept_pairs_kernel": pairs,
+            "accept_pairs_kernel": pairs, "accept_pack_kernel": 0,
             "accept_sweep_kernel": 4 * T * ((T + 31) // 32)}
 
 
@@ -289,8 +353,18 @@ def kernel_cases():
     """Each case of phase 3: a dict with the kernel's name, the case's
     label, ``fn`` (the wrapper's call), ``plain`` (its plain version's
     call) and ``cost`` (a call giving the bound's bytes and ops)."""
-    from foundationdb_tpu_torch.ops.accept import fused_accept, fused_accept_plain
+    from foundationdb_tpu_torch.ops import accept
+    from foundationdb_tpu_torch.ops.accept import (
+        conflict_matrix,
+        fused_accept,
+        fused_accept_plain,
+        jacobi_accept,
+    )
     from foundationdb_tpu_torch.ops.ring import ring_hits, ring_hits_plain
+
+    # chip_ab.py probes older trees with these cases: those before the
+    # sweep have no accept_sweep to hold
+    sweep_accept = getattr(accept, "sweep_accept", None)
 
     params, histories = kernel_inputs()
     T, W = params.txns, params.key_width
@@ -338,7 +412,29 @@ def kernel_cases():
                 plain=lambda s=state, b=b, a=a0: fused_accept_plain(
                     s, b, params, a),
                 plain_reps=3, cost=cost))
+            if sweep_accept is None:
+                continue
+            # the plain routes' acceptance over this batch's conflict matrix
+            O = conflict_matrix(b, params)
+            cases.append(dict(
+                kernel="accept_sweep", case=label + " O" + suffix,
+                fn=lambda a=a0, O=O: sweep_accept(a, O),
+                plain=lambda a=a0, O=O: jacobi_accept(a, O),
+                plain_reps=5, cost=lambda a=a0, O=O: sweep_cost(a, O)))
     return params, cases
+
+
+def sweep_cost(a0, O):
+    """accept_sweep's bytes (a0 and O read once, the accepted bits
+    written) and ops (one ballot word per 32 pairs, T dependent steps,
+    and a word OR per accepted row per word), from the accepted count
+    of these inputs."""
+    from foundationdb_tpu_torch.ops.accept import jacobi_accept
+
+    T = a0.shape[0]
+    nw = (T + 31) // 32
+    accepted = int(jacobi_accept(a0, O).sum())
+    return io_bytes(a0, O) + T, T * nw + T + accepted * nw
 
 
 def phase_kernels():
@@ -349,7 +445,7 @@ def phase_kernels():
     params, cases = kernel_cases()
     log("[smem] dynamic shared memory per block at these widths: " + ", ".join(
         f"{k} {v} B" for k, v in dynamic_smem(params).items()))
-    results = {"ring_hits": [], "fused_accept": []}
+    results = {"ring_hits": [], "fused_accept": [], "accept_sweep": []}
     for c in cases:
         got, want = c["fn"](), c["plain"]()
         torch.cuda.synchronize()
@@ -375,7 +471,7 @@ def phase_parts(results):
     their sum (``device_ms``) and the plain version's device ms
     (``plain_device_ms``), all by torch.profiler."""
     for name, cases in results.items():
-        names = ACCEPT_PARTS if name == "fused_accept" else ("ring_hits_kernel",)
+        names = PARTS[name]
         for c in cases:
             c["parts_ms"] = kernel_parts(c.pop("fn"), 20, names)
             c["device_ms"] = sum(c["parts_ms"].values())
@@ -387,9 +483,12 @@ def phase_parts(results):
                 + f"); plain {c['plain_device_ms']:.4f}")
 
 
-# the kernels of one fused_accept call, by profiler event name
+# the kernels of one fused_accept / accept_sweep call, by profiler name
 ACCEPT_PARTS = ("accept_ring_kernel", "accept_pairs_kernel",
                 "accept_sweep_kernel")
+SWEEP_PARTS = ("accept_pack_kernel", "accept_sweep_kernel")
+PARTS = {"fused_accept": ACCEPT_PARTS, "accept_sweep": SWEEP_PARTS,
+         "ring_hits": ("ring_hits_kernel",)}
 
 
 def kernel_parts(fn, reps, names, tries=3):
@@ -439,30 +538,31 @@ def drive(r, stream):
 
 
 def step_split(r, stream, use_fast):
-    """Host pack ms and device step ms per batch, each alone: the packer
-    on the host, and the resolver step by CUDA events on the packed
-    batches (on a copy of the history); then a profiled run of the same
-    steps (device_profile)."""
-    from foundationdb_tpu_torch.convert import batch_from_numpy
+    """Host pack ms and the compiled step's ms per batch, each alone: the
+    packer on the host, and the step (its batch copy and its replay) by
+    CUDA events over the packed batches, compiled anew over a copy of the
+    history and captured before the timing; then a profiled run of the
+    same steps (device_profile)."""
     from foundationdb_tpu_torch.ops import conflict as ck
 
-    packer, params = (r._fast[0], r._fast_params) if use_fast else (
+    packer, params = (r._fast_packer, r._fast_params) if use_fast else (
         r.packer, r.params)
     t0 = time.perf_counter()
     packed = [packer.pack(t, r.base_version, cv, ws) for t, cv, ws in stream]
     pack_ms = (time.perf_counter() - t0) * 1e3 / len(stream)
-    batches = [batch_from_numpy(b, r.device) for b in packed]
-    state = type(r.state)(*(f.clone() for f in r.state))
+    step = ck.make_resolve_fn(params, type(r.state)(*(f.clone()
+                                                      for f in r.state)))
+    step.run(packed[0])  # the capture
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for b in batches:
-        ck.resolve_batch(state, b, params)
+    for b in packed:
+        step.run(b)
     end.record()
     torch.cuda.synchronize()
-    return pack_ms, start.elapsed_time(end) / len(batches), device_profile(
-        lambda: [ck.resolve_batch(state, b, params) for b in batches])
+    return pack_ms, start.elapsed_time(end) / len(packed), device_profile(
+        lambda: [step.run(b) for b in packed])
 
 
 def device_profile(fn, top=4):
@@ -499,9 +599,12 @@ def phase_main(streams, knobs, label, reset=True):
     report = {}
     resolvers = {}
     if reset:
-        _kernels.reset_launches()
+        reset_counts()
     for name, stream in streams.items():
         r = Resolver(knobs)
+        t0 = time.perf_counter()
+        keys = r.precompile()  # a server's start-up: every capture
+        precompile_s = time.perf_counter() - t0
         out, walls, backlog_ms = drive(r, stream)
         ntx = sum(len(t) for t, _, _ in stream)
         n1 = sum(len(t) for t, _, _ in stream[:RESOLVE_BATCHES])
@@ -513,10 +616,12 @@ def phase_main(streams, knobs, label, reset=True):
             resolve_many_txns_per_s=(ntx - n1) / (sum(backlog_ms) / 1e3),
             resolve_p50_ms=float(np.percentile(walls, 50)),
             resolve_p99_ms=float(np.percentile(walls, 99)),
-            backlog_ms=backlog_ms,
+            backlog_ms=backlog_ms, precompile_s=precompile_s,
+            precompiled=len(keys), graphs=r.status()["graphs"],
         )
         resolvers[name] = (r, out)
-        log(f"[{label} {name}] {ntx} txns, committed "
+        log(f"[{label} {name}] precompiled {len(keys)} steps in "
+            f"{precompile_s:.3f} s; then {ntx} txns, committed "
             f"{report[name]['committed']}; resolve "
             f"{report[name]['resolve_txns_per_s']:.0f} txns/s (p50 "
             f"{report[name]['resolve_p50_ms']:.3f} ms, p99 "
@@ -525,12 +630,14 @@ def phase_main(streams, knobs, label, reset=True):
             f"{report[name]['resolve_many_txns_per_s']:.0f} txns/s (backlogs "
             + ", ".join(f"{ms:.3f}" for ms in backlog_ms) + " ms)")
     launches = dict(_kernels.launches)
+    if reset:
+        report["graphs"] = graph_report(label)
     for name, (r, _) in resolvers.items():
-        use_fast = name == "ycsb_a"
+        use_fast = r._fast_packer is not None and not r._range_history
         pack_ms, step_ms, prof = step_split(r, streams[name][:8], use_fast)
         report[name].update(host_pack_ms=pack_ms, device_step_ms=step_ms,
                             step_profile=prof)
-        log(f"[{label} {name}] host pack {pack_ms:.3f} ms vs device step "
+        log(f"[{label} {name}] host pack {pack_ms:.3f} ms vs compiled step "
             f"{step_ms:.3f} ms per batch ({'fast' if use_fast else 'full'} "
             "variant)")
         log(f"[{label} {name}] 8 steps: device busy {prof['busy_ms']:.3f} ms "
@@ -578,7 +685,7 @@ def phase_cluster(streams):
     from foundationdb_tpu_torch.ops import _kernels
     from foundationdb_tpu_torch.server.cluster import Cluster
 
-    _kernels.reset_launches()
+    reset_counts()
     c = Cluster()
     limbs = c.knobs.key_limbs
     proxy = c.commit_proxy
@@ -635,6 +742,7 @@ def phase_cluster(streams):
                                     CLUSTER_BATCHES, value,
                                     f"cluster {name}")
     launches = dict(_kernels.launches)
+    report["graphs"] = graph_report("cluster")
     assert proxy.pack_flat_batches > 0
     assert c.storage.version == c.sequencer.committed_version
     # a committed write reads back: the last client txn's set
@@ -830,7 +938,7 @@ def phase_sharded(streams):
     from foundationdb_tpu_torch.ops import _kernels
     from foundationdb_tpu_torch.server.cluster import Cluster
 
-    _kernels.reset_launches()
+    reset_counts()
     report = {}
     value = b"u" * workloads.FIELD_BYTES
     for mode, rows, depth in (("range", CLUSTER_PRELOAD, CLUSTER_BATCHES),
@@ -1067,7 +1175,7 @@ def phase_pipeline():
     from foundationdb_tpu_torch.ops import _kernels
     from foundationdb_tpu_torch.server.cluster import Cluster
 
-    _kernels.reset_launches()
+    reset_counts()
     report = {}
     c = Cluster(commit_pipeline="thread")
     db = c.database()
@@ -1172,6 +1280,7 @@ def phase_pipeline():
     report["replay"] = phase_pipeline_replay()
     launches = dict(_kernels.launches)
     log(f"[pipeline] launches {launches}")
+    report["graphs"] = graph_report("pipeline")
     return report, launches
 
 
@@ -1348,6 +1457,135 @@ def phase_pipeline_replay():
                 codes=sorted(codes))
 
 
+GRAPH_BATCHES = RESOLVE_BATCHES + BACKLOG  # per route, then the profiled ones
+GRAPH_PROFILE_BATCHES = 6
+
+
+class EagerSteps:
+    """A Resolver's compiled steps swapped for ops/conflict.resolve_batch
+    run eagerly on the card, batch by batch, on that Resolver's own
+    state: the twin the compiled step is held to, with the Resolver's
+    packing, variants and pad widths."""
+
+    def __init__(self, r):
+        self.r = r
+
+    def run(self, key, batch, make_step):
+        from foundationdb_tpu_torch.convert import batch_from_numpy
+        from foundationdb_tpu_torch.ops import conflict as ck
+
+        use_fast, B = key
+        params = self.r._fast_params if use_fast else self.r.params
+        # copied as the eager Resolver did: a backlog without the stream
+        # synchronisation, a single batch with it
+        b = batch_from_numpy(batch, self.r.device, non_blocking=B > 1)
+        if B == 1:
+            return ck.resolve_batch(self.r.state, b, params)[0]
+        return torch.stack([ck.resolve_batch(
+            self.r.state, type(b)(*(f[i] for f in b)), params)[0]
+            for i in range(B)])
+
+    def prepare(self, key, batch, make_step):
+        pass  # nothing to compile
+
+    def stats(self):
+        return {}
+
+
+def timed_dispatches(r):
+    """Host ms of each step dispatch of ``r`` (the batch copy and the
+    replay; for the eager twin, the copy and the step's launch chain),
+    by a timer around its step cache's run, appended to the list
+    returned."""
+    walls = []
+    run = r._steps.run
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        try:
+            return run(*a)
+        finally:
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    r._steps.run = timed
+    return walls
+
+
+def phase_graphs(streams):
+    """Phase 11: the compiled step against the eager step on the card,
+    for phase 4's streams and the ring route."""
+    from foundationdb_tpu_torch.convert import state_to_numpy
+    from foundationdb_tpu_torch.core.options import Knobs
+    from foundationdb_tpu_torch.ops import conflict as ck
+    from foundationdb_tpu_torch.resolver.resolver import Resolver
+
+    report = {}
+    routes = [(name, {}, name) for name in streams] + [
+        ("mixed", dict(accept_kernel="off", ring_kernel="on"),
+         "mixed, ring route")]
+    for name, kw, label in routes:
+        stream = streams[name][:GRAPH_BATCHES + GRAPH_PROFILE_BATCHES]
+        timed, profiled = stream[:GRAPH_BATCHES], stream[GRAPH_BATCHES:]
+        n1 = sum(len(t) for t, _, _ in timed[:RESOLVE_BATCHES])
+        nmany = sum(len(t) for t, _, _ in timed[RESOLVE_BATCHES:])
+        rows, outs, resolvers = {}, {}, {}
+        for kind in ("captured", "eager"):
+            r = Resolver(Knobs(**kw))
+            if kind == "eager":
+                r._steps = EagerSteps(r)
+            r.precompile()
+            dispatch_ms = timed_dispatches(r)
+            ck.reset_graph_counts()
+            EAGER_STEPS[0] = 0
+            out, walls, backlog_ms = drive(r, timed)
+            prof_out = []
+            prof = device_profile(lambda r=r: prof_out.extend(
+                r.resolve(*b) for b in profiled))
+            # the timer wrapper closes over the cache's own method: drop
+            # it, so the cache is freed by reference count, not by a
+            # collection in a later timed drive
+            del r._steps.run
+            outs[kind] = out + prof_out
+            resolvers[kind] = r
+            rows[kind] = dict(
+                resolve_txns_per_s=n1 / (sum(walls) / 1e3),
+                resolve_many_txns_per_s=nmany / (sum(backlog_ms) / 1e3),
+                resolve_p50_ms=float(np.percentile(walls, 50)),
+                resolve_p99_ms=float(np.percentile(walls, 99)),
+                host_dispatch_p50_ms=float(np.percentile(dispatch_ms, 50)),
+                dispatches=len(dispatch_ms),
+                busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
+                profile_wall_ms=prof["wall_ms"], top=prof["top"])
+            if kind == "captured":
+                g = dict(ck.graph_counts, eager_steps=EAGER_STEPS[0])
+                rows[kind].update(graphs=g, cache=r.status()["graphs"])
+                # every capture happened in precompile, before the drive
+                assert g["eager_steps"] == 0 and g["captures"] == 0, g
+                assert g["replays"] == g["dispatches"] == len(dispatch_ms), g
+            else:
+                rows[kind]["eager_steps"] = EAGER_STEPS[0]
+                assert EAGER_STEPS[0] > 0
+        assert outs["captured"] == outs["eager"], \
+            f"{label}: captured and eager statuses differ"
+        for f, a, b in zip(ck.ResolverState._fields,
+                           state_to_numpy(resolvers["captured"].state),
+                           state_to_numpy(resolvers["eager"].state)):
+            assert np.array_equal(a, b), f"{label}: state field {f} differs"
+        report[label] = rows
+        c, e = rows["captured"], rows["eager"]
+        log(f"[graphs {label}] {len(stream)} batches, captured == eager "
+            "(statuses and 12 state fields); " + "; ".join(
+                f"{kind}: resolve {x['resolve_txns_per_s']:.0f} txns/s (p50 "
+                f"{x['resolve_p50_ms']:.3f} / p99 {x['resolve_p99_ms']:.3f} ms"
+                f" a batch), resolve_many {x['resolve_many_txns_per_s']:.0f} "
+                f"txns/s, host {x['host_dispatch_p50_ms']:.3f} ms a dispatch "
+                f"(p50 of {x['dispatches']}), card busy {x['busy_share']:.1%}"
+                for kind, x in (("captured", c), ("eager", e)))
+            + f"; replays {c['graphs']['replays']}, captures (all in "
+            f"precompile) {c['cache']['captures']}")
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1365,6 +1603,7 @@ def main():
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     phase_build()
+    count_eager_steps()
     checks = phase_kernels()
 
     streams = {name: make(STREAM_BATCHES, seed=SEED)
@@ -1380,6 +1619,7 @@ def main():
         Knobs(accept_kernel="off", ring_kernel="on"), "ring-route")
     phase_parts(checks)
     phase_replay(streams)
+    graphs_report = phase_graphs(streams)
     cluster_report, cluster_launches = phase_cluster(streams)
     phase_cluster_replay(streams)
     sharded_report = phase_sharded(streams)
@@ -1387,6 +1627,7 @@ def main():
     sharded_report["partitioned"] = phase_partitioned(streams)
     sharded_launches = dict(_kernels.launches)
     log(f"[sharded] launches over phase 10 {sharded_launches}")
+    sharded_report["graphs"] = graph_report("sharded and partitioned")
     del streams
     gc.collect()
     pipeline_report_, pipeline_launches = phase_pipeline()
@@ -1396,7 +1637,10 @@ def main():
             ("fused_accept", "foundationdb_tpu_torch/csrc/accept.cu",
              "foundationdb_tpu/ops/pallas_scan.py:81"),
             ("ring_hits", "foundationdb_tpu_torch/csrc/ring.cu",
-             "foundationdb_tpu/ops/pallas_ring.py:62")):
+             "foundationdb_tpu/ops/pallas_ring.py:62"),
+            # no TPU kernel: the reference's on-device lax.while_loop
+            ("accept_sweep", "foundationdb_tpu_torch/csrc/accept.cu",
+             "foundationdb_tpu/ops/conflict.py:560")):
         cases = checks[name]
         head = cases[0]
         by_path = {"main": main_launches[name],
@@ -1415,20 +1659,24 @@ def main():
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, cases=cases))
     summary = dict(card=card, main=main_report, ring_route=ring_report,
-                   cluster=cluster_report, pipeline=pipeline_report_,
-                   sharded=sharded_report,
+                   graphs=graphs_report, cluster=cluster_report,
+                   pipeline=pipeline_report_, sharded=sharded_report,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
     paths = {"fused_accept": ("main", "cluster", "pipeline"),
-             "ring_hits": ("ring_route",)}
+             "ring_hits": ("ring_route",),
+             "accept_sweep": ("main", "ring_route",
+                              "sharded_and_partitioned")}
     for k in kernels:
         for path in paths[k["name"]]:
             assert k["launches_by_path"][path] > 0, \
                 f"{k['name']} never launched on the {path} path"
         assert k["mismatches"] == 0 and k["max_abs_err"] == 0, k["name"]
         # the reference runs no Pallas kernel on the mesh or the
-        # partitioned ring: neither kernel may launch there
-        assert k["launches_by_path"]["sharded_and_partitioned"] == 0, k["name"]
+        # partitioned ring: neither ported kernel may launch there
+        if k["name"] != "accept_sweep":
+            assert k["launches_by_path"]["sharded_and_partitioned"] == 0, \
+                k["name"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -295,6 +295,95 @@ __global__ void accept_sweep_kernel(const bool* __restrict__ a0,
   }
 }
 
+// accept_sweep: greedy acceptance over a conflict relation the caller has
+// already built as a dense bool O[T][T] (the plain routes of
+// ops/conflict.py: the flat step without the accept kernel, the lanes,
+// the presharded step). No TPU kernel: it replaces the reference's
+// lax.while_loop over the Jacobi map (foundationdb_tpu/ops/conflict.py:560
+// in resolve_batch, :876 in resolve_batch_presharded), which stays on the
+// device there, where the plain PyTorch version (jacobi_accept) decides on
+// the host when to stop. Two launches:
+//   accept_pack_kernel   one warp per (row w, 32-reader word): a ballot
+//                        turns 32 bools of O into one word of obits.
+//   the sweep            accept_sweep_kernel above with no ring hits
+//                        (T <= FDB_MAX_TXNS); past that, one thread per
+//                        word of the kill vector (accept_sweep_wide_kernel).
+// Bound on this card: reading O (T^2 bytes) for the pack; the sweep is T
+// dependent steps, latency-bound like fused_accept's.
+
+__global__ void accept_pack_kernel(const bool* __restrict__ O, int T,
+                                   uint32_t* __restrict__ obits) {
+  const int NW = (T + 31) / 32;
+  const int x = blockIdx.x;  // reader word
+  const int w = blockIdx.y * WRITERS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r = x * READERS + lane;
+  const bool c = w < T && r < T && O[(size_t)w * T + r];
+  const uint32_t word = __ballot_sync(0xFFFFFFFFu, c);
+  if (lane == 0 && w < T) obits[(size_t)w * NW + x] = word;
+}
+
+// T > FDB_MAX_TXNS: one thread per 32-txn word of the kill vector
+// (NW <= 1024 threads), rows read from device memory, and each step's
+// verdict broadcast through shared memory. verdict[] is double-buffered:
+// the write of step t + 2 comes after the barrier of step t + 1, which
+// every read of step t precedes.
+__global__ void accept_sweep_wide_kernel(const bool* __restrict__ a0,
+                                         const uint32_t* __restrict__ obits,
+                                         int T, bool* __restrict__ accepted) {
+  __shared__ uint32_t verdict[2];
+  const int NW = (T + 31) / 32;
+  const int x = threadIdx.x;
+  uint32_t base = 0;
+  if (x < NW) {
+    for (int b = 0; b < 32; ++b) {
+      const int t = x * 32 + b;
+      if (t < T && a0[t]) base |= 1u << b;
+    }
+  }
+  uint32_t kill = 0;
+  for (int t = 0; t < T; ++t) {
+    if (x == (t >> 5)) verdict[t & 1] = ((base & ~kill) >> (t & 31)) & 1u;
+    __syncthreads();
+    if (verdict[t & 1] && x < NW) kill |= obits[(size_t)t * NW + x];
+  }
+  if (x < NW) {
+    const uint32_t out = base & ~kill;
+    for (int b = 0; b < 32; ++b) {
+      const int t = x * 32 + b;
+      if (t < T) accepted[t] = (out >> b) & 1u;
+    }
+  }
+}
+
+#define FDB_SWEEP_MAX_WORDS 1024  // the wide sweep's one block
+
+extern "C" int fdb_accept_sweep(const void* a0, const void* O, int T,
+                                void* obits, void* accepted, void* stream) {
+  if (T <= 0) return 0;
+  const int NW = (T + 31) / 32;
+  if (NW > FDB_SWEEP_MAX_WORDS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  accept_pack_kernel<<<dim3(NW, (T + WRITERS - 1) / WRITERS),
+                       READERS * WRITERS, 0, st>>>((const bool*)O, T,
+                                                   (uint32_t*)obits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (T <= FDB_MAX_TXNS) {
+    const size_t smem = sizeof(uint32_t) * (size_t)T * NW;
+    if ((err = allow_smem(accept_sweep_kernel, smem)) != cudaSuccess)
+      return (int)err;
+    // no ring lanes: PR = RR = 0, so qhit is never read
+    accept_sweep_kernel<<<1, 1024, smem, st>>>(
+        (const bool*)a0, nullptr, (const uint32_t*)obits, T, 0, 0,
+        (bool*)accepted);
+  } else {
+    accept_sweep_wide_kernel<<<1, 32 * ((NW + 31) / 32), 0, st>>>(
+        (const bool*)a0, (const uint32_t*)obits, T, (bool*)accepted);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int fdb_fused_accept(
     const void* a0, const void* rv, const void* pw_hash, const void* pw_mask,
     const void* pw_key, const void* pr_hash, const void* pr_mask,

@@ -9,9 +9,13 @@ launches; :func:`check` raises on anything but 0. Nothing here runs at
 import time: this module imports on machines without ``nvcc`` or a card.
 
 ``launches`` counts, per wrapper, the calls that launched its kernels on
-a CUDA device (the CPU path of a wrapper never counts).
+a CUDA device (the CPU path of a wrapper never counts). A wrapper called
+while a CUDA graph is being captured on its thread launches nothing: its
+count goes to that capture's tally (:func:`capturing`), which the graph
+adds to ``launches`` on every replay (:func:`add_launches`).
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,20 +39,50 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points per source: name → argtypes (restype is c_int)
 _SIGNATURES = {
     "ring": {"fdb_ring_hits": [_P] * 7 + [_I] * 4 + [_P, _P]},
-    "accept": {"fdb_fused_accept": [_P] * 18 + [_I] * 8 + [_P] * 4},
+    "accept": {"fdb_fused_accept": [_P] * 18 + [_I] * 8 + [_P] * 4,
+               "fdb_accept_sweep": [_P, _P, _I, _P, _P, _P]},
 }
 
-launches = {"ring_hits": 0, "fused_accept": 0}
+launches = {"ring_hits": 0, "fused_accept": 0, "accept_sweep": 0}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per source
 build_logs = {}
 
 _libs = {}
 _lock = threading.Lock()
+_tally = threading.local()
 
 
 def reset_launches():
     for k in launches:
         launches[k] = 0
+
+
+def count(name):
+    """One call of wrapper ``name`` that launched its kernels, or, inside
+    :func:`capturing` on this thread, recorded them into a graph."""
+    held = getattr(_tally, "held", None)
+    if held is None:
+        launches[name] += 1
+    else:
+        held[name] = held.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a graph is captured on this thread: yields the dict of the
+    wrapper calls it records, by name (the launches one replay makes)."""
+    held = {}
+    _tally.held = held
+    try:
+        yield held
+    finally:
+        _tally.held = None
+
+
+def add_launches(held):
+    """A replay of a graph holding ``held`` launches."""
+    for name, n in held.items():
+        launches[name] += n
 
 
 def nvcc_path():
@@ -124,10 +158,11 @@ MAX_KEY_WIDTH = 17
 
 
 def check_args(what, device, key_width, int64s, bools):
-    """Raise ValueError unless the key width is one the kernels take and
-    every tensor lies on ``device`` with its expected shape: int64 for
-    ``int64s``, bool for ``bools`` (both {name: (tensor, shape)})."""
-    if not 1 <= key_width <= MAX_KEY_WIDTH:
+    """Raise ValueError unless the key width (None: no keys) is one the
+    kernels take and every tensor lies on ``device`` with its expected
+    shape: int64 for ``int64s``, bool for ``bools`` (both {name: (tensor,
+    shape)})."""
+    if key_width is not None and not 1 <= key_width <= MAX_KEY_WIDTH:
         raise ValueError(f"{what}: key width {key_width} outside the "
                          f"kernels' 1..{MAX_KEY_WIDTH}")
     for group, dtype in ((int64s, torch.int64), (bools, torch.bool)):

@@ -7,11 +7,14 @@ it launches the three kernels of ``csrc/accept.cu``; for CPU tensors it
 runs :func:`fused_accept_plain`. It never falls back from the kernel to
 the plain version.
 
-:func:`conflict_matrix` and :func:`jacobi_accept` are also the torch
-route of ops/conflict.py when the kernel is off: greedy sequential
-acceptance is the unique fixpoint of the Jacobi map
-a ← a0 ∧ ¬(a·O) (induction on txn index), so both routes give the same
-bits.
+:func:`conflict_matrix` and :func:`sweep_accept` are the plain routes
+of ops/conflict.py when the fused kernel is off: ``sweep_accept`` takes
+a dense O and launches csrc/accept.cu's ``fdb_accept_sweep`` for CUDA
+tensors, and runs :func:`jacobi_accept` for CPU tensors. Greedy
+sequential acceptance is the unique fixpoint of the Jacobi map
+a ← a0 ∧ ¬(a·O) (induction on txn index), so every route gives the same
+bits; the sweep computes it on the card with no host round trip, which
+the Jacobi loop makes every iteration and no CUDA graph could hold.
 """
 
 import torch
@@ -21,6 +24,8 @@ from foundationdb_tpu_torch.ops.intervals import point_in, ranges_overlap
 from foundationdb_tpu_torch.ops.ring import ring_slot_hits
 
 MAX_TXNS = 1024  # csrc/accept.cu FDB_MAX_TXNS: one warp's 32 x 32-bit words
+# csrc/accept.cu FDB_SWEEP_MAX_WORDS: the wide sweep's one block of threads
+MAX_SWEEP_TXNS = 1024 * 32
 
 # lane flags of csrc/accept.cu
 LANE_PP, LANE_P_RR, LANE_RW_P, LANE_RW_RR = 1, 2, 4, 8
@@ -76,6 +81,35 @@ def jacobi_accept(a0, O):
         if torch.equal(a_new, a):
             return a_new
         a = a_new
+
+
+def sweep_accept(a0, O):
+    """Greedy acceptance over a strictly upper-triangular conflict
+    relation O (bool[T, T], O[w, r]: accepted w kills r): bool[T].
+
+    For CUDA tensors the two launches of ``fdb_accept_sweep`` (O packed
+    into a bitset by warp ballots, then the T-step sweep); for CPU
+    tensors :func:`jacobi_accept`. Never falls back from one to the
+    other."""
+    if a0.device.type == "cpu":
+        return jacobi_accept(a0, O)
+    T = a0.shape[0]
+    if T > MAX_SWEEP_TXNS:
+        raise ValueError(f"accept_sweep takes txns <= {MAX_SWEEP_TXNS}, got {T}")
+    _kernels.check_args("accept_sweep", a0.device, None, {},
+                        {"a0": (a0, (T,)), "O": (O, (T, T))})
+    a0, O = a0.contiguous(), O.contiguous()
+    obits = torch.empty((T * ((T + 31) // 32),), dtype=torch.int32,
+                        device=a0.device)
+    accepted = torch.empty((T,), dtype=torch.bool, device=a0.device)
+    lib = _kernels.lib("accept")
+    with torch.cuda.device(a0.device):
+        rc = lib.fdb_accept_sweep(a0.data_ptr(), O.data_ptr(), T,
+                                  obits.data_ptr(), accepted.data_ptr(),
+                                  _kernels.stream_of(a0))
+    _kernels.check(rc, "accept_sweep kernel launch")
+    _kernels.count("accept_sweep")
+    return accepted
 
 
 def _lanes(state, batch, params):
@@ -172,5 +206,5 @@ def launch_fused_accept(state, batch, params, a0, flags, qhit):
             accepted.data_ptr(), _kernels.stream_of(a0),
         )
     _kernels.check(rc, "fused_accept kernel launch")
-    _kernels.launches["fused_accept"] += 1
+    _kernels.count("fused_accept")
     return accepted

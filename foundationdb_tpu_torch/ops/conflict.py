@@ -42,8 +42,10 @@ partitioned ring).
    table for range reads.
 
 Intra-batch ordering is greedy sequential acceptance over the conflict
-relation O[w, r] (ops/accept.py): the CUDA kernels compute it directly,
-the torch route as the Jacobi fixpoint a ← a0 ∧ ¬(a·O).
+relation O[w, r] (ops/accept.py): the fused CUDA kernel computes it
+directly; the plain routes build O in torch and sweep it on the card
+(``sweep_accept``), or take the Jacobi fixpoint a ← a0 ∧ ¬(a·O) on the
+CPU.
 
 Representation: uint32 quantities (limbs, hashes, versions) are int64
 tensors with zero extension (ops/intervals.py); bucket indices and the
@@ -52,18 +54,21 @@ the JAX package donated its buffers to the next step. Versions are
 offsets from a host-held base (core/versions.py); 0 means "no write".
 """
 
+import threading
 from typing import NamedTuple
 
 import torch
 
+from foundationdb_tpu_torch import convert  # (which imports this module)
 from foundationdb_tpu_torch.core.status import COMMITTED, CONFLICT, TOO_OLD
+from foundationdb_tpu_torch.ops import _kernels
 from foundationdb_tpu_torch.ops.accept import (
     MAX_TXNS,
     READ_SENTINEL,
     WRITE_SENTINEL,
     conflict_matrix,
     fused_accept,
-    jacobi_accept,
+    sweep_accept,
 )
 from foundationdb_tpu_torch.ops.intervals import point_in, ranges_overlap
 from foundationdb_tpu_torch.ops.ring import ring_slot_hits
@@ -115,7 +120,8 @@ class ResolveBatch(NamedTuple):
     """One commit batch, packed to static shapes (invalid slots masked).
 
     The packer (resolver/packing.py) fills it with numpy arrays (uint32,
-    int32, bool); convert.batch_from_numpy moves it to tensors."""
+    int32, bool); a compiled step's convert.BatchStager (or
+    convert.batch_from_numpy) moves it to tensors."""
 
     rv: torch.Tensor  # [T] read-version offsets
     txn_mask: torch.Tensor  # bool[T]
@@ -429,7 +435,7 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
         # owns and the kill vector sums over lanes; the owners partition
         # the writes (each hash has one residue, each bucket one share),
         # so that sum reads the OR of the lanes' rows: the whole matrix.
-        accepted = jacobi_accept(a0, conflict_matrix(batch, params))
+        accepted = sweep_accept(a0, conflict_matrix(batch, params))
 
     status = torch.where(too_old, TOO_OLD,
                          torch.where(accepted, COMMITTED, CONFLICT))
@@ -675,7 +681,7 @@ def resolve_batch_presharded(state: ResolverState, sb: ShardBatch,
     O = ((O_i.view(T, T) > 0) & upper & sb.txn_mask[:, None]
          & sb.txn_mask[None, :])
     a0 = (~too_old) & (~hist) & sb.txn_mask
-    accepted = jacobi_accept(a0, O)
+    accepted = sweep_accept(a0, O)
 
     status = torch.where(too_old, TOO_OLD,
                          torch.where(accepted, COMMITTED, CONFLICT))
@@ -733,10 +739,150 @@ def validate_presharded_params(params: ResolverParams):
         raise ValueError("bucket_bits/hash_bits unreasonably large")
 
 
-def make_resolve_fn(params: ResolverParams):
-    """The single-batch step (state, batch) → (status, accepted, state)."""
+# card steps since the last reset_graph_counts(): dispatches through a
+# StaticStep, graph captures and graph replays (every dispatch on a card
+# is one replay; a capture precedes the first)
+graph_counts = {"dispatches": 0, "captures": 0, "replays": 0}
+_tls = threading.local()  # .capturing: inside StaticStep._capture
+
+
+def reset_graph_counts():
+    for k in graph_counts:
+        graph_counts[k] = 0
+
+
+def capturing():
+    """Whether this thread is inside a StaticStep's capture (its warm-up
+    on a scratch state, or the capture itself)."""
+    return getattr(_tls, "capturing", False)
+
+
+class StaticStep:
+    """A resolver step compiled for one batch signature: the port's
+    counterpart of a jitted step with donated state.
+
+    ``fn(state, inputs)`` is the eager step (it updates ``state`` in place
+    and returns the statuses). ``run(batch)`` copies a packed numpy batch
+    into fixed input tensors (convert.BatchStager) and runs the step on
+    the live ``state``, whose tensors it never replaces. On a card the
+    first run (or ``prepare``) captures the step in a
+    ``torch.cuda.CUDAGraph`` and every run replays it: the host work
+    between the copy and the statuses (the chain of torch ops, the kernel
+    wrappers' checks and ``ctypes`` calls) happens once, at capture. On
+    the CPU there is no graph: the step runs eagerly, with the same
+    buffers.
+
+    The statuses come back in a fixed output tensor that the next run
+    overwrites: a caller that reads them later copies them first
+    (convert.host_reader). A capture or replay that fails raises; the
+    step never runs eagerly on a card instead."""
+
+    def __init__(self, fn, state, layout):
+        self._fn = fn
+        self.state = state
+        self._layout = layout
+        self.device = state.window_start.device
+        self._stager = None
+        self._graph = None
+        self._out = None
+        self.held = {}  # kernel launches one replay makes, by wrapper
+        self.runs = 0
+
+    def prepare(self, batch):
+        """Set up the inputs for ``batch``'s signature and, on a card,
+        capture the step, without running it on the live state. Returns
+        the inputs, filled from ``batch``."""
+        if self._stager is None:
+            self._stager = convert.BatchStager(self._layout, batch,
+                                                 self.device)
+        inputs = self._stager.copy_in(batch)
+        if self.device.type == "cuda" and self._graph is None:
+            self._capture(inputs)
+        return inputs
+
+    def run(self, batch):
+        inputs = self.prepare(batch)
+        self.runs += 1
+        if self.device.type != "cuda":
+            out = self._fn(self.state, inputs)
+            if self._out is None:
+                self._out = torch.empty_like(out)
+            self._out.copy_(out)
+            return self._out
+        graph_counts["dispatches"] += 1
+        self._graph.replay()
+        graph_counts["replays"] += 1
+        _kernels.add_launches(self.held)
+        return self._out
+
+    def _capture(self, inputs):
+        """Warm up on a scratch copy of the state (the warm-up runs the
+        step; on the live state it would record the batch twice), then
+        capture on the live state, on this thread only: other threads
+        (a status reader waiting on an event) go on meanwhile."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        _tls.capturing = True
+        try:
+            with torch.cuda.stream(side):
+                scratch = type(self.state)(*(f.clone() for f in self.state))
+                self._fn(scratch, inputs)
+            cur.wait_stream(side)
+            del scratch
+            graph = torch.cuda.CUDAGraph()
+            with _kernels.capturing() as held:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    out = self._fn(self.state, inputs)
+        finally:
+            _tls.capturing = False
+        self._graph, self._out, self.held = graph, out, held
+        graph_counts["captures"] += 1
+
+
+class StepCache:
+    """A history's compiled steps, by key and batch signature: the port
+    of the reference's ``count_retraces``. Each new signature under a key
+    is one capture (one XLA compile in the reference), counted in
+    ``captures[key]``; on the CPU, where nothing is captured, the same
+    count marks a static step's first set-up, so it means the same on
+    both devices."""
+
+    def __init__(self):
+        self._steps = {}
+        self.captures = {}
+
+    def run(self, key, batch, make_step):
+        """``make_step()`` builds the StaticStep of ``key`` on a miss.
+        Returns the step's (static) statuses."""
+        return self._step(key, batch, make_step).run(batch)
+
+    def prepare(self, key, batch, make_step):
+        """Compile ``key``'s step for ``batch``'s signature ahead of its
+        first dispatch (StaticStep.prepare); the history is untouched."""
+        self._step(key, batch, make_step).prepare(batch)
+
+    def _step(self, key, batch, make_step):
+        sig = (key, convert.signature(batch))
+        step = self._steps.get(sig)
+        if step is None:
+            step = self._steps[sig] = make_step()
+            self.captures[key] = self.captures.get(key, 0) + 1
+        return step
+
+    def stats(self):
+        steps = self._steps.values()
+        return {"captures": {str(k): n for k, n in self.captures.items()},
+                "runs": sum(s.runs for s in steps),
+                "graphs": sum(s._graph is not None for s in steps)}
+
+
+def make_resolve_fn(params: ResolverParams, state: ResolverState):
+    """The compiled single-batch step over ``state``: a StaticStep whose
+    ``run(batch)`` gives statuses int32[T]."""
     validate_params(params)
-    return lambda state, batch: resolve_batch(state, batch, params)
+    return StaticStep(lambda s, b: resolve_batch(s, b, params)[0], state,
+                      ResolveBatch)
 
 
 def scan_of(step_fn):
@@ -755,13 +901,16 @@ def scan_of(step_fn):
     return scan_step
 
 
-def make_resolve_scan_fn(params: ResolverParams):
-    """The multi-batch step for backlogs, with the same kernels as the
-    single step. (The JAX package strips its ring kernel from scans by
-    default because XLA overlaps the plain lanes across scan iterations;
-    eager PyTorch has no such overlap, so the port keeps the kernel.)"""
+def make_resolve_scan_fn(params: ResolverParams, state: ResolverState):
+    """The compiled multi-batch step over ``state`` for backlogs: a
+    StaticStep whose ``run(batches)`` gives statuses [B, T] for a stack of
+    B batches, the B steps unrolled into one graph, with the same kernels
+    as the single step. (The JAX package strips its ring kernel from
+    scans by default because XLA overlaps the plain lanes across scan
+    iterations; the port keeps it.)"""
     validate_params(params)
-    return scan_of(lambda s, b: resolve_batch(s, b, params))
+    scan = scan_of(lambda s, b: resolve_batch(s, b, params))
+    return StaticStep(lambda s, b: scan(s, b)[1], state, ResolveBatch)
 
 
 def rebase_state(state: ResolverState, delta):

@@ -58,7 +58,7 @@ def ring_hits(qlo, qhi, rv, ring_b, ring_e, ring_v, ring_mask,
             out.data_ptr(), _kernels.stream_of(qlo),
         )
     _kernels.check(rc, "ring_hits kernel launch")
-    _kernels.launches["ring_hits"] += 1
+    _kernels.count("ring_hits")
     return out
 
 

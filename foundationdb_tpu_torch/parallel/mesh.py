@@ -51,6 +51,15 @@ class ShardedResolverKernel:
     def _step(self, state, batch):
         return ck.resolve_batch(state, batch, self.params, n_lanes=self.n)
 
+    def static_step(self, state, B):
+        """The compiled step over ``state`` (ops/conflict.StaticStep): one
+        ResolveBatch for B == 1, else a scan of a stack of B."""
+        if B == 1:
+            fn = lambda s, b: self._step(s, b)[0]  # noqa: E731
+        else:
+            fn = lambda s, b: self._scan_step(s, b)[1]  # noqa: E731
+        return ck.StaticStep(fn, state, ck.ResolveBatch)
+
     def init_state(self):
         """A fresh history at the mesh's global shapes."""
         return ck.init_state(self.params, self.device, n_lanes=self.n)
@@ -70,3 +79,9 @@ class PreshardedResolverKernel(ShardedResolverKernel):
     def _step(self, state, sb):
         return ck.resolve_batch_presharded(state, lane_view(sb, self.n),
                                            self.params)
+
+    def static_step(self, state, B):
+        """The compiled step over ``state``: the router's ShardBatch
+        always stacks B·k txn slices, so a scan over them whatever B."""
+        return ck.StaticStep(lambda s, sb: self._scan_step(s, sb)[1], state,
+                             ck.ShardBatch)

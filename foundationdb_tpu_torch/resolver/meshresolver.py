@@ -24,14 +24,17 @@ Two lane-ownership schemes, chosen by ``knobs.resolver_sharding``:
 
 ``Cluster(n_resolvers=k)`` builds one MeshResolver of k lanes; the
 commit proxy sees one resolver and drives its single-resolver path,
-``resolve_many``'s backlog scan included. Neither CUDA kernel runs here:
-the JAX package turns its Pallas kernels off on the mesh, so the lanes
-run the plain torch step.
+``resolve_many``'s backlog scan included. Neither ported TPU kernel
+runs here: the JAX package turns its Pallas kernels off on the mesh, so
+the lanes run the plain torch step, with greedy acceptance by
+``sweep_accept`` on a card. The steps are compiled as the single
+resolver's are (keys (variant, B), and (variant, k, B) for the "range"
+router's k txn slices).
 """
 
 import numpy as np
 
-from foundationdb_tpu_torch.convert import shard_batch_from_numpy
+from foundationdb_tpu_torch.convert import host_reader
 from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
 from foundationdb_tpu_torch.ops import conflict as ck
 from foundationdb_tpu_torch.parallel.mesh import (
@@ -74,7 +77,7 @@ class MeshResolver(Resolver):
         if self.sharding not in SHARDING_MODES:
             raise ValueError(f"resolver_sharding must be one of "
                              f"{SHARDING_MODES}, got {self.sharding!r}")
-        self._fast = None
+        self._fast_packer = None
         self._fast_params = None
         self._range_history = False
         # the router's lane balance: entries routed to each lane, and how
@@ -85,25 +88,21 @@ class MeshResolver(Resolver):
             self._kernel = PreshardedResolverKernel(
                 self.params, self.n_lanes, self.device)
             self._router = ShardRouter(self.params, self.n_lanes)
-            self._resolve = self._kernel._step
             # no point-specialized twin: the compacted layout skips dead
             # sides per entry already
         else:
             self._kernel = ShardedResolverKernel(
                 self.params, self.n_lanes, self.device)
             self._router = None
-            self._resolve = self._kernel._step
             self._fast_params = fast_params_of(self.params)
             if self._fast_params is not None:
                 # the same state, range lanes statically off
                 self._fast_kernel = ShardedResolverKernel(
                     self._fast_params, self.n_lanes, self.device,
                     make_state=False)
-                self._fast = (BatchPacker(self._fast_params),
-                              self._fast_kernel._step)
-        self.state = self._kernel.state
+                self._fast_packer = BatchPacker(self._fast_params)
+        self._state = self._kernel.state
         self._kernel.state = None  # the history lives here
-        self._scan_fns = {}
         self._scan_pad_buckets = PAD_BUCKETS
 
     def _split_counted(self, stacked):
@@ -114,31 +113,37 @@ class MeshResolver(Resolver):
         self.split_chunks[k] = self.split_chunks.get(k, 0) + 1
         return sb, k
 
-    def _run_step(self, resolve_fn, batch):
+    def _make_step(self, use_fast, B):
+        kernel = self._fast_kernel if use_fast else self._kernel
+        return kernel.static_step(self._state, B)
+
+    def _run_step(self, use_fast, batch):
         if self._router is None:
-            return super()._run_step(resolve_fn, batch)
-        stacked = ck.ResolveBatch(*(np.asarray(a)[None] for a in batch))
-        sb, k = self._split_counted(stacked)
-        sbt = shard_batch_from_numpy(sb, self.device)
-        if k == 1:
-            status, _accepted, self.state = self._kernel._step(
-                self.state, ck.ShardBatch(*(f[0] for f in sbt)))
-            return status
-        # a skew past a lane's slots: the batch runs as k txn slices
-        self.state, st = self._kernel._scan_step(self.state, sbt)
-        return self._router.reassemble(st, k)[0]
+            return super()._run_step(use_fast, batch)
+        read = self._run_scan(use_fast, ck.ResolveBatch(
+            *(np.asarray(a)[None] for a in batch)))
+        return lambda: read()[0]
+
+    def _prepare(self, use_fast, B, batch):
+        if self._router is None:
+            return super()._prepare(use_fast, B, batch)
+        stacked = batch if B > 1 else ck.ResolveBatch(
+            *(np.asarray(a)[None] for a in batch))
+        sb, k, _ = self._router.split(stacked)
+        key = (use_fast, k, B)
+        self._steps.prepare(key, sb, lambda: self._make_step(use_fast, B))
+        return key
 
     def _run_scan(self, use_fast, stacked):
         if self._router is None:
             return super()._run_scan(use_fast, stacked)
+        # the router stacks B·k txn slices: k > 1 when a skew overflows a
+        # lane's slots, each k its own compiled scan
         sb, k = self._split_counted(stacked)
-        sbt = shard_batch_from_numpy(sb, self.device, non_blocking=True)
-        self.state, st = self._kernel._scan_step(self.state, sbt)
-        return self._router.reassemble(st, k)
-
-    def _get_scan_fn(self, use_fast):
-        kernel = self._fast_kernel if use_fast else self._kernel
-        return kernel._scan_step
+        B = stacked.rv.shape[0]
+        read = host_reader(self._steps.run(
+            (use_fast, k, B), sb, lambda: self._make_step(use_fast, B)))
+        return lambda: self._router.reassemble(read(), k)
 
     def status(self):
         doc = super().status()

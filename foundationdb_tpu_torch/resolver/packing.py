@@ -338,7 +338,7 @@ class BatchPacker:
         """A cleared staging set of stacked (B, T, ...) arrays, one per
         shape, refilled in place (masks and keys 0, hashes the hash of an
         all-zero key row) instead of allocated. One set is enough: the
-        batch is copied out (convert.batch_from_numpy) before the next
+        batch is copied out (convert.BatchStager.copy_in) before the next
         pack."""
         p = self.params
         zh = self._zero_hash

@@ -7,10 +7,16 @@ per-txn statuses and remembers accepted writes for the MVCC window.
 ``resolver_backend="cuda"`` packs each batch into fixed-shape arrays,
 moves them to the device, and runs ops/conflict.py's step there; the
 history lives on the device and is updated in place, so only the batch
-goes in and T statuses come out. The device is ``cuda:0`` unless the
-caller passes ``device="cpu"`` (the tests do); without a card and
-without that, construction raises. ``"cpu"`` runs the exact host
-ConflictSet (resolver/skiplist.py).
+goes in and T statuses come out. The step is compiled
+(ops/conflict.StaticStep, the port of the reference's jitted steps): one
+per (variant, pad width B) and batch signature, captured as a CUDA graph
+on a card at its first dispatch and replayed after that, counted in
+``status()["graphs"]`` (``precompile`` captures them all up front). The
+graphs hold the state's addresses, so the state is never replaced:
+:meth:`Resolver.load_state` copies a history in. The device is
+``cuda:0`` unless the caller passes ``device="cpu"`` (the tests do);
+without a card and without that, construction raises. ``"cpu"`` runs
+the exact host ConflictSet (resolver/skiplist.py).
 
 Batches come as lists of TxnRequests or as columnar FlatTxnBatches
 (core/flatpack.py, the commit proxy's default). A flat batch the flat
@@ -27,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from foundationdb_tpu_torch.convert import batch_from_numpy
+from foundationdb_tpu_torch.convert import host_reader
 from foundationdb_tpu_torch.core.flatpack import FlatTxnBatch
 from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
 from foundationdb_tpu_torch.core.status import COMMITTED, CONFLICT, TOO_OLD
@@ -42,8 +48,11 @@ __all__ = ["COMMITTED", "CONFLICT", "TOO_OLD", "Resolver", "ResolverDown",
 
 # pad widths of a backlog dispatch: a backlog pads to the smallest that
 # fits; deeper backlogs chunk into scans of the widest. The accept-kernel
-# route takes the wider ladder, as in the JAX package.
-PAD_BUCKETS = (2, 4, 8)
+# route takes the wider ladder, as in the JAX package, and a legacy
+# (TxnRequest) backlog off that route pads to BACKLOG_B at least, as the
+# JAX package pads it to one fixed bucket.
+BACKLOG_B = 8
+PAD_BUCKETS = (2, 4, BACKLOG_B)
 PAD_BUCKETS_ACCEPT_KERNEL = (2, 4, 8, 16, 32)
 KERNEL_KNOB_VALUES = ("auto", "on", "off")
 
@@ -56,11 +65,12 @@ class ResolverDown(Exception):
 class ResolveHandle:
     """Deferred result of a ``resolve_many`` dispatch.
 
-    CUDA work is enqueued when ``resolve_many`` returns; ``wait()`` makes
-    the one host sync (the copy of the statuses) and unpacks per-batch
-    status lists, on any thread (the commit pipeline dispatches on its
-    batcher thread and waits on its apply thread). Host backends resolve
-    eagerly — their handle hands the finished result back."""
+    CUDA work is enqueued when ``resolve_many`` returns, the statuses'
+    copy to pinned host memory included; ``wait()`` makes the one host
+    sync (on the event behind that copy) and unpacks per-batch status
+    lists, on any thread (the commit pipeline dispatches on its batcher
+    thread and waits on its apply thread). Host backends resolve eagerly
+    — their handle hands the finished result back."""
 
     __slots__ = ("_materialize", "_result")
 
@@ -149,20 +159,18 @@ class Resolver:
                 use_ring = False  # the accept kernel checks the ring itself
             self.params = params_from_knobs(
                 knobs, use_ring_kernel=use_ring, use_accept_kernel=use_accept)
-            self._resolve = ck.make_resolve_fn(self.params)
+            ck.validate_params(self.params)
             self.packer = BatchPacker(self.params)
-            self.state = ck.init_state(self.params, self.device)
+            self._state = ck.init_state(self.params, self.device)
             # A second variant with the range lanes statically off serves
             # batches that carry only point ops while no range write has
             # ever entered history. Both share the state: the fast one
             # records the hash table AND the coarse point summary.
-            self._fast = None
+            self._fast_packer = None
             self._fast_params = fast_params_of(self.params)
             self._range_history = False
             if self._fast_params is not None:
-                self._fast = (BatchPacker(self._fast_params),
-                              ck.make_resolve_fn(self._fast_params))
-            self._scan_fns = {}
+                self._fast_packer = BatchPacker(self._fast_params)
             self._scan_pad_buckets = (
                 PAD_BUCKETS_ACCEPT_KERNEL if use_accept else PAD_BUCKETS)
         elif self.backend == "cpu":
@@ -180,11 +188,37 @@ class Resolver:
         self.counters = {"resolve_batches": 0, "resolve_txns": 0,
                          "backlog_dispatches": 0, "backlog_depth": 0,
                          "flat_fallbacks": 0, "respawns": 0}
+        self._state = None
+        # compiled steps by (variant, B) — (variant, k, B) on the "range"
+        # lanes — and batch signature
+        self._steps = ck.StepCache()
         # cumulative wall seconds of resolve_many's dispatch (the batch
         # copy and the scan call; a host backend's eager resolve): the
         # batcher subtracts it from its stage-A+B timer so host packing
         # and dispatch report as separate stages
         self.dispatch_wall_s = 0.0
+
+    @property
+    def state(self):
+        """The live device history (ResolverState), updated in place."""
+        return self._state
+
+    def load_state(self, state):
+        """Copy a history (a ResolverState of tensors of this resolver's
+        shapes and dtypes, e.g. convert.state_from_numpy of a JAX
+        resolver's state) into the live state tensors, in place: the
+        compiled steps hold their addresses."""
+        for name, dst, src in zip(ck.ResolverState._fields, self._state, state):
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"load_state: {name} must be {dst.dtype} "
+                    f"{tuple(dst.shape)}, got {src.dtype} {tuple(src.shape)}")
+            dst.copy_(src)
+
+    def release(self):
+        """Drop the device history and the compiled steps holding it."""
+        self._steps = ck.StepCache()
+        self._state = None
 
     def status(self):
         """This role's status payload."""
@@ -194,6 +228,7 @@ class Resolver:
             "device": str(self.device) if self.device is not None else None,
             "lanes": getattr(self, "n_lanes", 1),
             "metrics": dict(self.counters),
+            "graphs": self._steps.stats(),
         }
 
     def kill(self):
@@ -245,14 +280,15 @@ class Resolver:
             else:
                 live.append((i, t))
         use_fast = self._pick_fast(t for _, t in live)
-        packer, resolve_fn = self._fast if use_fast else (
-            self.packer, self._resolve)
+        packer = self._packer(use_fast)
+        reads = []
         for c in range(0, max(len(live), 1), self.params.txns):
             chunk = live[c : c + self.params.txns]
             batch = packer.pack([t for _, t in chunk], self.base_version,
                                 commit_version, new_window_start)
-            out = self._run_step(resolve_fn, batch)[: len(chunk)].tolist()
-            for (i, _), s in zip(chunk, out):
+            reads.append((chunk, self._run_step(use_fast, batch)))
+        for chunk, read in reads:  # every chunk dispatched before a wait
+            for (i, _), s in zip(chunk, read()[: len(chunk)].tolist()):
                 statuses[i] = s
         return statuses
 
@@ -270,18 +306,50 @@ class Resolver:
             return self.resolve(flat.to_txn_requests(), commit_version,
                                 new_window_start)
         use_fast = self._pick_fast_flat([flat])
-        packer, resolve_fn = self._fast if use_fast else (
-            self.packer, self._resolve)
-        batch = packer.pack_flat(flat, self.base_version, commit_version,
-                                 new_window_start)
-        return self._run_step(resolve_fn, batch)[: len(flat)].tolist()
+        batch = self._packer(use_fast).pack_flat(
+            flat, self.base_version, commit_version, new_window_start)
+        return self._run_step(use_fast, batch)()[: len(flat)].tolist()
 
-    def _run_step(self, resolve_fn, batch):
-        """One step on a packed numpy batch: copy it to the device, thread
-        the history through ``resolve_fn`` → statuses int32[T]."""
-        status, _accepted, self.state = resolve_fn(
-            self.state, batch_from_numpy(batch, self.device))
-        return status
+    def _packer(self, use_fast):
+        return self._fast_packer if use_fast else self.packer
+
+    def _make_step(self, use_fast, B):
+        """The compiled step of (variant, B) over the live state: one
+        batch for B == 1, else a scan of B."""
+        params = self._fast_params if use_fast else self.params
+        make = ck.make_resolve_fn if B == 1 else ck.make_resolve_scan_fn
+        return make(params, self._state)
+
+    def precompile(self):
+        """Compile every step this resolver dispatches — each variant's
+        single step and a scan of each pad width — before its first
+        batch, as a server does at start-up: on a card each is captured
+        now, and its first dispatch only replays. The history is
+        untouched (a capture's warm-up runs on a scratch copy). Returns
+        the keys compiled."""
+        if self.backend != "cuda":
+            return []
+        keys = []
+        variants = [False] + ([True] if self._fast_packer is not None else [])
+        for use_fast in variants:
+            empty = self._packer(use_fast).pack_empty(self.base_version, 0, 0)
+            for B in (1, *self._scan_pad_buckets):
+                batch = empty if B == 1 else ck.ResolveBatch(
+                    *(np.stack([f] * B) for f in empty))
+                keys.append(self._prepare(use_fast, B, batch))
+        return keys
+
+    def _prepare(self, use_fast, B, batch):
+        key = (use_fast, B)
+        self._steps.prepare(key, batch, lambda: self._make_step(use_fast, B))
+        return key
+
+    def _run_step(self, use_fast, batch):
+        """One packed numpy batch through the compiled single step →
+        ``read()`` of its statuses int32[T] (copied out at once, so a
+        later step does not overwrite them)."""
+        return host_reader(self._steps.run(
+            (use_fast, 1), batch, lambda: self._make_step(use_fast, 1)))
 
     def _flat_refused(self, flat):
         """Whether this flat batch must take the legacy lane: a read
@@ -294,7 +362,7 @@ class Resolver:
         """_pick_fast's columnar twin, on count maxima. Lane-overflowing
         batches were routed to the legacy lane before, so only range
         presence matters here."""
-        if self._fast is None:
+        if self._fast_packer is None:
             return False
         point_only = True
         for f in flats:
@@ -311,7 +379,7 @@ class Resolver:
         and the sticky _range_history update when a range write (or a
         point-write spill, which the packer records as ring history)
         appears."""
-        if self._fast is None:
+        if self._fast_packer is None:
             return False
         point_only = True
         pr_cap = self.params.point_reads
@@ -390,7 +458,7 @@ class Resolver:
             per_batch.append((statuses, live, cv, ws))
             all_live.extend(t for _, t in live)
         use_fast = self._pick_fast(all_live)
-        packer = self._fast[0] if use_fast else self.packer
+        packer = self._packer(use_fast)
         packed = [
             packer.pack([t for _, t in live], self.base_version, cv, ws)
             for statuses, live, cv, ws in per_batch
@@ -398,6 +466,8 @@ class Resolver:
         # pads are empty batches at the last batch's versions: they
         # leave the history exactly as the last live batch left it
         B = self._pad_bucket(len(packed))
+        if not self.params.use_accept_kernel:
+            B = max(BACKLOG_B, B)
         last_cv, last_ws = batches[-1][1], batches[-1][2]
         if len(packed) < B:
             pad = packer.pack_empty(self.base_version, last_cv, last_ws)
@@ -425,8 +495,7 @@ class Resolver:
         if any(self._flat_refused(f) for f in flats):
             return None
         use_fast = self._pick_fast_flat(flats)
-        packer = self._fast[0] if use_fast else self.packer
-        stacked = packer.pack_flat_group(
+        stacked = self._packer(use_fast).pack_flat_group(
             flats, [(cv, ws) for _, cv, ws in batches], self.base_version,
             B=self._pad_bucket(len(flats)))
         read = self._scan(use_fast, stacked)
@@ -438,41 +507,24 @@ class Resolver:
         return ResolveHandle(materialize=materialize)
 
     def _scan(self, use_fast, stacked):
-        """Copy a stacked backlog to the device and enqueue its scan,
-        with no host sync (the copy leaves out PyTorch's stream
-        synchronisation, convert.py). Returns ``read()``, which gives
-        the statuses [B, T] as numpy on any thread: they are a fresh
-        output of this dispatch, which no later dispatch writes, and on
-        a card ``read`` first waits for an event recorded behind the
-        scan on the dispatching thread's stream."""
+        """Enqueue a stacked backlog's compiled scan, with no host sync:
+        the batch copy and the replay go on the stream, and the statuses
+        are copied out behind them (convert.host_reader). Returns
+        ``read()``, which gives the statuses [B, T] as numpy on any
+        thread: they are this dispatch's own copy, which no later
+        dispatch writes, and on a card ``read`` waits only for the event
+        recorded behind that copy on the dispatching thread's stream."""
         t0 = time.perf_counter()
-        st = self._run_scan(use_fast, stacked)
-        done = None
-        if st.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(st.device))
+        read = self._run_scan(use_fast, stacked)
         self.dispatch_wall_s += time.perf_counter() - t0
-
-        def read():
-            if done is not None:
-                done.synchronize()
-            return st.cpu().numpy()
-
         return read
 
     def _run_scan(self, use_fast, stacked):
-        """Copy a stacked numpy backlog to the device (no stream sync) and
-        enqueue its scan → statuses [B, T] on the device."""
-        batch = batch_from_numpy(stacked, self.device, non_blocking=True)
-        self.state, st = self._get_scan_fn(use_fast)(self.state, batch)
-        return st
-
-    def _get_scan_fn(self, use_fast):
-        scan_fn = self._scan_fns.get(use_fast)
-        if scan_fn is None:
-            params = self._fast_params if use_fast else self.params
-            scan_fn = self._scan_fns[use_fast] = ck.make_resolve_scan_fn(params)
-        return scan_fn
+        """A stacked numpy backlog [B, ...] through the compiled scan of
+        (variant, B) → ``read()`` of its statuses [B, T]."""
+        B = stacked.rv.shape[0]
+        return host_reader(self._steps.run(
+            (use_fast, B), stacked, lambda: self._make_step(use_fast, B)))
 
     def _maybe_rebase(self, commit_version):
         """Keep uint32 version offsets in range (core/versions.py): shift

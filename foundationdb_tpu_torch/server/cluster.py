@@ -196,4 +196,4 @@ class Cluster:
                 frontend.close()
         for r in self.resolvers:
             r.kill()
-            r.state = None
+            r.release()

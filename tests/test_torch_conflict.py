@@ -155,8 +155,9 @@ def test_scan_equals_single_steps(route):
         st, _, s1 = tck.resolve_batch(s1, batch_from_numpy(b), tp)
         rows.append(st)
     stacked = jck.ResolveBatch(*(np.stack(f) for f in zip(*batches)))
-    s2, st2 = tck.make_resolve_scan_fn(tp)(tck.init_state(tp),
-                                           batch_from_numpy(stacked))
+    # the compiled scan runs on the state it was made over, in place
+    s2 = tck.init_state(tp)
+    st2 = tck.make_resolve_scan_fn(tp, s2).run(stacked)
     assert torch.equal(st2, torch.stack(rows))
     for a, b in zip(s1, s2):
         assert torch.equal(a, b)

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card, each against its plain PyTorch version,
-and the Resolver and the database on the card against the CPU.
+the Resolver and the database on the card against the CPU, and the
+compiled step (CUDA graph replays) against the eager step on the card.
 
 Every case is marked ``gpu`` and asks for the ``cuda`` fixture, which
 skips where no card is present: the decision is made when the test runs,
@@ -37,6 +38,7 @@ from foundationdb_tpu_torch.ops.accept import (
     fused_accept_plain,
     jacobi_accept,
     launch_fused_accept,
+    sweep_accept,
 )
 from foundationdb_tpu_torch.ops.ring import (
     ring_hits,
@@ -301,8 +303,9 @@ def test_cluster_on_card_equals_cpu(cuda, name, pack_path):
 @pytest.mark.parametrize("mode", ["range", "hash"])
 def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
     """Cluster(n_resolvers=3): the lane fleet on the card and on the CPU
-    give the same outcomes, rows and state, and launch no kernel (the
-    lanes run the plain torch step, as the JAX mesh runs jnp)."""
+    give the same outcomes, rows and state, and launch neither ported
+    TPU kernel (the lanes run the plain torch step, as the JAX mesh runs
+    jnp), only the sweep that accepts over their conflict matrix."""
     from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 
     gpu = Cluster(n_resolvers=3, resolver_sharding=mode, **CLUSTER_KNOBS)
@@ -313,7 +316,9 @@ def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
     assert r.state.ht.device.type == "cuda"
     _kernels.reset_launches()
     got, want = _drive_cluster(gpu, "mixed"), _drive_cluster(cpu, "mixed")
-    assert sum(_kernels.launches.values()) == 0
+    assert _kernels.launches["fused_accept"] == 0
+    assert _kernels.launches["ring_hits"] == 0
+    assert _kernels.launches["accept_sweep"] > 0
     assert got[0] == want[0] and 1020 in got[0]
     assert got[1] == want[1]
     for f, a, b in zip(ck.ResolverState._fields, got[2], want[2]):
@@ -355,12 +360,14 @@ def test_proxy_range_traffic_launches_fused_accept(cuda):
     db[b"user00000001"] = b"a"
     assert _kernels.launches["fused_accept"] == 0
     db.run(lambda tr: (tr.get_range(b"user", b"userz"), tr.set(b"x", b"1")))
-    assert _kernels.launches["fused_accept"] == 1
+    # the full variant's step is captured at this first use: its warm-up
+    # launches once on a scratch state, then the replay
+    assert _kernels.launches["fused_accept"] == 2
     stream = STREAMS["range_heavy"](1, txns=64, seed=3, nkeys=300)
     txns, cv, _ = stream[0]
     c.commit_proxy.commit_batch(workloads.commit_requests(
         txns, cv, c.sequencer.committed_version, c.knobs.key_limbs, b"w"))
-    assert _kernels.launches["fused_accept"] == 2
+    assert _kernels.launches["fused_accept"] == 3  # a replay
     assert _kernels.launches["ring_hits"] == 0
 
 
@@ -499,3 +506,235 @@ def test_sixty_four_chunk_backlog_settles_in_grant_order(cuda):
     assert versions == sorted(versions) and len(set(versions)) == len(versions)
     ok = [i for i, (kind, _) in enumerate(got[0]) if kind == "v"]
     assert min(ok) < 32 <= max(ok)  # commits in both halves of the split
+
+
+# ── greedy acceptance on the card, and the compiled step ──
+
+def _upper_relation(rng, T, density, dev):
+    """A strictly upper-triangular conflict relation and admissible bits."""
+    O = np.triu(rng.random((T, T)) < density, 1)
+    a0 = rng.random(T) < 0.85
+    return _t(a0, dev), _t(O, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,density", [
+    (1, 0.5), (8, 0.3), (130, 0.05), (1024, 0.002), (1024, 0.05),
+    # past one warp's 32 words: the wide sweep
+    (1025, 0.003), (2048, 0.001)])
+def test_accept_sweep_matches_jacobi(cuda, T, density):
+    rng = np.random.default_rng(T)
+    a0, O = _upper_relation(rng, T, density, cuda)
+    _kernels.reset_launches()
+    got = sweep_accept(a0, O)
+    torch.cuda.synchronize()
+    assert _kernels.launches["accept_sweep"] == 1
+    want = jacobi_accept(a0, O)
+    assert torch.equal(got, want)
+    if T > 8:
+        assert 0 < int(want.sum()) < int(a0.sum())  # chains really killed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [(2, 2, 1, 1), (4, 4, 2, 2)])
+def test_accept_sweep_on_the_batch_conflict_matrix(cuda, lanes):
+    """The plain routes' use: O from conflict_matrix of a batch."""
+    rng = np.random.default_rng(sum(lanes))
+    state, batch, params, a0 = _accept_case(rng, 1024, *lanes, W=9, KR=64,
+                                            dev=cuda)
+    O = conflict_matrix(batch, params)
+    assert torch.equal(sweep_accept(a0, O), jacobi_accept(a0, O))
+
+
+class _EagerSteps:
+    """A Resolver's compiled steps swapped for ck.resolve_batch run
+    eagerly on the card, batch by batch, on that Resolver's own state."""
+
+    def __init__(self, r):
+        self.r = r
+
+    def run(self, key, batch, make_step):
+        from foundationdb_tpu_torch.convert import batch_from_numpy
+
+        use_fast, B = key
+        params = self.r._fast_params if use_fast else self.r.params
+        b = batch_from_numpy(batch, self.r.device)
+        if B == 1:
+            return ck.resolve_batch(self.r.state, b, params)[0]
+        return torch.stack([ck.resolve_batch(
+            self.r.state, type(b)(*(f[i] for f in b)), params)[0]
+            for i in range(B)])
+
+    def stats(self):
+        return {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(STREAMS))
+@pytest.mark.parametrize("route", [
+    dict(), dict(accept_kernel="off", ring_kernel="on"),
+    dict(accept_kernel="off", ring_kernel="off")])
+def test_captured_step_equals_eager_step_on_the_card(cuda, name, route):
+    """Every step a graph replay: the same statuses and state as the
+    eager step on a second state on the card."""
+    stream = STREAMS[name](14, txns=64, seed=6, nkeys=5000, lag=300)
+    cap = Resolver(Knobs(**SMALL, **route))
+    eager = Resolver(Knobs(**SMALL, **route))
+    eager._steps = _EagerSteps(eager)
+    ck.reset_graph_counts()
+    got = ([cap.resolve(*b) for b in stream[:4]] + cap.resolve_many(stream[4:7])
+           + cap.resolve_many(stream[7:]))
+    counts = dict(ck.graph_counts)
+    want = ([eager.resolve(*b) for b in stream[:4]]
+            + eager.resolve_many(stream[4:7]) + eager.resolve_many(stream[7:]))
+    assert got == want
+    for f, a, b in zip(ck.ResolverState._fields, state_to_numpy(cap.state),
+                       state_to_numpy(eager.state)):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    graphs = cap.status()["graphs"]
+    assert counts["replays"] == counts["dispatches"] == graphs["runs"] == 6
+    assert counts["captures"] == graphs["graphs"] == sum(
+        graphs["captures"].values()) >= 2
+
+
+@pytest.mark.gpu
+def test_launches_are_counted_on_every_replay(cuda):
+    """A graph holds its wrappers' launches; each replay adds them, and
+    the capture itself adds none (its warm-up launches once, for real)."""
+    stream = STREAMS["mixed"](5, txns=64, seed=2, nkeys=5000, lag=300)
+    r = Resolver(Knobs(**SMALL, accept_kernel="off", ring_kernel="on"))
+    _kernels.reset_launches()
+    r.resolve(*stream[0])
+    first = dict(_kernels.launches)
+    # the full variant on the ring route: ring_hits for point and range
+    # reads, then accept_sweep; warm-up + replay
+    assert first == {"ring_hits": 4, "fused_accept": 0, "accept_sweep": 2}
+    for b in stream[1:]:
+        r.resolve(*b)
+    assert _kernels.launches == {"ring_hits": 2 * 6, "fused_accept": 0,
+                                 "accept_sweep": 1 + 5}
+    _kernels.reset_launches()
+    r.resolve_many(stream[:3])  # pads to BACKLOG_B: 8 steps in one graph
+    assert _kernels.launches == {"ring_hits": 2 * 8 * 2, "fused_accept": 0,
+                                 "accept_sweep": 8 * 2}
+
+
+@pytest.mark.gpu
+def test_capture_under_a_concurrent_status_reader(cuda):
+    """The batcher's pattern: one thread dispatches lazy backlogs of new
+    pad widths (each a capture) while another waits on earlier handles
+    and copies tensors off the card in a loop. No capture fails and every
+    status equals a CPU resolver's."""
+    import queue
+
+    depths = (2, 3, 5, 9, 17, 2, 3, 5, 9)  # 2, 4, 8, 16, 32, then replays
+    stream = STREAMS["mixed"](sum(depths), txns=64, seed=12, nkeys=5000,
+                              lag=300)
+    gpu = Resolver(Knobs(**SMALL))
+    cpu = Resolver(Knobs(**SMALL), device="cpu")
+    groups, i = [], 0
+    for d in depths:
+        groups.append(stream[i:i + d])
+        i += d
+    handles, got, errors = queue.Queue(), [], []
+    done = threading.Event()
+    probe = torch.arange(1024, device=cuda)
+
+    def dispatch():
+        try:
+            for g in groups:
+                handles.put(gpu.resolve_many(g, lazy=True))
+        except BaseException as e:
+            errors.append(e)
+        finally:
+            handles.put(None)
+            done.set()
+
+    def read():
+        try:
+            while True:
+                h = handles.get()
+                if h is None:
+                    break
+                while not done.is_set() and handles.empty():
+                    assert int(probe.cpu()[-1]) == 1023
+                got.extend(h.wait())
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=f, daemon=True)
+               for f in (read, dispatch)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        assert not t.is_alive()
+    assert not errors, errors
+    want = [s for g in groups for s in cpu.resolve_many(g)]
+    assert got == want
+    for f, a, b in zip(ck.ResolverState._fields, state_to_numpy(gpu.state),
+                       state_to_numpy(cpu.state)):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert gpu.status()["graphs"]["graphs"] == 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs", [dict(), dict(accept_kernel="off",
+                                                ring_kernel="on")])
+def test_replayed_resolve_many_dispatch_makes_no_host_sync(cuda, knobs):
+    """A resolve_many dispatch whose scan is already captured enqueues
+    the batch copy, the replay and the statuses' copy with no host sync
+    until ``wait()``."""
+    stream = STREAMS["mixed"](9, txns=64, seed=3, nkeys=5000, lag=300)
+    gpu = Resolver(Knobs(**SMALL, **knobs))
+    cpu = Resolver(Knobs(**SMALL, **knobs), device="cpu")
+    want = cpu.resolve_many(stream[:3]) + cpu.resolve_many(stream[3:6])
+    got = gpu.resolve_many(stream[:3])  # captures the scan
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = gpu.resolve_many(stream[3:6], lazy=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got += h.wait()
+    assert got == want
+    assert gpu.status()["graphs"]["runs"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs", [dict(), dict(resolver_sharding="hash")])
+def test_precompiled_resolver_only_replays(cuda, knobs):
+    """After precompile() every dispatch is a replay of a graph captured
+    before the first batch: no capture, no host sync in the first lazy
+    dispatch, the statuses and state of the CPU. (The "range" lanes
+    precompile k = 1; a batch the router splits into k > 1 slices
+    compiles at its first use.)"""
+    from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
+
+    stream = STREAMS["mixed"](7, txns=64, seed=4, nkeys=5000, lag=300)
+    if knobs:
+        gpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3)
+        cpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3, device="cpu")
+    else:
+        gpu, cpu = Resolver(Knobs(**SMALL)), Resolver(Knobs(**SMALL),
+                                                      device="cpu")
+    keys = gpu.precompile()
+    torch.cuda.synchronize()
+    ck.reset_graph_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = gpu.resolve_many(stream[:3], lazy=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = h.wait() + [gpu.resolve(*b) for b in stream[3:5]] + \
+        gpu.resolve_many(stream[5:])
+    want = cpu.resolve_many(stream[:3]) + [cpu.resolve(*b) for b in
+                                           stream[3:5]] + cpu.resolve_many(
+        stream[5:])
+    assert got == want
+    for f, a, b in zip(ck.ResolverState._fields, state_to_numpy(gpu.state),
+                       state_to_numpy(cpu.state)):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert ck.graph_counts["captures"] == 0
+    assert ck.graph_counts["replays"] == ck.graph_counts["dispatches"] == 4
+    assert gpu.status()["graphs"]["graphs"] == len(keys)

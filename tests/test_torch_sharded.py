@@ -263,7 +263,7 @@ def test_mesh_resolver_matches_jax(mode, n):
     stream = _stream(n, 14)
     for txns, cv, ws in stream[:3]:  # the JAX fleet alone first
         jr.resolve([JTxn(**t) for t in txns], cv, ws)
-    tr.state = state_from_numpy([np.asarray(f) for f in jr.state])
+    tr.load_state(state_from_numpy([np.asarray(f) for f in jr.state]))
     tr._range_history = jr._range_history
     for txns, cv, ws in stream[3:9]:
         assert tr.resolve([TTxn(**t) for t in txns], cv, ws) == \
