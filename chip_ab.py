@@ -11,9 +11,11 @@ have one name). A run is:
   1. a kernel probe: this directory's ``chip_smoke.kernel_cases`` on the
      tree's package; per case the kernel's ``ms`` and the plain version's
      ``plain_ms`` by ``chip_smoke.cuda_ms`` (CUDA events around
-     back-to-back calls, host cost included), and the kernel's and the
-     plain version's device ms per call by torch.profiler (``device_ms``,
-     ``plain_device_ms``); the same methods for both trees;
+     back-to-back calls, host cost included), and the kernel's device
+     ms per call by torch.profiler, by kernel (``parts_ms``, named by
+     this directory's ``chip_smoke.PARTS``) and in all (``device_ms``),
+     and the plain version's (``plain_device_ms``); the same methods for
+     both trees;
   2. the tree's own ``chip_smoke.py``, from its ``[summary]`` line the
      resolve and resolve_many txns/s of each stream, and its exit code.
 
@@ -50,12 +52,12 @@ def probe(tree):
     _, cases = cs.kernel_cases()
     out = []
     for c in cases:
-        names = cs.PARTS[c["kernel"]]
+        parts = cs.kernel_parts(c["fn"], 20, cs.PARTS[c["kernel"]])
         out.append(dict(
             kernel=c["kernel"], case=c["case"],
             ms=cs.cuda_ms(c["fn"], 20),
             plain_ms=cs.cuda_ms(c["plain"], c["plain_reps"]),
-            device_ms=sum(cs.kernel_parts(c["fn"], 20, names).values()),
+            parts_ms=parts, device_ms=sum(parts.values()),
             plain_device_ms=cs.kernel_parts(c["plain"], c["plain_reps"],
                                             ())["other"]))
     print(json.dumps(out))
@@ -79,7 +81,8 @@ def run(tree):
                    for line in s.stdout.splitlines()
                    if line.startswith("[summary] "))
     rates = {name: [v["resolve_txns_per_s"], v["resolve_many_txns_per_s"]]
-             for name, v in summary["main"].items()}
+             for name, v in summary["main"].items()
+             if "resolve_txns_per_s" in v}  # not the "graphs" counts
     rates["mixed, ring route"] = [
         summary["ring_route"]["mixed"]["resolve_txns_per_s"],
         summary["ring_route"]["mixed"]["resolve_many_txns_per_s"]]
@@ -99,10 +102,12 @@ def main():
     for label, tree in (("old", old), ("new", new), ("new", new), ("old", old)):
         r = dict(label=label, **run(tree))
         runs.append(r)
-        print(f"[{label}] " + "; ".join(
-            f"{k['kernel']} {k['case']}: ms {k['ms']:.4f} device "
-            f"{k['device_ms']:.4f} plain {k['plain_ms']:.4f} / "
-            f"{k['plain_device_ms']:.4f}" for k in r["kernels"]), flush=True)
+        for k in r["kernels"]:
+            print(f"[{label}] {k['kernel']} {k['case']}: ms {k['ms']:.4f} "
+                  f"device {k['device_ms']:.4f} (" + ", ".join(
+                      f"{n} {v:.4f}" for n, v in k["parts_ms"].items())
+                  + f") plain {k['plain_ms']:.4f} / "
+                  f"{k['plain_device_ms']:.4f}", flush=True)
         print(f"[{label}] txns/s (resolve, resolve_many) " + json.dumps(
             r["rates"]), flush=True)
     print(json.dumps({"card": card, "runs": runs}))

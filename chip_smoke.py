@@ -11,8 +11,10 @@ Phases:
      plain PyTorch version on the card, on inputs taken from a Resolver's
      own history, with the ring 40% full and after it has wrapped:
      ring_hits in point (Q=4096) and range (Q=2048) mode, fused_accept on
-     a Zipfian mixed batch and on a high-conflict batch, accept_sweep on
-     those two batches' conflict matrices (against jacobi_accept); kernel
+     a Zipfian mixed batch and on a high-conflict batch, and with the
+     ring 40% full also on a pipeline-sized batch (33 live txns of 1024)
+     and on resolve_many's zero-txn pad batch, accept_sweep on those
+     batches' conflict matrices (against jacobi_accept); kernel
      and plain times (``ms``, ``plain_ms``) by CUDA events around
      back-to-back calls, which include the host's cost of each call;
   4. the main path: Resolver() with default knobs (accept kernel on),
@@ -244,23 +246,28 @@ def ring_ops(qlo, qhi, rv, active, rb, re, ring_v, ring_m, point):
     return total
 
 
-def accept_ops(state, batch, T):
-    """Integer ops of the accept step on these inputs: the ring walk of
-    every live read slot, the pair tiles (all w < r, every hash pair, and
-    the limb compares of every live slot pair of the interval lanes) and
-    one step of the sweep per txn."""
+def accept_ops(state, batch, a0):
+    """Integer ops of the accept step on these inputs, for the admissible
+    txns (a0) only, as no other txn can change an accepted bit: the ring
+    walk of their live read slots, the pair tiles (every pair w < r of
+    them, every hash pair, and the limb compares of every live slot pair
+    of the interval lanes) and one test per txn for the sweep."""
+    T = a0.shape[0]
     W = batch.pr_key.shape[-1]
     ring = (state.ring_b, state.ring_e, state.ring_v, state.ring_mask)
     PR, PW = batch.pr_key.shape[1], batch.pw_key.shape[1]
     RR, RW = batch.rr_b.shape[1], batch.rw_b.shape[1]
     rvq = batch.rv[:, None]
     ops = ring_ops(batch.pr_key.reshape(-1, W), batch.pr_key.reshape(-1, W),
-                   rvq.expand(T, PR).reshape(-1), batch.pr_mask.reshape(-1),
-                   *ring, point=True)
+                   rvq.expand(T, PR).reshape(-1),
+                   (batch.pr_mask & a0[:, None]).reshape(-1), *ring,
+                   point=True)
     ops += ring_ops(batch.rr_b.reshape(-1, W), batch.rr_e.reshape(-1, W),
-                    rvq.expand(T, RR).reshape(-1), batch.rr_mask.reshape(-1),
-                    *ring, point=False)
+                    rvq.expand(T, RR).reshape(-1),
+                    (batch.rr_mask & a0[:, None]).reshape(-1), *ring,
+                    point=False)
     upper = torch.ones((T, T), dtype=torch.bool, device=batch.rv.device).triu(1)
+    upper &= a0[:, None] & a0[None, :]
     ops += int(upper.sum()) * PW * PR
     lanes = []  # (writer keys lo/hi, writer mask, reader lo/hi, reader mask)
     for s1 in range(PW):
@@ -304,16 +311,22 @@ def dynamic_smem(p):
     static shared memory: 16 bytes of warp words in each ring walk, 0
     elsewhere)."""
     W, T = p.key_width, p.txns
+    nw = (T + 31) // 32
     ring_walk = 4 * 32 * (2 * W + 2)  # lex.cuh ring_walk_smem_bytes
-    pairs = 4 * (32 * (p.point_reads * (W + 2) + p.range_reads * (2 * W + 1))
-                 + 8 * (p.point_writes * (W + 2)
-                        + p.range_writes * (2 * W + 1)))
+    # accept.cu pairs_smem_words: 32 txns a side, a 4-word prefix per key,
+    # a hash and a mask per point slot, a mask per range slot
+    PR, PW = p.point_reads, p.point_writes
+    RR, RW = p.range_reads, p.range_writes
+    pairs = 4 * 32 * (4 * (PR + 2 * RR + PW + 2 * RW) + 2 * PR + RR + 2 * PW
+                      + RW)
     return {"ring_hits_kernel": ring_walk, "accept_ring_kernel": ring_walk,
             "accept_pairs_kernel": pairs, "accept_pack_kernel": 0,
-            "accept_sweep_kernel": 4 * T * ((T + 31) // 32)}
+            # accept.cu sweep_smem_words: 4 word arrays and the staged rows
+            "accept_sweep_kernel": 4 * (4 * nw + nw * (T | 1))}
 
 
 FULL_RING_BATCHES = 24  # mixed batches after which the 4096-entry ring has wrapped
+PIPELINE_LIVE = 33  # live txns of a pipeline-sized batch (phase 9: 12-33 a batch)
 
 
 def kernel_inputs():
@@ -324,7 +337,10 @@ def kernel_inputs():
     ring has wrapped and every slot is live, as in a resolver's steady
     state). Read versions lag up to 5000 versions (about five batches),
     so the ring holds entries newer than them and the ring lanes really
-    hit. Returns the params and [(label, state, mixed, high-conflict)]."""
+    hit. After 8 batches also two sparse batches at the same versions:
+    the first PIPELINE_LIVE txns of the next mixed batch (the size of a
+    pipeline batch), and the zero-txn pad batch resolve_many adds to a
+    backlog. Returns the params and [(label, state, {case: batch})]."""
     from foundationdb_tpu_torch import workloads
     from foundationdb_tpu_torch.convert import batch_from_numpy
     from foundationdb_tpu_torch.resolver.resolver import Resolver
@@ -343,9 +359,17 @@ def kernel_inputs():
         r.resolve(txns, cv, ws)
         if i + 1 in (8, FULL_RING_BATCHES):
             state = type(r.state)(*(f.clone() for f in r.state))
-            label = "" if i + 1 == 8 else ", full ring"
-            histories.append((label, state, packed(stream[i + 1]),
-                              packed(hot[i + 1])))
+            nxt = stream[i + 1]
+            batches = {"zipfian mixed": packed(nxt),
+                       "high-conflict": packed(hot[i + 1])}
+            label = ", full ring"
+            if i + 1 == 8:
+                label = ""
+                batches[f"{PIPELINE_LIVE} live of {r.params.txns}"] = packed(
+                    (nxt[0][:PIPELINE_LIVE], *nxt[1:]))
+                batches["pad batch"] = batch_from_numpy(
+                    r.packer.pack_empty(r.base_version, *nxt[1:]), r.device)
+            histories.append((label, state, batches))
     return r.params, histories
 
 
@@ -369,7 +393,8 @@ def kernel_cases():
     params, histories = kernel_inputs()
     T, W = params.txns, params.key_width
     cases = []
-    for suffix, state, zipf, high in histories:
+    for suffix, state, batches in histories:
+        zipf = batches["zipfian mixed"]
         ring = (state.ring_b, state.ring_e, state.ring_v, state.ring_mask)
         log(f"[inputs{suffix}] T={T} W={W} KR={state.ring_v.shape[0]} live "
             f"ring entries={int(state.ring_mask.sum())}")
@@ -394,7 +419,7 @@ def kernel_cases():
                 fn=lambda a=args, p=point: ring_hits(*a, point_mode=p),
                 plain=lambda a=args, p=point: ring_hits_plain(*a, point_mode=p),
                 plain_reps=5, cost=cost))
-        for label, b in (("zipfian mixed", zipf), ("high-conflict", high)):
+        for label, b in batches.items():
             a0 = b.txn_mask & ~(b.rv < state.window_start)
 
             def cost(state=state, b=b, a0=a0):
@@ -404,7 +429,7 @@ def kernel_cases():
                               b.rr_mask, b.rw_b, b.rw_e, b.rw_mask,
                               state.ring_b, state.ring_e, state.ring_v,
                               state.ring_mask)
-                return nb + T, accept_ops(state, b, T)
+                return nb + T, accept_ops(state, b, a0)
 
             cases.append(dict(
                 kernel="fused_accept", case=label + suffix,
@@ -426,9 +451,9 @@ def kernel_cases():
 
 def sweep_cost(a0, O):
     """accept_sweep's bytes (a0 and O read once, the accepted bits
-    written) and ops (one ballot word per 32 pairs, T dependent steps,
-    and a word OR per accepted row per word), from the accepted count
-    of these inputs."""
+    written) and ops (one ballot word per 32 pairs, one candidate test
+    per txn, and a word OR per accepted row per word), from the accepted
+    count of these inputs."""
     from foundationdb_tpu_torch.ops.accept import jacobi_accept
 
     T = a0.shape[0]
@@ -491,7 +516,7 @@ PARTS = {"fused_accept": ACCEPT_PARTS, "accept_sweep": SWEEP_PARTS,
          "ring_hits": ("ring_hits_kernel",)}
 
 
-def kernel_parts(fn, reps, names, tries=3):
+def kernel_parts(fn, reps, names, tries=5):
     """Device ms per call of each kernel whose profiler name starts with
     one of ``names``, and of all other device work together ("other": for
     a wrapper, the memset that clears the hit bytes), over ``reps``

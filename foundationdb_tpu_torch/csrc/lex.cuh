@@ -48,17 +48,6 @@ __device__ __forceinline__ bool lex_gt_rs(const uint32_t (&a)[FDB_MAX_W],
   return false;
 }
 
-// a < b for two keys in shared memory whose limbs lie sa and sb words
-// apart.
-__device__ __forceinline__ bool lex_lt_ss(const uint32_t* a, int sa,
-                                          const uint32_t* b, int sb, int W) {
-  for (int i = 0; i < W; ++i) {
-    uint32_t x = a[i * sa], y = b[i * sb];
-    if (x != y) return x < y;
-  }
-  return false;
-}
-
 // Load one key of W limbs from a zero-extended int64 row into registers.
 __device__ __forceinline__ void load_key(uint32_t (&k)[FDB_MAX_W],
                                          const int64_t* row, int W,

@@ -96,8 +96,13 @@ def nvcc_path():
 
 
 def _so_path(name):
+    """The library of ``csrc/<name>.cu``, named by a hash of the flags,
+    the source and every header in ``csrc/``, so that a change to any of
+    them builds anew instead of loading a stale library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fn in (name + ".cu", "lex.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fn in (name + ".cu", *headers):
+        h.update(fn.encode())
         with open(os.path.join(CSRC_DIR, fn), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")

@@ -23,8 +23,8 @@ from foundationdb_tpu_torch.ops import _kernels
 from foundationdb_tpu_torch.ops.intervals import point_in, ranges_overlap
 from foundationdb_tpu_torch.ops.ring import ring_slot_hits
 
-MAX_TXNS = 1024  # csrc/accept.cu FDB_MAX_TXNS: one warp's 32 x 32-bit words
-# csrc/accept.cu FDB_SWEEP_MAX_WORDS: the wide sweep's one block of threads
+MAX_TXNS = 1024  # csrc/accept.cu FDB_MAX_TXNS: 32 words, staged by the sweep
+# csrc/accept.cu FDB_SWEEP_MAX_WORDS: the widest relation the sweep takes
 MAX_SWEEP_TXNS = 1024 * 32
 
 # lane flags of csrc/accept.cu
@@ -88,7 +88,7 @@ def sweep_accept(a0, O):
     relation O (bool[T, T], O[w, r]: accepted w kills r): bool[T].
 
     For CUDA tensors the two launches of ``fdb_accept_sweep`` (O packed
-    into a bitset by warp ballots, then the T-step sweep); for CPU
+    into a bitset by warp ballots, then the word-by-word sweep); for CPU
     tensors :func:`jacobi_accept`. Never falls back from one to the
     other."""
     if a0.device.type == "cpu":

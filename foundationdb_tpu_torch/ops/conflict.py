@@ -549,7 +549,7 @@ def validate_params(params: ResolverParams):
     if params.use_accept_kernel and params.txns > MAX_TXNS:
         raise ValueError(
             f"use_accept_kernel requires txns <= {MAX_TXNS}: the sweep "
-            f"holds the kill vector in one warp (got {params.txns})"
+            f"stages its rows in one block (got {params.txns})"
         )
     pb = params.ring_partition_bits
     if pb:

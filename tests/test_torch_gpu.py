@@ -110,7 +110,10 @@ LANE_SETS = [(2, 2, 1, 1), (2, 2, 0, 0), (0, 0, 2, 2), (2, 0, 0, 1),
              (0, 2, 1, 0), (4, 4, 2, 2)]
 
 
-def _accept_case(rng, T, PR, PW, RR, RW, W, KR, dev):
+def _accept_case(rng, T, PR, PW, RR, RW, W, KR, dev, live="full"):
+    """A random (state, batch, params, a0). ``live`` as in
+    tests/test_torch_kernels.py LIVENESS; the slot masks of dead txns
+    stay drawn."""
     params = ck.ResolverParams(
         txns=T, point_reads=PR, point_writes=PW, range_reads=RR,
         range_writes=RW, key_width=W, hash_bits=8, ring_capacity=KR,
@@ -141,8 +144,16 @@ def _accept_case(rng, T, PR, PW, RR, RW, W, KR, dev):
         ring_b=_t(_keys(rng, KR, W), dev), ring_e=_t(_keys(rng, KR, W), dev),
         ring_v=_t(_versions(rng, KR), dev), ring_mask=m(KR))
     # a0 implies a live slot, as resolve_batch builds it
-    a0 = _t((rng.random(T) < 0.8) & txn_mask, dev)
-    return state, batch, params, a0
+    a0 = (rng.random(T) < 0.8) & txn_mask
+    if live.startswith("prefix"):
+        a0 = np.arange(T) < int(live[len("prefix"):])
+    elif live == "scattered":
+        a0 = rng.random(T) < 0.1
+    elif live == "holes":
+        a0 = rng.random(T) < 0.5
+    if live != "full":
+        batch = batch._replace(txn_mask=_t(a0 | (live == "holes"), dev))
+    return state, batch, params, _t(a0, dev)
 
 
 @pytest.mark.gpu
@@ -157,6 +168,22 @@ def test_accept_kernel_matches_plain(cuda, T, W, KR, lanes):
     torch.cuda.synchronize()
     assert _kernels.launches["fused_accept"] == 1
     assert torch.equal(got, fused_accept_plain(*case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", ["prefix0", "prefix1", "prefix33",
+                                  "scattered", "holes"])
+def test_accept_kernel_on_sparse_batches(cuda, live):
+    """The batches whose dead tiles and words the kernels skip, at the
+    default widths: a live prefix (a pipeline batch, a one-txn commit, a
+    pad batch), scattered live txns, and a0 with holes."""
+    rng = np.random.default_rng(len(live))
+    case = _accept_case(rng, 1024, 4, 4, 2, 2, W=9, KR=4096, dev=cuda,
+                        live=live)
+    got = fused_accept(*case)
+    want = fused_accept_plain(*case)
+    assert torch.equal(got, want)
+    assert not (got & ~case[3]).any()
 
 
 SMALL = dict(batch_txn_capacity=64, key_limbs=3, hash_table_bits=12,
@@ -520,8 +547,8 @@ def _upper_relation(rng, T, density, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,density", [
     (1, 0.5), (8, 0.3), (130, 0.05), (1024, 0.002), (1024, 0.05),
-    # past one warp's 32 words: the wide sweep
-    (1025, 0.003), (2048, 0.001)])
+    # past 32 words: the rows come from device memory, not shared
+    (1025, 0.003), (2048, 0.001), (4096, 0.0005)])
 def test_accept_sweep_matches_jacobi(cuda, T, density):
     rng = np.random.default_rng(T)
     a0, O = _upper_relation(rng, T, density, cuda)
@@ -533,6 +560,29 @@ def test_accept_sweep_matches_jacobi(cuda, T, density):
     assert torch.equal(got, want)
     if T > 8:
         assert 0 < int(want.sum()) < int(a0.sum())  # chains really killed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,T", [("chain", 1024), ("chain", 4096),
+                                    ("dense", 1024), ("dense", 2048)])
+def test_accept_sweep_chains_and_dense(cuda, kind, T):
+    """A chain O[t, t+1] through every word border (every other txn is
+    accepted) and a dense high-conflict relation, on both sides of 32
+    words."""
+    rng = np.random.default_rng(T + len(kind))
+    if kind == "chain":
+        O = np.zeros((T, T), bool)
+        O[np.arange(T - 1), np.arange(1, T)] = True
+        a0 = np.ones(T, bool)
+    else:
+        O = np.triu(rng.random((T, T)) < 0.5, 1)
+        a0 = rng.random(T) < 0.85
+    a0, O = _t(a0, cuda), _t(O, cuda)
+    got = sweep_accept(a0, O)
+    want = jacobi_accept(a0, O)
+    assert torch.equal(got, want)
+    if kind == "chain":
+        assert int(want.sum()) == T // 2
 
 
 @pytest.mark.gpu
