@@ -17,12 +17,17 @@ Phases:
      batches' conflict matrices (against jacobi_accept); kernel
      and plain times (``ms``, ``plain_ms``) by CUDA events around
      back-to-back calls, which include the host's cost of each call;
-  4. the main path: Resolver() with default knobs (accept kernel on),
+  4. the main path: Resolver() with default knobs (accept kernel on,
+     the native packer built by g++ at first use, as in the reference),
      precompiled (every step captured, timed apart), through resolve (12
      batches) and two resolve_many backlogs (depth 12) on YCSB-A,
      range-heavy and mixed streams of 1024-txn batches;
      launch counts are zeroed just before and read just after; then each
-     stream's host pack and compiled step ms alone, and its busy share;
+     stream's host pack ms by the native and by the numpy packer (their
+     22 fields bit-equal), compiled step ms alone, and its busy share;
+     after phase 6, each stream's resolve drive again on fresh resolvers
+     with each packer, native/numpy/numpy/native in one run (statuses
+     equal), so the packers' resolve rates are compared within one call;
   5. the ring-kernel path: the mixed stream again with accept_kernel="off",
      ring_kernel="on", counted the same way;
   6. each phase-3 call's device time by torch.profiler: by kernel
@@ -90,14 +95,42 @@ Phases:
      each Resolver precompiled first, so the drive captures nothing):
      statuses and all 12 state fields must be equal; for each, resolved
      txns/s, p50 / p99 ms a batch, host ms a dispatch, the card's busy
-     share, captures and replays.
+     share, captures and replays;
+ 12. durability and recovery, modelled on the FoundationDB ``ssd``
+     engine (the sqlite B-tree, server/kvstore.py) under three
+     replicated logs, fsync on, in a temporary directory: (a)
+     RECOVERY_PRELOAD rows of 1 KB, made durable in the engine, then 12
+     range-heavy commit_batch calls (committed txns/s, p50 / p99 a
+     batch; fused_accept must launch), one log killed and 2 batches more,
+     the cluster dropped without a close and reopened on the same files:
+     the seconds to recover (construction to the first committed batch),
+     every acknowledged row read back, the generation one higher, a
+     pre-crash read version answered 1007, later commits as graph
+     replays; (b) 64 client threads of db.run read-modify-write
+     increments on Cluster(commit_pipeline="thread") while the commit
+     proxy, the sequencer and the proxy again die, each recovered by one
+     detect_and_recruit round: each recovery's timeline ms, the first
+     commit after it, the card memory after it (the third within 5% of
+     the first: dead resolvers keep no graphs), the errors the clients
+     rode out (1021 among them) and exact counters; (c) a card and a CPU
+     durable cluster given the same preload, batches, dead log, crash,
+     reopen and recoveries: outcomes, rows, generations and all 12 state
+     fields equal;
+ 13. the range-heavy stream through Cluster(resolver_backend="native",
+     n_resolvers=3) and through the Python host sets ("cpu", 3) on a
+     NATIVE_PRELOAD history: equal outcomes and rows, committed txns/s
+     for both, the sub-resolve pool's overlap (sub-resolve ms over the
+     pool's wall ms); then the native fleet alone on CLUSTER_PRELOAD
+     rows (BASELINE config 5's 1M): its rate and overlap; no kernel
+     launch.
 
 Every Resolver step runs as a CUDA graph replay (ops/conflict.StaticStep).
-Each of phases 4, 5, 8, 9 and 10 zeroes the graph counts with the launch
-counts and checks after its drive that it captured, that every dispatch
-was a replay, and that no resolver step ran eagerly on the card (a
-wrapper counts calls of the eager steps on card tensors outside a
-capture); phase 11's twin is the only eager step on the card.
+Each of phases 4, 5, 8, 9, 10 and 12 zeroes the graph counts with the
+launch counts and checks after its drive that it captured, that every
+dispatch was a replay, and that no resolver step ran eagerly on the
+card (a wrapper counts calls of the eager steps on card tensors outside
+a capture); phase 11's twin is the only eager step on the card. A
+recovered resolver takes its predecessor's captured steps.
 
 Any failure raises and the script exits non-zero; without a card it exits
 non-zero before printing any result. The line before the last is
@@ -105,9 +138,12 @@ non-zero before printing any result. The line before the last is
 """
 
 import gc
+import hashlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -542,6 +578,7 @@ def kernel_parts(fn, reps, names, tries=5):
                 seen[n] += e.count
         if all(c == reps for c in seen.values()):
             return {n: v / reps / 1e3 for n, v in us.items()}
+        log(f"[parts] profile lost events: {seen} of {reps}; again")
     raise RuntimeError(f"kernel launches in the profile: {seen}, not {reps}")
 
 
@@ -563,18 +600,31 @@ def drive(r, stream):
 
 
 def step_split(r, stream, use_fast):
-    """Host pack ms and the compiled step's ms per batch, each alone: the
-    packer on the host, and the step (its batch copy and its replay) by
-    CUDA events over the packed batches, compiled anew over a copy of the
-    history and captured before the timing; then a profiled run of the
-    same steps (device_profile)."""
+    """Host pack ms per batch, by the resolver's native packer (the
+    default) and by the numpy packer, whose arrays must be bit-equal;
+    and the compiled step's ms per batch alone: the step (its batch copy
+    and its replay) by CUDA events over the packed batches, compiled
+    anew over a copy of the history and captured before the timing;
+    then a profiled run of the same steps (device_profile)."""
     from foundationdb_tpu_torch.ops import conflict as ck
+    from foundationdb_tpu_torch.resolver.packing import BatchPacker
 
     packer, params = (r._fast_packer, r._fast_params) if use_fast else (
         r.packer, r.params)
-    t0 = time.perf_counter()
-    packed = [packer.pack(t, r.base_version, cv, ws) for t, cv, ws in stream]
-    pack_ms = (time.perf_counter() - t0) * 1e3 / len(stream)
+    assert packer._native is not None, "the resolver packs natively"
+    numpy_packer = BatchPacker(params, use_native=False)
+    pack_ms = {}
+    for label, p in (("native", packer), ("numpy", numpy_packer)):
+        t0 = time.perf_counter()
+        out = [p.pack(t, r.base_version, cv, ws) for t, cv, ws in stream]
+        pack_ms[label] = (time.perf_counter() - t0) * 1e3 / len(stream)
+        if label == "native":
+            packed = out
+    for a, b in zip(packed, out):
+        for f, x, y in zip(a._fields, a, b):
+            x, y = np.asarray(x), np.asarray(y)
+            assert x.dtype == y.dtype and np.array_equal(x, y), \
+                f"native and numpy packs differ in {f}"
     step = ck.make_resolve_fn(params, type(r.state)(*(f.clone()
                                                       for f in r.state)))
     step.run(packed[0])  # the capture
@@ -588,6 +638,50 @@ def step_split(r, stream, use_fast):
     torch.cuda.synchronize()
     return pack_ms, start.elapsed_time(end) / len(packed), device_profile(
         lambda: [step.run(b) for b in packed])
+
+
+PACKER_ORDER = ("native", "numpy", "numpy", "native")  # phase 4's A/B
+
+
+def phase_packers(streams):
+    """Phase 4's resolve drive with each packer in one run: per stream,
+    fresh precompiled resolvers that pack natively (the default) or with
+    numpy, driven over the same batches in PACKER_ORDER; every drive's
+    statuses must be equal. Returns each packer's resolve txns/s and p50
+    ms per drive. Outside the main path's counts (phase_main took them)."""
+    from foundationdb_tpu_torch.core.options import Knobs
+    from foundationdb_tpu_torch.resolver.packing import BatchPacker
+    from foundationdb_tpu_torch.resolver.resolver import Resolver
+
+    report = {}
+    for name, stream in streams.items():
+        n1 = sum(len(t) for t, _, _ in stream[:RESOLVE_BATCHES])
+        got = {k: dict(resolve_txns_per_s=[], resolve_p50_ms=[])
+               for k in PACKER_ORDER}
+        first = None
+        for kind in PACKER_ORDER:
+            r = Resolver(Knobs())
+            if kind == "numpy":
+                r.packer = BatchPacker(r.params, use_native=False)
+                if r._fast_packer is not None:
+                    r._fast_packer = BatchPacker(r._fast_params,
+                                                 use_native=False)
+            r.precompile()
+            out, walls, _ = drive(r, stream)
+            r.release()
+            first = first or out
+            assert out == first, f"{name}: the {kind} packer's statuses differ"
+            got[kind]["resolve_txns_per_s"].append(n1 / (sum(walls) / 1e3))
+            got[kind]["resolve_p50_ms"].append(float(np.percentile(walls, 50)))
+        report[name] = got
+        log(f"[main {name}] resolve by packer, one run, order "
+            f"{'/'.join(PACKER_ORDER)}: " + "; ".join(
+                f"{k} " + ", ".join(f"{v:.0f}" for v in
+                                    got[k]["resolve_txns_per_s"])
+                + " txns/s (p50 " + ", ".join(
+                    f"{v:.3f}" for v in got[k]["resolve_p50_ms"]) + " ms)"
+                for k in got) + "; statuses equal")
+    return report
 
 
 def device_profile(fn, top=4):
@@ -660,11 +754,13 @@ def phase_main(streams, knobs, label, reset=True):
     for name, (r, _) in resolvers.items():
         use_fast = r._fast_packer is not None and not r._range_history
         pack_ms, step_ms, prof = step_split(r, streams[name][:8], use_fast)
-        report[name].update(host_pack_ms=pack_ms, device_step_ms=step_ms,
-                            step_profile=prof)
-        log(f"[{label} {name}] host pack {pack_ms:.3f} ms vs compiled step "
-            f"{step_ms:.3f} ms per batch ({'fast' if use_fast else 'full'} "
-            "variant)")
+        report[name].update(host_pack_ms=pack_ms["native"],
+                            host_pack_numpy_ms=pack_ms["numpy"],
+                            device_step_ms=step_ms, step_profile=prof)
+        log(f"[{label} {name}] host pack {pack_ms['native']:.3f} ms native "
+            f"(numpy {pack_ms['numpy']:.3f} ms, the 22 arrays bit-equal) vs "
+            f"compiled step {step_ms:.3f} ms per batch "
+            f"({'fast' if use_fast else 'full'} variant)")
         log(f"[{label} {name}] 8 steps: device busy {prof['busy_ms']:.3f} ms "
             f"of {prof['wall_ms']:.3f} ms wall ({prof['busy_share']:.1%}); "
             "top " + ", ".join(f"{n} {s:.1%}" for n, s in prof["top"]))
@@ -799,11 +895,13 @@ def phase_cluster(streams):
     return report, launches
 
 
-def proxy_stream(c, stream, n_single, n_backlog, value, label):
+def proxy_stream(c, stream, n_single, n_backlog, value, label,
+                 keep_outcomes=False):
     """A stream's batches as client commit requests: ``n_single``
     commit_batch calls, then one commit_batches of the next
     ``n_backlog``. Committed txns/s, per-batch latency p50 / p99 /
-    slowest, and the backlog's latency."""
+    slowest, and the backlog's latency (and with ``keep_outcomes`` every
+    request's outcome, under "outcomes")."""
     from foundationdb_tpu_torch import workloads
 
     proxy, limbs = c.commit_proxy, c.knobs.key_limbs
@@ -839,6 +937,8 @@ def proxy_stream(c, stream, n_single, n_backlog, value, label):
         commit_batches_committed=ok[1],
         commit_batches_committed_per_s=ok[1] / (backlog_ms / 1e3),
         commit_batches_ms=backlog_ms)
+    if keep_outcomes:
+        r["outcomes"] = outs + back
     log(f"[{label}] commit_batch x{n_single}: "
         f"{r['commit_batch_committed']} of {r['commit_batch_txns']} "
         f"committed, {r['commit_batch_committed_per_s']:.0f} committed "
@@ -1611,6 +1711,422 @@ def phase_graphs(streams):
     return report
 
 
+RECOVERY_PRELOAD = 100_000  # BASELINE config 2 has 1M rows: cut tenfold so
+# the fsynced three-log preload and its WAL replay fit the run's time
+RECOVERY_BATCHES = 12  # range-heavy commit_batch calls before the crash,
+# then SPLIT_BATCHES // 2 for the stage split
+RECOVERY_AFTER_KILL = 2  # batches acked by 2 of 3 logs
+RECOVERY_AFTER = 4  # batches after the reopen, the first one timed
+RECOVERY_CLIENTS = 64  # BASELINE config 3's 64 clients
+RECOVERY_INCREMENTS = 100  # read-modify-write increments per thread
+RECOVERY_COUNTERS = 16
+RECOVERY_KILLS = ("commit_proxy", "sequencer", "commit_proxy")
+NATIVE_PRELOAD = 16_384  # phase 13's native-against-Python check: the
+# Python host sets' checks grow with the history (3.3 s a batch at a
+# 100,000-row preload); the native sets alone then run on CLUSTER_PRELOAD
+
+
+def durable_cluster(d, **kw):
+    """Phase 12's deployment: the ``ssd`` engine (sqlite B-tree) under
+    three replicated logs, every push and engine commit fsynced, the
+    coordinators' state on disk, all in directory ``d``."""
+    from foundationdb_tpu_torch.server.cluster import Cluster
+    from foundationdb_tpu_torch.server.kvstore import open_engine
+
+    os.makedirs(d, exist_ok=True)
+    return Cluster(
+        wal_path=os.path.join(d, "wal"), n_tlogs=3, fsync=True,
+        storage_engines=[open_engine("sqlite", os.path.join(d, "kv"),
+                                     fsync=True)],
+        coordination_dir=os.path.join(d, "coordinators"), **kw)
+
+
+def rows_digest(c):
+    """(rows, sha256 of every key and value) at the storage's version."""
+    s = c.storage
+    rows = s.get_range(b"", b"\xff", s.version)
+    h = hashlib.sha256()
+    for k, v in rows:
+        h.update(len(k).to_bytes(4, "big") + k + len(v).to_bytes(4, "big")
+                 + v)
+    return len(rows), h.hexdigest()
+
+
+def commit_walls(c, batches, value):
+    """Each stream batch as client requests through commit_batch:
+    (outcomes, wall ms of each call)."""
+    from foundationdb_tpu_torch import workloads
+
+    outs, walls = [], []
+    for txns, cv, _ in batches:
+        reqs = workloads.commit_requests(
+            txns, cv, c.sequencer.committed_version, c.knobs.key_limbs, value)
+        t0 = time.perf_counter()
+        outs.append(_outcomes(c.commit_proxy.commit_batch(reqs)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return outs, walls
+
+
+def preload(c, n):
+    from foundationdb_tpu_torch import workloads
+
+    t0 = time.perf_counter()
+    for reqs in workloads.preload_requests(
+            n, c.knobs.key_limbs, batch=c.knobs.batch_txn_capacity,
+            seed=SEED):
+        assert all(isinstance(v, int)
+                   for v in c.commit_proxy.commit_batch(reqs))
+    return time.perf_counter() - t0
+
+
+def stale_commit(c, rv):
+    """A read and a write at read version ``rv``: its error code."""
+    from foundationdb_tpu_torch.core.errors import FDBError
+
+    tr = c.database().create_transaction()
+    tr.set_read_version(rv)
+    tr.get(b"user%08d" % 0)
+    tr.set(b"stale", b"x")
+    try:
+        tr.commit()
+        return "committed"
+    except FDBError as e:
+        return e.code
+
+
+def phase_recovery_restart(stream, d):
+    """Phase 12a: a cold restart of the durable cluster on the card."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.ops import _kernels
+
+    value = b"r" * 100
+    reset_counts()
+    c = durable_cluster(d)
+    gen0 = c.generation
+    preload_s = preload(c, RECOVERY_PRELOAD)
+    t0 = time.perf_counter()
+    c.storage.flush()  # the preload into the engine's B-tree
+    flush_s = time.perf_counter() - t0
+    outs, walls = commit_walls(c, stream[:RECOVERY_BATCHES], value)
+    ok = sum(isinstance(v, int) for b in outs for v in b)
+    before = dict(_kernels.launches)
+    log(f"[recovery restart] preloaded {RECOVERY_PRELOAD} rows of 1 KB "
+        f"with fsync on 3 logs in {preload_s:.3f} s, into the sqlite "
+        f"engine in {flush_s:.3f} s; {RECOVERY_BATCHES} range-heavy "
+        f"commit_batch calls: {ok} committed, "
+        f"{ok / (sum(walls) / 1e3):.1f} committed txns/s, p50 "
+        f"{np.percentile(walls, 50):.3f} ms, p99 "
+        f"{np.percentile(walls, 99):.3f} ms a batch (fsync on)")
+    assert before["fused_accept"] > 0, "fused_accept never launched"
+    # where a fsynced commit_batch spends its time, after the timed drive
+    i = RECOVERY_BATCHES + SPLIT_BATCHES // 2
+    wal_sites = {f"wal_append_{n}": (log, "_wal_append")
+                 for n, log in enumerate(c.tlog.logs)}
+    split = commit_stage_split(
+        c, [lambda t=t, cv=cv: workloads.commit_requests(
+            t, cv, c.sequencer.committed_version, c.knobs.key_limbs, value)
+            for t, cv, _ in stream[RECOVERY_BATCHES:i]],
+        extra_sites=dict(wal_sites, tlog_push=(c.tlog, "push")))
+    log(f"[recovery restart] {SPLIT_BATCHES // 2} commit_batch calls, host "
+        "ms per batch: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split["host_ms"].items())
+        + f" of {split['wall_ms']:.3f} wall; device busy "
+        f"{split['device_busy_ms']:.3f} ms per batch "
+        f"({split['device_busy_share']:.1%})")
+    rv_old = c.sequencer.committed_version  # a read version the crash fences
+    c.tlog.kill(0)
+    more, _ = commit_walls(c, stream[i:i + RECOVERY_AFTER_KILL], value)
+    assert any(isinstance(v, int) for b in more for v in b)
+    last = c.sequencer.committed_version
+    acked = rows_digest(c)
+    g_before = graph_report("recovery restart, before the crash")
+    del c  # a crash: no close, the files as they lie
+    gc.collect()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    c = durable_cluster(d)
+    construct_s = time.perf_counter() - t0
+    assert c.generation == gen0 + 1, (gen0, c.generation)
+    assert rows_digest(c) == acked, "an acknowledged write was lost"
+    assert c.sequencer.committed_version == last
+    i += RECOVERY_AFTER_KILL
+    first, first_ms = commit_walls(c, stream[i:i + 1], value)
+    recover_s = construct_s + first_ms[0] / 1e3
+    code = stale_commit(c, rv_old)
+    assert code == 1007, f"a pre-crash read version got {code}"
+    after, walls_after = commit_walls(c, stream[i + 1:i + RECOVERY_AFTER],
+                                      value)
+    launches = dict(_kernels.launches)
+    g_after = graph_report("recovery restart, after the reopen")
+    assert launches["fused_accept"] > 0, "fused_accept never launched"
+    log(f"[recovery restart] killed log 0, committed {RECOVERY_AFTER_KILL} "
+        f"batches on 2 of 3 logs, dropped the cluster; reopened in "
+        f"{construct_s:.3f} s ({c.recovered_records} log records), first "
+        f"committed batch {first_ms[0]:.3f} ms: {recover_s:.3f} s to recover; "
+        f"{acked[0]} rows read back equal; generation {gen0} -> "
+        f"{c.generation}; a pre-crash read version got {code}; "
+        f"{RECOVERY_AFTER - 1} more batches p50 "
+        f"{np.percentile(walls_after, 50):.3f} ms; launches {launches}")
+    c.close()
+    return dict(preload_rows=RECOVERY_PRELOAD, preload_s=preload_s,
+                flush_s=flush_s, committed=ok,
+                committed_txns_per_s=ok / (sum(walls) / 1e3),
+                p50_ms=float(np.percentile(walls, 50)),
+                p99_ms=float(np.percentile(walls, 99)),
+                reopen_s=construct_s, first_batch_ms=first_ms[0],
+                stage_split=split,
+                recover_s=recover_s, rows=acked[0], generations=[gen0, gen0 + 1],
+                stale_code=code, launches_before=before, launches=launches,
+                graphs=[g_before, g_after])
+
+
+def phase_txn_recovery():
+    """Phase 12b: 64 client threads of read-modify-write increments on a
+    thread-pipeline cluster on the card while the commit proxy, then the
+    sequencer, then the proxy again die, each followed by one
+    detect_and_recruit round."""
+    import threading
+
+    from foundationdb_tpu_torch.ops import _kernels
+    from foundationdb_tpu_torch.server.cluster import Cluster
+    from foundationdb_tpu_torch.txn.transaction import Transaction
+
+    reset_counts()
+    c = Cluster(commit_pipeline="thread")
+    db = c.database()
+    keys = [b"counter%02d" % i for i in range(RECOVERY_COUNTERS)]
+    total = RECOVERY_CLIENTS * RECOVERY_INCREMENTS
+    done = [0]
+    codes = {}
+    mu = threading.Lock()
+    on_error = Transaction.on_error
+
+    def counted(tr, e):
+        with mu:
+            codes[e.code] = codes.get(e.code, 0) + 1
+        return on_error(tr, e)
+
+    def client(i):
+        for j in range(RECOVERY_INCREMENTS):
+            k = keys[(i * 7 + j) % RECOVERY_COUNTERS]
+
+            def inc(tr):
+                v = tr[k]
+                tr[k] = b"%d" % ((int(v) if v is not None else 0) + 1)
+
+            db.run(inc)
+            with mu:
+                done[0] += 1
+
+    recoveries = []
+    Transaction.on_error = counted
+    try:
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(RECOVERY_CLIENTS)]
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for n, role in enumerate(RECOVERY_KILLS):
+            while done[0] < (n + 1) * total // (len(RECOVERY_KILLS) + 1):
+                time.sleep(0.001)
+            if role == "sequencer":
+                c.sequencer.kill()
+            else:
+                c._commit_target().kill()
+            time.sleep(0.05)  # commits queue against the dead role
+            events = c.detect_and_recruit()
+            assert events == [("txn-system", 0)], events
+            rec = c.recovery_timeline.records[-1]
+            t0 = time.perf_counter()
+            db[b"probe%d" % n] = b"x"
+            first_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            recoveries.append(dict(
+                killed=role, generation=rec["generation"],
+                total_ms=rec["total_ms"], phases_ms=rec["phases"],
+                first_commit_ms=first_ms,
+                allocated_bytes=torch.cuda.memory_allocated()))
+            log(f"[recovery txn-system] {role} killed at {done[0]} of "
+                f"{total} increments; recovery {rec['total_ms']} ms "
+                f"{rec['phases']}, generation {rec['generation']}; first "
+                f"commit after it {first_ms:.3f} ms; card memory allocated "
+                f"{recoveries[-1]['allocated_bytes']} B")
+        deadline = time.monotonic() + CLIENT_DEADLINE_S
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        assert not any(t.is_alive() for t in threads), "a client hung"
+        wall = time.perf_counter() - t_start
+    finally:
+        Transaction.on_error = on_error
+    counters = sum(int(db[k]) for k in keys)
+    launches = dict(_kernels.launches)
+    graphs = graph_report("recovery txn-system")
+    log(f"[recovery txn-system] {RECOVERY_CLIENTS} threads x "
+        f"{RECOVERY_INCREMENTS} increments in {wall:.3f} s "
+        f"({total / wall:.1f} committed increments/s) across "
+        f"{len(recoveries)} recoveries: counters {counters} of {total}; "
+        f"errors the clients rode out {dict(sorted(codes.items()))}")
+    assert counters == total, f"counters {counters} != {total}"
+    assert codes.get(1021, 0) > 0, "no queued commit failed 1021"
+    m0, m2 = recoveries[0]["allocated_bytes"], recoveries[-1]["allocated_bytes"]
+    assert abs(m2 - m0) <= 0.05 * m0, \
+        f"card memory after the third recovery {m2} B vs the first {m0} B"
+    c.close()
+    return dict(increments=total, wall_s=wall,
+                increments_per_s=total / wall, counters=counters,
+                client_errors={str(k): v for k, v in codes.items()},
+                recoveries=recoveries, launches=launches, graphs=graphs)
+
+
+def recovery_replay(device, d, stream):
+    """Phase 12c's script: preload, batches, a dead log, a crash and a
+    reopen, a fenced read, a dead proxy and a dead sequencer each
+    recovered. Outcomes, rows, generations and the resolver state."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.convert import state_to_numpy
+
+    value = b"c"
+    c = durable_cluster(d, device=device)
+    out = [c.generation]
+    preload(c, CLUSTER_REPLAY_PRELOAD)
+    c.storage.flush()
+    out += commit_walls(c, stream[:2], value)[0]
+    rv_old = c.sequencer.committed_version
+    c.tlog.kill(0)
+    out += commit_walls(c, stream[2:3], value)[0]
+    del c
+    gc.collect()
+    c = durable_cluster(d, device=device)
+    out += [c.generation, stale_commit(c, rv_old)]
+    out += commit_walls(c, stream[3:4], value)[0]
+    c._commit_target().kill()
+    out.append(c.detect_and_recruit())
+    out += commit_walls(c, stream[4:5], value)[0]
+    c.sequencer.kill()
+    out.append(c.detect_and_recruit())
+    reqs = [workloads.commit_requests(t, cv, c.sequencer.committed_version,
+                                      c.knobs.key_limbs, value)
+            for t, cv, _ in stream[5:7]]
+    out += [_outcomes(r) for r in c.commit_proxy.commit_batches(reqs)]
+    out.append([(r["generation"], r["recovered_version"])
+                for r in c.recovery_timeline.records])
+    rows = c.database().get_range(b"", b"\xff")
+    state = state_to_numpy(c.resolvers[0].state)
+    c.close()
+    return out, rows, state
+
+
+def phase_recovery(stream):
+    """Phase 12: durability and recovery on the card."""
+    with tempfile.TemporaryDirectory() as d:
+        report = dict(restart=phase_recovery_restart(
+            stream, os.path.join(d, "restart")))
+    report["txn_system"] = phase_txn_recovery()
+    # the launches of phase 12's path: 12a on both sides of the crash,
+    # 12b (12c's runs are comparisons)
+    launches = {k: (report["restart"]["launches_before"][k]
+                    + report["restart"]["launches"][k]
+                    + report["txn_system"]["launches"][k])
+                for k in report["txn_system"]["launches"]}
+    with tempfile.TemporaryDirectory() as d:
+        gpu = recovery_replay(None, os.path.join(d, "card"), stream)
+        cpu = recovery_replay("cpu", os.path.join(d, "cpu"), stream)
+    assert gpu[0] == cpu[0], "recovery outcomes differ between card and CPU"
+    assert gpu[1] == cpu[1], "recovery rows differ between card and CPU"
+    for f, a, b in zip(type(gpu[2])._fields, gpu[2], cpu[2]):
+        assert np.array_equal(a, b), f"recovery state field {f} differs"
+    log(f"[recovery replay] preload {CLUSTER_REPLAY_PRELOAD} rows, 7 "
+        "range-heavy batches, a dead log, a crash and reopen, a fenced "
+        "read, a dead proxy and a dead sequencer recovered: card == CPU "
+        f"({len(gpu[1])} rows, outcomes, generations {gpu[0][-1]} and 12 "
+        "state fields)")
+    log(f"[recovery] launches {launches}")
+    return report, launches
+
+
+def native_fleet(backend, rows, stream, value):
+    """Cluster(resolver_backend=backend, n_resolvers=3) preloaded with
+    ``rows`` rows, then the stream through proxy_stream, each resolver's
+    sub-resolves and each fan-out timed: the report with the pool's
+    overlap, the outcomes and the rows left."""
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    c = Cluster(resolver_backend=backend, n_resolvers=SHARDED_LANES)
+    preload_s = preload(c, rows)
+    proxy = c._commit_target()
+    # each sub-resolve's (start, end), one list a resolver (each runs on
+    # a pool thread), and each fan-out's (start, end)
+    subs = [[] for _ in c.resolvers]
+    fans = []
+
+    def timed(fn, spans):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spans.append((t0, time.perf_counter()))
+        return call
+
+    for res, spans in zip(c.resolvers, subs):
+        res.resolve = timed(res.resolve, spans)
+    proxy._resolve = timed(proxy._resolve, fans)
+    label = f"native {backend} x{SHARDED_LANES}, {rows} rows"
+    r = proxy_stream(c, stream, CLUSTER_BATCHES, CLUSTER_BATCHES, value,
+                     label, keep_outcomes=True)
+    outcomes = r.pop("outcomes")
+    left = c.database().get_range(b"", b"\xff")
+    # a fan-out's pool wall: its first sub-resolve's start to its last
+    # one's end (the clipping before them is host Python)
+    sub = sum(t1 - t0 for spans in subs for t0, t1 in spans)
+    pool = sum(max(spans[n][1] for spans in subs)
+               - min(spans[n][0] for spans in subs)
+               for n in range(len(fans)))
+    fan = sum(t1 - t0 for t0, t1 in fans)
+    r.update(preload_rows=rows, preload_s=preload_s,
+             sub_resolve_ms=sub * 1e3, pool_wall_ms=pool * 1e3,
+             fan_out_ms=fan * 1e3, overlap=sub / pool)
+    log(f"[{label}] preloaded in {preload_s:.3f} s; {SHARDED_LANES} host "
+        f"resolvers on the pool: sub-resolves {r['sub_resolve_ms']:.3f} ms "
+        f"over {r['pool_wall_ms']:.3f} ms of pool wall (overlap "
+        f"{r['overlap']:.3f}); the fan-outs with their clipping "
+        f"{r['fan_out_ms']:.3f} ms")
+    c.close()
+    return r, outcomes, left
+
+
+def phase_native(stream):
+    """Phase 13: the range-heavy stream through three host resolvers on
+    the proxy's sub-resolve pool, native (C++) and Python sets, on a
+    NATIVE_PRELOAD history: equal outcomes and rows; then the native
+    sets alone on CLUSTER_PRELOAD rows; no kernel launch in either."""
+    from foundationdb_tpu_torch.ops import _kernels
+    from foundationdb_tpu_torch.ops import conflict as ck
+
+    reset_counts()
+    value = b"n" * 100
+    report, seen = {}, {}
+    for backend in ("native", "cpu"):
+        r, outcomes, left = native_fleet(backend, NATIVE_PRELOAD, stream,
+                                         value)
+        report[backend], seen[backend] = r, (outcomes, left)
+    assert seen["native"][0] == seen["cpu"][0], \
+        "native and Python host resolvers gave different outcomes"
+    assert seen["native"][1] == seen["cpu"][1], \
+        "native and Python host resolvers left different rows"
+    log(f"[native] outcomes and {len(seen['cpu'][1])} rows equal")
+    report["native_full"], _, left = native_fleet(
+        "native", CLUSTER_PRELOAD, stream, value)
+    report["native_full"]["rows_left"] = len(left)
+    launches = dict(_kernels.launches)
+    assert not any(launches.values()), launches
+    assert ck.graph_counts["dispatches"] == 0, dict(ck.graph_counts)
+    log(f"[native] launches {launches}")
+    report["launches"] = launches
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1643,6 +2159,7 @@ def main():
         {"mixed": streams["mixed"]},
         Knobs(accept_kernel="off", ring_kernel="on"), "ring-route")
     phase_parts(checks)
+    main_report["packers"] = phase_packers(streams)
     phase_replay(streams)
     graphs_report = phase_graphs(streams)
     cluster_report, cluster_launches = phase_cluster(streams)
@@ -1656,6 +2173,12 @@ def main():
     del streams
     gc.collect()
     pipeline_report_, pipeline_launches = phase_pipeline()
+    gc.collect()
+    durable_stream = workloads.range_heavy(max(
+        2 * CLUSTER_BATCHES, RECOVERY_BATCHES + SPLIT_BATCHES // 2
+        + RECOVERY_AFTER_KILL + RECOVERY_AFTER), seed=SEED)
+    recovery_report, recovery_launches = phase_recovery(durable_stream)
+    native_report = phase_native(durable_stream)
 
     kernels = []
     for name, src, replaces in (
@@ -1672,7 +2195,9 @@ def main():
                    "ring_route": ring_launches[name],
                    "cluster": cluster_launches[name],
                    "pipeline": pipeline_launches[name],
-                   "sharded_and_partitioned": sharded_launches[name]}
+                   "sharded_and_partitioned": sharded_launches[name],
+                   "recovery": recovery_launches[name],
+                   "native": native_report["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1686,9 +2211,10 @@ def main():
     summary = dict(card=card, main=main_report, ring_route=ring_report,
                    graphs=graphs_report, cluster=cluster_report,
                    pipeline=pipeline_report_, sharded=sharded_report,
+                   recovery=recovery_report, native=native_report,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
-    paths = {"fused_accept": ("main", "cluster", "pipeline"),
+    paths = {"fused_accept": ("main", "cluster", "pipeline", "recovery"),
              "ring_hits": ("ring_route",),
              "accept_sweep": ("main", "ring_route",
                               "sharded_and_partitioned")}
@@ -1702,6 +2228,8 @@ def main():
         if k["name"] != "accept_sweep":
             assert k["launches_by_path"]["sharded_and_partitioned"] == 0, \
                 k["name"]
+        # the host resolvers run no kernel, as in the reference
+        assert k["launches_by_path"]["native"] == 0, k["name"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,14 @@ bit for bit; around it, the sequencer, GRV and commit proxies, the log,
 storage and client transactions of the in-process cluster, with the
 batching commit pipeline that forms shared-version batches from
 concurrent clients (``commit_pipeline="thread"``), a fleet of resolver
-lanes on one card (``n_resolvers=k``) and client-side transaction repair
-(``txn_repair``, on by default). The package imports
-``torch`` and numpy only and keeps its own copy of every module it
-needs.
+lanes on one card (``n_resolvers=k``), client-side transaction repair
+(``txn_repair``, on by default), the native host code (the g++-built
+batch packer and the C++ conflict set of ``resolver_backend="native"``),
+and durability and recovery: write-ahead logs (replicated with
+``n_tlogs``), disk storage engines, the coordinators' generation and
+the transaction-system recovery of ``Cluster.detect_and_recruit``. The
+package imports ``torch`` and numpy only and keeps its own copy of
+every module it needs.
 
 Entry points: :func:`open` returns a Database whose resolver runs on
 ``cuda:0`` (``device="cpu"`` runs it on the CPU);
@@ -31,26 +35,21 @@ __all__ = ["FDBError", "KeyRange", "KeySelector", "key_successor", "open",
            "strinc", "transactional"]
 
 
-def open(cluster_file=None, device=None, commit_pipeline="sync",
-         commit_batch_max=None, commit_flush_after=4, n_commit_proxies=1,
-         n_resolvers=1, **knobs):
+def open(cluster_file=None, **kw):
     """Open a database and return a Database handle (ref parity:
     fdb.open() in bindings/python/fdb/__init__.py). The cluster runs
-    in-process; ``commit_pipeline`` ("sync", "thread" or "manual"),
-    ``commit_batch_max``, ``commit_flush_after``, ``n_commit_proxies``
-    and ``n_resolvers`` are passed to the Cluster, ``knobs`` are Knobs
-    fields."""
+    in-process: every keyword goes to
+    :class:`~foundationdb_tpu_torch.server.cluster.Cluster` (``device``,
+    ``commit_pipeline``, ``n_resolvers``, the durability arguments
+    ``wal_path``, ``n_tlogs``, ``storage_engines``, ``fsync`` and
+    ``coordination_dir``) or, if it is none of those, to the Knobs."""
     if cluster_file is not None:
         raise NotImplementedError(
             "cluster_file: the RPC client is not ported; open() runs the "
             "cluster in-process")
     from foundationdb_tpu_torch.server.cluster import Cluster
 
-    return Cluster(device=device, commit_pipeline=commit_pipeline,
-                   commit_batch_max=commit_batch_max,
-                   commit_flush_after=commit_flush_after,
-                   n_commit_proxies=n_commit_proxies,
-                   n_resolvers=n_resolvers, **knobs).database()
+    return Cluster(**kw).database()
 
 
 def transactional(func):

@@ -3,7 +3,8 @@
 ``resolver_backend="cuda"`` packs batches into device tensors and runs
 ops/conflict.py's step on a CUDA device (or on the CPU when the
 Resolver is given ``device="cpu"``); ``"cpu"`` runs the exact host
-ConflictSet (resolver/skiplist.py). The other knobs are those the
+ConflictSet (resolver/skiplist.py) and ``"native"`` its C++ twin
+(native/conflict_set.cpp). The other knobs are those the
 database's commit path and client read, with the JAX package's defaults.
 """
 
@@ -13,7 +14,8 @@ import dataclasses
 @dataclasses.dataclass
 class Knobs:
     # --- resolver ---
-    resolver_backend: str = "cuda"  # "cuda" | "cpu" (exact host set)
+    # "cuda" | "cpu" (exact host set) | "native" (its C++ twin)
+    resolver_backend: str = "cuda"
     batch_txn_capacity: int = 1024  # T: txns per resolver batch
     point_reads_per_txn: int = 4  # PR
     point_writes_per_txn: int = 4  # PW

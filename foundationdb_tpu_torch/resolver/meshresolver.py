@@ -34,7 +34,6 @@ router's k txn slices).
 
 import numpy as np
 
-from foundationdb_tpu_torch.convert import host_reader
 from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
 from foundationdb_tpu_torch.ops import conflict as ck
 from foundationdb_tpu_torch.parallel.mesh import (
@@ -62,8 +61,8 @@ class MeshResolver(Resolver):
     """
 
     def __init__(self, knobs=DEFAULT_KNOBS, base_version=0, n_lanes=None,
-                 device=None):
-        self._init_role(knobs, "cuda", base_version)
+                 device=None, history=None):
+        self._init_role(knobs, "cuda", base_version, history)
         self.accepts_flat = True
         self.device = _device_of(device)
         # one lane per requested resolver: the lanes are a tensor axis of
@@ -86,13 +85,15 @@ class MeshResolver(Resolver):
         self.split_chunks = {}
         if self.sharding == "range":
             self._kernel = PreshardedResolverKernel(
-                self.params, self.n_lanes, self.device)
+                self.params, self.n_lanes, self.device,
+                make_state=history is None)
             self._router = ShardRouter(self.params, self.n_lanes)
             # no point-specialized twin: the compacted layout skips dead
             # sides per entry already
         else:
             self._kernel = ShardedResolverKernel(
-                self.params, self.n_lanes, self.device)
+                self.params, self.n_lanes, self.device,
+                make_state=history is None)
             self._router = None
             self._fast_params = fast_params_of(self.params)
             if self._fast_params is not None:
@@ -101,8 +102,9 @@ class MeshResolver(Resolver):
                     self._fast_params, self.n_lanes, self.device,
                     make_state=False)
                 self._fast_packer = BatchPacker(self._fast_params)
-        self._state = self._kernel.state
-        self._kernel.state = None  # the history lives here
+        if history is None:
+            self._state = self._kernel.state
+            self._kernel.state = None  # the history lives here
         self._scan_pad_buckets = PAD_BUCKETS
 
     def _split_counted(self, stacked):
@@ -141,8 +143,8 @@ class MeshResolver(Resolver):
         # lane's slots, each k its own compiled scan
         sb, k = self._split_counted(stacked)
         B = stacked.rv.shape[0]
-        read = host_reader(self._steps.run(
-            (use_fast, k, B), sb, lambda: self._make_step(use_fast, B)))
+        read = self._replay((use_fast, k, B), sb,
+                            lambda: self._make_step(use_fast, B))
         return lambda: self._router.reassemble(read(), k)
 
     def status(self):
@@ -150,12 +152,8 @@ class MeshResolver(Resolver):
         doc["sharding"] = self.sharding
         return doc
 
-    def respawn(self, base_version):
-        """Recruitment: a fresh fleet of the same lanes on the same
-        device, fenced at ``base_version`` (the lanes' history died with
-        this instance)."""
-        new = MeshResolver(self.knobs, base_version=base_version,
-                           n_lanes=self.n_lanes, device=self.device)
-        new.counters = dict(self.counters)
-        new.counters["respawns"] += 1
-        return new
+    def _recruit(self, base_version, history):
+        """Recruitment: a fleet of the same lanes on the same device."""
+        return MeshResolver(self.knobs, base_version=base_version,
+                            n_lanes=self.n_lanes, device=self.device,
+                            history=history)

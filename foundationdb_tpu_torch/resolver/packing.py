@@ -306,12 +306,28 @@ class ShardRouter:
 
 
 class BatchPacker:
-    """Packs transactions for one resolver, arrival order preserved, with
-    whole-batch numpy encoding (one frombuffer pass per lane)."""
+    """Packs transactions for one resolver, arrival order preserved.
 
-    def __init__(self, params: ResolverParams):
+    Two paths give bit-identical arrays (tests/test_torch_native.py):
+      - native (the default, ``use_native=True``): one C pass over the
+        txn list (native/packer.cpp), built by g++ at first use; a
+        failed build raises native.NativeBuildError;
+      - numpy (``use_native=False``): whole-batch frombuffer encoding,
+        and the only path that spills and coalesces overflowing lanes,
+        so the native pass hands such a batch (and one whose keys are
+        not bytes) to it.
+    The flat columnar lane (``pack_flat``, ``pack_flat_group``) is
+    numpy on both, as in the reference.
+    """
+
+    def __init__(self, params: ResolverParams, use_native=True):
         self.params = params
         self.codec = KeyCodec(num_limbs=params.key_width - 1)
+        self._native = None
+        if use_native and params.key_width - 1 <= 16:
+            from foundationdb_tpu_torch.native import load_packer
+
+            self._native = load_packer()
         self._empty = None  # cached zero-txn pad batch (pack_empty)
         self._staging = {}  # B → the reusable staging set of that shape
         self._zero_hash = fnv_hash_np(
@@ -529,6 +545,39 @@ class BatchPacker:
             range_writes=rwrites,
         )
 
+    def _pack_native(self, txns, base_version, commit_version,
+                     new_window_start):
+        """One C pass (native/packer.cpp pack_into) into fresh arrays;
+        None on lane overflow (the numpy path normalizes)."""
+        p = self.params
+        T, W = p.txns, p.key_width
+        u32, i32 = np.uint32, np.int32
+        PR, PW, RR, RW = (p.point_reads, p.point_writes, p.range_reads,
+                          p.range_writes)
+        a = dict(
+            rv=np.zeros(T, u32), txn_mask=np.zeros(T, bool),
+            pr_key=np.zeros((T, PR, W), u32),
+            pr_hash=np.full((T, PR), self._zero_hash, u32),
+            pr_bucket=np.zeros((T, PR), i32), pr_mask=np.zeros((T, PR), bool),
+            pw_key=np.zeros((T, PW, W), u32),
+            pw_hash=np.full((T, PW), self._zero_hash, u32),
+            pw_bucket=np.zeros((T, PW), i32), pw_mask=np.zeros((T, PW), bool),
+            rr_b=np.zeros((T, RR, W), u32), rr_e=np.zeros((T, RR, W), u32),
+            rr_lo=np.zeros((T, RR), i32), rr_hi=np.zeros((T, RR), i32),
+            rr_mask=np.zeros((T, RR), bool),
+            rw_b=np.zeros((T, RW, W), u32), rw_e=np.zeros((T, RW, W), u32),
+            rw_lo=np.zeros((T, RW), i32), rw_hi=np.zeros((T, RW), i32),
+            rw_mask=np.zeros((T, RW), bool),
+        )
+        # pack_into's argument order (native/packer.cpp's contract)
+        if self._native.pack_into(txns, base_version, (PR, PW, RR, RW),
+                                  W - 1, p.bucket_bits, tuple(a.values())):
+            return None
+        return ResolveBatch(
+            **a, cv=np.uint32(commit_version - base_version),
+            new_window_start=np.uint32(
+                max(0, new_window_start - base_version)))
+
     def pack(self, txns, base_version, commit_version, new_window_start):
         """txns: list[TxnRequest], len <= params.txns → numpy ResolveBatch.
 
@@ -540,6 +589,14 @@ class BatchPacker:
         p = self.params
         if len(txns) > p.txns:
             raise ValueError(f"batch of {len(txns)} exceeds capacity {p.txns}")
+        if self._native is not None and isinstance(txns, list):
+            try:
+                batch = self._pack_native(txns, base_version, commit_version,
+                                          new_window_start)
+            except TypeError:
+                batch = None  # e.g. bytearray keys: the numpy path takes them
+            if batch is not None:
+                return batch
         T, W = p.txns, p.key_width
         u32 = np.uint32
 

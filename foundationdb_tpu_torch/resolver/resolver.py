@@ -16,7 +16,9 @@ graphs hold the state's addresses, so the state is never replaced:
 :meth:`Resolver.load_state` copies a history in. The device is
 ``cuda:0`` unless the caller passes ``device="cpu"`` (the tests do);
 without a card and without that, construction raises. ``"cpu"`` runs
-the exact host ConflictSet (resolver/skiplist.py).
+the exact host ConflictSet (resolver/skiplist.py) and ``"native"`` its
+C++ twin (native/conflict_set.cpp, built by g++ at first use), which
+releases the interpreter lock while it resolves.
 
 Batches come as lists of TxnRequests or as columnar FlatTxnBatches
 (core/flatpack.py, the commit proxy's default). A flat batch the flat
@@ -28,6 +30,7 @@ packer: the same semantics by another route, counted in
 A kernel that fails to build or launch raises: there is no fallback.
 """
 
+import threading
 import time
 
 import numpy as np
@@ -137,11 +140,13 @@ def _kernel_knob(knobs, name, on_cuda):
 
 
 class Resolver:
-    def __init__(self, knobs=DEFAULT_KNOBS, base_version=0, device=None):
-        self._init_role(knobs, knobs.resolver_backend, base_version)
-        # the device lanes take the flat columnar batches; the exact host
-        # set works on byte ranges
-        self.accepts_flat = self.backend == "cuda"
+    def __init__(self, knobs=DEFAULT_KNOBS, base_version=0, device=None,
+                 history=None):
+        self._init_role(knobs, knobs.resolver_backend, base_version, history)
+        # the device lanes take the flat columnar batches and the native
+        # set reads raw keys out of their blobs; the Python host set
+        # works on byte ranges
+        self.accepts_flat = self.backend in ("cuda", "native")
         if self.backend == "cuda":
             self.device = _device_of(device)
             on_cuda = self.device.type == "cuda"
@@ -161,7 +166,8 @@ class Resolver:
                 knobs, use_ring_kernel=use_ring, use_accept_kernel=use_accept)
             ck.validate_params(self.params)
             self.packer = BatchPacker(self.params)
-            self._state = ck.init_state(self.params, self.device)
+            if self._state is None:
+                self._state = ck.init_state(self.params, self.device)
             # A second variant with the range lanes statically off serves
             # batches that carry only point ops while no range write has
             # ever entered history. Both share the state: the fast one
@@ -177,26 +183,44 @@ class Resolver:
             self.device = None
             self.cset = CpuConflictSet()
             self.cset.window_start = base_version
+        elif self.backend == "native":
+            from foundationdb_tpu_torch.native import NativeConflictSet
+
+            self.device = None
+            self.cset = NativeConflictSet()
+            if base_version:
+                # windows only move forward; an empty resolve installs it
+                self.cset.resolve([], 0, base_version)
         else:
             raise ValueError(f"unknown resolver_backend {self.backend!r}")
 
-    def _init_role(self, knobs, backend, base_version):
+    def _init_role(self, knobs, backend, base_version, history):
         self.knobs = knobs
         self.backend = backend
         self.base_version = base_version
         self.alive = True
+        # held around each compiled-step dispatch and the hand-over of
+        # the history to a replacement (respawn)
+        self._mu = threading.Lock()
         self.counters = {"resolve_batches": 0, "resolve_txns": 0,
                          "backlog_dispatches": 0, "backlog_depth": 0,
                          "flat_fallbacks": 0, "respawns": 0}
-        self._state = None
-        # compiled steps by (variant, B) — (variant, k, B) on the "range"
-        # lanes — and batch signature
-        self._steps = ck.StepCache()
+        # the device history and the compiled steps by (variant, B) —
+        # (variant, k, B) on the "range" lanes — and batch signature;
+        # ``history`` is a predecessor's pair, zeroed (respawn)
+        self._state, self._steps = history or (None, ck.StepCache())
         # cumulative wall seconds of resolve_many's dispatch (the batch
         # copy and the scan call; a host backend's eager resolve): the
         # batcher subtracts it from its stage-A+B timer so host packing
         # and dispatch report as separate stages
         self.dispatch_wall_s = 0.0
+
+    @property
+    def wants_point_split(self):
+        """Whether single-key conflict ranges should arrive as points:
+        the device's point lanes and the native set take them so; the
+        Python host set takes a point as the tiny range it is."""
+        return self.backend != "cpu"
 
     @property
     def state(self):
@@ -238,12 +262,36 @@ class Resolver:
 
     def respawn(self, base_version):
         """A replacement of this resolver's own kind, fenced at
-        ``base_version``, carrying the counters on."""
-        new = type(self)(self.knobs, base_version=base_version,
-                         device=self.device)
+        ``base_version``, carrying the counters on. A device resolver
+        hands the replacement its history tensors and compiled steps,
+        zeroed in place: a fresh history at the addresses the captured
+        graphs hold, so the first batch after a recovery replays instead
+        of capturing anew (as ``jax.jit`` keeps its compilations across
+        instances), and no dead instance keeps a graph pool. This
+        instance is left dead and holding neither."""
+        new = self._recruit(base_version, self._hand_over())
         new.counters = dict(self.counters)
         new.counters["respawns"] += 1
         return new
+
+    def _recruit(self, base_version, history):
+        return type(self)(self.knobs, base_version=base_version,
+                          device=self.device, history=history)
+
+    def _hand_over(self):
+        """Give up the history and compiled steps, zeroed (the state
+        init_state makes) on the stream after any step already enqueued,
+        or None for a host set; a dispatch here after this raises
+        ResolverDown."""
+        if self._state is None:
+            return None
+        with self._mu:
+            self.alive = False
+            history = (self._state, self._steps)
+            self._state, self._steps = None, ck.StepCache()
+        for t in history[0]:
+            t.zero_()
+        return history
 
     def _pad_bucket(self, nb):
         """Smallest scan pad width that fits ``nb`` batches."""
@@ -267,7 +315,7 @@ class Resolver:
         return self._resolve_txns(txns, commit_version, new_window_start)
 
     def _resolve_txns(self, txns, commit_version, new_window_start):
-        if self.backend == "cpu":
+        if self.backend != "cuda":
             return self.cset.resolve(txns, commit_version, new_window_start)
         self._maybe_rebase(commit_version)
         # a read version below base_version is too old by construction:
@@ -296,6 +344,9 @@ class Resolver:
         """Resolve one columnar batch: its limb rows are packed straight
         from the blobs into the staging ring. A batch the flat lane
         cannot serve decodes to TxnRequests and takes the legacy route."""
+        if self.backend == "native":
+            return self.cset.resolve_flat(flat, commit_version,
+                                          new_window_start)
         if self.backend == "cpu":
             return self.cset.resolve(flat.to_txn_requests(), commit_version,
                                      new_window_start)
@@ -348,8 +399,17 @@ class Resolver:
         """One packed numpy batch through the compiled single step →
         ``read()`` of its statuses int32[T] (copied out at once, so a
         later step does not overwrite them)."""
-        return host_reader(self._steps.run(
-            (use_fast, 1), batch, lambda: self._make_step(use_fast, 1)))
+        return self._replay((use_fast, 1), batch,
+                            lambda: self._make_step(use_fast, 1))
+
+    def _replay(self, key, batch, make_step):
+        """The compiled step of ``key`` on ``batch`` → ``read()`` of its
+        statuses. Raises ResolverDown if this resolver died (or handed
+        its history to a replacement) since the caller checked."""
+        with self._mu:
+            if not self.alive:
+                raise ResolverDown()
+            return host_reader(self._steps.run(key, batch, make_step))
 
     def _flat_refused(self, flat):
         """Whether this flat batch must take the legacy lane: a read
@@ -523,8 +583,8 @@ class Resolver:
         """A stacked numpy backlog [B, ...] through the compiled scan of
         (variant, B) → ``read()`` of its statuses [B, T]."""
         B = stacked.rv.shape[0]
-        return host_reader(self._steps.run(
-            (use_fast, B), stacked, lambda: self._make_step(use_fast, B)))
+        return self._replay((use_fast, B), stacked,
+                            lambda: self._make_step(use_fast, B))
 
     def _maybe_rebase(self, commit_version):
         """Keep uint32 version offsets in range (core/versions.py): shift
@@ -543,6 +603,6 @@ class Resolver:
         self.base_version += delta
 
     def window_start(self):
-        if self.backend == "cpu":
+        if self.backend != "cuda":
             return self.cset.window_start
         return self.base_version + int(self.state.window_start.item())

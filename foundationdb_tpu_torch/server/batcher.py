@@ -529,6 +529,7 @@ class BatchingCommitProxy:
             with self._inflight_cv:
                 self._inflight_cv.notify_all()
             self._apply_thread.join(timeout=30)
+        self.inner.close()  # release the sub-resolve pool
 
     # everything else (commit_count, pack counters, …) passes through
     def __getattr__(self, name):

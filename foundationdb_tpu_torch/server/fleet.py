@@ -83,6 +83,8 @@ class ProxyFleet:
         for m in self.members:
             if hasattr(m, "close"):
                 m.close()
+        for p in self.inners:
+            p.close()
 
     # ── aggregated counters ──
     @property

@@ -14,17 +14,19 @@ order the stateful stages — resolver history, then log and storage —
 in the sequencer's chained grant order, so several proxies pack and
 route at once while the state changes serially.
 
-The proxy serves one storage server holding the whole keyspace, and
+The proxy serves one storage server holding the whole keyspace (the
+cluster's list, so that a recruited replacement is seen), and
 either one resolver (a single device resolver, a lane fleet of
-resolver/meshresolver.py, or one exact host set) or several host
-resolvers, each owning a contiguous byte range of keys: then every
-batch is clipped per resolver and a txn commits iff every resolver
-accepts it (``_resolve``). Not ported, and so absent from every branch
-below: the database lock, tenant modes, the ratekeeper's admission of
-read-free requests, idempotency ids and their dedupe, system keys,
-regions, data distribution, metrics and spans. Where the reference
-tests for one of them, the port takes the branch the reference takes
-when it is absent.
+resolver/meshresolver.py, or one host set, Python or native) or several
+host resolvers, each owning a contiguous byte range of keys: then every
+batch is clipped per resolver, the sub-batches resolve on a thread pool,
+and a txn commits iff every resolver accepts it (``_resolve``). Not
+ported, and so absent from every branch below: the database lock,
+tenant modes, the ratekeeper's admission of read-free requests,
+idempotency ids and their dedupe, system keys, regions, data
+distribution (the tlog push is untagged), metrics and spans. Where the
+reference tests for one of them, the port takes the branch the
+reference takes when it is absent.
 """
 
 import threading
@@ -111,14 +113,15 @@ class _PipelinedGroup:
 
 
 class CommitProxy:
-    def __init__(self, sequencer, resolvers, tlog, storage, knobs,
+    def __init__(self, sequencer, resolvers, tlog, storages, knobs,
                  resolve_gate=None, log_gate=None):
         self.alive = True
         self.sequencer = sequencer
         # the cluster's own list: a recruit replacing an entry is seen here
         self.resolvers = resolvers
         self.tlog = tlog
-        self.storage = storage
+        # the cluster's own list: a recruited storage is seen here
+        self.storages = storages
         self.knobs = knobs
         # fleet ordering (None when this proxy is the whole fleet)
         self.resolve_gate = resolve_gate
@@ -140,6 +143,12 @@ class CommitProxy:
         self._repair_mu = threading.Lock()
         self._batches_since_pump = 0
         self.pump_interval = 64  # batches between durability pumps
+        self._pool = None  # sub-resolve threads, made at first fan-out
+
+    @property
+    def storage(self):
+        """The storage server holding the whole keyspace."""
+        return self.storages[0]
 
     @property
     def resolver(self):
@@ -159,8 +168,15 @@ class CommitProxy:
             **self.repair_counts}}
 
     def kill(self):
-        """Process death: every commit answers 1021."""
+        """Process death: every commit answers 1021 until the failure
+        monitor recruits a new transaction-system generation."""
         self.alive = False
+
+    def close(self):
+        """Release the sub-resolve thread pool."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
 
     def commit(self, request):
         """Single-transaction batch (the synchronous client path)."""
@@ -484,8 +500,8 @@ class CommitProxy:
             self.pack_flat_batches += 1
             return flat
         self.pack_legacy_batches += 1
-        if all(r.backend == "cpu" for r in self.resolvers):
-            # the host set takes a point as the tiny range it is
+        if not all(r.wants_point_split for r in self.resolvers):
+            # the Python host set takes a point as the tiny range it is
             return [TxnRequest(read_version=r.read_version,
                                range_reads=r.read_conflict_ranges,
                                range_writes=r.write_conflict_ranges)
@@ -572,12 +588,12 @@ class CommitProxy:
 
     def _conflicting_ranges(self, txn):
         """Which of a rejected txn's read ranges conflicted: exact from
-        the host sets; the device keeps no per-range verdicts, so there
-        every read range (conservative)."""
+        the Python host sets; the device and the native set keep no
+        per-range verdicts, so there every read range (conservative)."""
         ranges = []
         for r in self.resolvers:
             cset = getattr(r, "cset", None)
-            if cset is None:
+            if cset is None or not hasattr(cset, "conflicting_ranges"):
                 return sorted(set(txn.read_ranges()))
             ranges.extend(cset.conflicting_ranges(txn))
         return sorted(set(ranges))
@@ -588,14 +604,15 @@ class CommitProxy:
         # Key-range sharded host resolvers (ref: the resolution fan-out of
         # CommitProxyServer.actor.cpp): each sees the whole batch with its
         # conflict ranges clipped to its key range, and a txn commits iff
-        # every resolver accepts it. The reference dispatches the
-        # sub-batches on a thread pool; the port's host sets are pure
-        # Python, so they run one after another, in resolver order.
+        # every resolver accepts it. The sub-batches dispatch on a thread
+        # pool: the native set releases the interpreter lock while it
+        # resolves. Verdicts join in resolver order, so the result does
+        # not depend on the schedule.
         n = len(self.resolvers)
-        verdicts = []
-        for ri, res in enumerate(self.resolvers):
+        shard_batches = []
+        for ri in range(n):
             lo, hi = _resolver_range(ri, n)
-            verdicts.append(res.resolve([
+            shard_batches.append([
                 TxnRequest(
                     read_version=t.read_version,
                     point_reads=_clip_points(t.point_reads, lo, hi),
@@ -604,7 +621,15 @@ class CommitProxy:
                     range_writes=_clip(t.range_writes, lo, hi),
                 )
                 for t in txns
-            ], cv, window))
+            ])
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(
+                max_workers=n, thread_name_prefix="sub-resolve")
+        futs = [self._pool.submit(res.resolve, batch, cv, window)
+                for res, batch in zip(self.resolvers, shard_batches)]
+        verdicts = [f.result() for f in futs]
         out = []
         for i in range(len(txns)):
             vs = [v[i] for v in verdicts]

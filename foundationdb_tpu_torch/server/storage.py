@@ -6,7 +6,9 @@ mutations in version order, resolves key selectors, evaluates atomic
 ops, and fires watches. Two tiers as in the reference: a versioned
 in-memory overlay holding the window, above a single-version engine
 (server/kvstore.py) that holds the state as of the *durable version*;
-``flush()`` folds overlay versions into the engine.
+``flush()`` folds overlay versions into the engine. A versioned engine
+(``versioned = True``) takes every overlay version instead, and serves
+reads below the durable version from its chains.
 """
 
 import itertools
@@ -56,13 +58,28 @@ class StorageServer:
         self._mu = threading.RLock()
         self.alive = True
         self.engine = engine if engine is not None else KeyValueStoreMemory()
+        # a versioned engine (the Redwood role) keeps per-key version
+        # chains: the MVCC window extends into the durable tier
+        self.versioned_engine = bool(getattr(self.engine, "versioned", False))
         self.durable_version = self.engine.stored_version()
-        self.oldest_version = self.durable_version
+        self.oldest_version = (self.engine.oldest_retained
+                               if self.versioned_engine
+                               else self.durable_version)
         self.version = self.durable_version  # latest applied
         self.window_versions = window_versions
         self._watches = {}  # key -> [Watch]
         self.counters = {"mutations_applied": 0, "point_reads": 0,
                          "range_reads": 0}
+
+    @classmethod
+    def recover(cls, engine, log_records, window_versions=5_000_000):
+        """Rebuild from a durable engine and the log records past its
+        durable version (ref: storage server recovery peeking the tlog)."""
+        ss = cls(window_versions=window_versions, engine=engine)
+        for version, mutations in log_records:
+            if version > ss.durable_version:
+                ss.apply(version, mutations)
+        return ss
 
     # ───────────────────────────── writes ──────────────────────────────
     def apply(self, version, mutations):
@@ -141,10 +158,13 @@ class StorageServer:
                 keep = []
                 for v, val in chain:
                     if v <= up_to_version:
+                        if self.versioned_engine:
+                            # every version goes down intact
+                            self.engine.set_versioned(key, v, val)
                         folded = val
                     else:
                         keep.append((v, val))
-                if folded is not _MISS:
+                if folded is not _MISS and not self.versioned_engine:
                     if folded is None:
                         self.engine.clear_range(key, key_successor(key))
                     else:
@@ -155,14 +175,20 @@ class StorageServer:
                     del self._overlay[key]
             self.engine.commit(up_to_version)
             self.durable_version = up_to_version
-            # the engine holds one version: reads below it are gone
-            self.oldest_version = max(self.oldest_version, up_to_version)
+            if not self.versioned_engine:
+                # a single-version engine: reads below it are gone
+                self.oldest_version = max(self.oldest_version,
+                                          up_to_version)
             return self.durable_version
 
     def advance_window(self, oldest):
-        """Advance the MVCC read floor (flushing is the proxy's pump)."""
+        """Advance the MVCC read floor (flushing is the proxy's pump).
+        A versioned engine prunes the history that fell below it."""
         if oldest > self.oldest_version:
             self.oldest_version = oldest
+            if self.versioned_engine:
+                with self._mu:
+                    self.engine.prune(min(oldest, self.durable_version))
 
     def kill(self):
         self.alive = False
@@ -181,6 +207,8 @@ class StorageServer:
         val = self._overlay_at(key, version)
         if val is not _MISS:
             return val
+        if self.versioned_engine:
+            return self.engine.get_at(key, version)
         return self.engine.get(key)
 
     def _overlay_at(self, key, version):
@@ -211,7 +239,10 @@ class StorageServer:
         sentinel = object()
         ov = iter(self._overlay.irange(begin, end, inclusive=(True, False),
                                        reverse=reverse))
-        base = self.engine.iter_range(begin, end, reverse=reverse)
+        base = (self.engine.iter_range_at(begin, end, version,
+                                          reverse=reverse)
+                if self.versioned_engine
+                else self.engine.iter_range(begin, end, reverse=reverse))
         ko = next(ov, sentinel)
         kb = next(base, sentinel)
         while ko is not sentinel or kb is not sentinel:

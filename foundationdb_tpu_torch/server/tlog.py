@@ -1,24 +1,81 @@
-"""Transaction log: the ordered record of committed mutations, in memory.
+"""Transaction log: the ordered durable record of committed mutations.
 
 Ref parity: fdbserver/TLogServer.actor.cpp — commit proxies push
-version-ordered mutation batches; the log pops what storage has made
-durable. The write-ahead file, peeks by storage workers, recovery and
-the replicated log system are not ported yet.
+version-ordered mutation batches; storage servers peek from their durable
+version and pop what they have made durable. Durability is an optional
+append-only file WAL of length+CRC-framed pickled records, fsynced per
+push when asked (the reference fsyncs a DiskQueue).
+
+``TLogSystem`` is the replicated tier (ref: TagPartitionedLogSystem):
+k TLog replicas, a push acked once a quorum logged it, peeks merged
+across live replicas, and recovery the union of the surviving WALs, so
+losing a minority of logs loses no acked commit. Tag partitioning (a
+peek per storage tag) waits for data distribution: an untagged peek
+serves every storage, as the reference does with no shard map.
 """
 
 import bisect
+import os
+import pickle
+import struct
+import threading
+import zlib
 
 
 class TLogDown(Exception):
-    """This log is dead."""
+    """This log replica is dead."""
+
+
+def _frame(record):
+    """One WAL record: >II (length, crc32) then the pickle."""
+    payload = pickle.dumps(record, protocol=4)
+    return struct.pack(">II", len(payload), zlib.crc32(payload)) + payload
+
+
+def read_frames(path):
+    """The intact records of a framed file, stopping at a torn or
+    corrupt tail (a crash mid-append)."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except FileNotFoundError:
+        return
+    off = 0
+    while off + 8 <= len(data):
+        ln, crc = struct.unpack_from(">II", data, off)
+        if off + 8 + ln > len(data):
+            return  # torn tail
+        payload = data[off + 8: off + 8 + ln]
+        if zlib.crc32(payload) != crc:
+            return
+        yield pickle.loads(payload)
+        off += 8 + ln
 
 
 class TLog:
-    def __init__(self):
+    def __init__(self, wal_path=None, fsync=False):
         self._log = []  # [(version, mutations)] in version order
+        self._first_version = 0
+        self.wal_path = wal_path
+        self.fsync = fsync
         self.alive = True
         self.pushes = 0
         self.mutations = 0
+        self._wal = open(wal_path, "ab") if wal_path else None
+        self._pop_holds = {}  # name -> version: keep records > version
+        self._holds_mu = threading.Lock()
+        # peekers park here instead of polling last_version
+        self._data_cond = threading.Condition()
+
+    def _wal_append(self, record):
+        """A durable append (one framing for pushes and abort markers:
+        recovery depends on them agreeing)."""
+        if self._wal is None:
+            return
+        self._wal.write(_frame(record))
+        self._wal.flush()
+        if self.fsync:
+            os.fsync(self._wal.fileno())
 
     def push(self, version, mutations):
         if not self.alive:
@@ -26,17 +83,237 @@ class TLog:
         if self._log and version <= self._log[-1][0]:
             raise ValueError("tlog push out of order")
         self._log.append((version, mutations))
+        self._wal_append((version, mutations))
         self.pushes += 1
         self.mutations += len(mutations)
+        with self._data_cond:
+            self._data_cond.notify_all()
+
+    def wait_for_version(self, version, timeout):
+        """Park until a record at or after ``version`` exists (or the
+        timeout). Death and close wake waiters at once."""
+        with self._data_cond:
+            return self._data_cond.wait_for(
+                lambda: self.last_version >= version or not self.alive,
+                timeout=timeout)
 
     def kill(self):
+        """Process death: parked waiters see the dead log now."""
         self.alive = False
+        with self._data_cond:
+            self._data_cond.notify_all()
+
+    def rollback(self, version):
+        """Undo a just-pushed tail record that missed its replication
+        quorum: drop it from the live log and append an abort marker so
+        that WAL recovery drops it too (else it would come back at
+        recovery after later commits were applied without it)."""
+        if not self.alive:
+            raise TLogDown()
+        if self._log and self._log[-1][0] == version:
+            self._log.pop()
+            self._wal_append(("abort", version))
+
+    def peek(self, from_version):
+        """All records with version > from_version, in order."""
+        if not self.alive:
+            raise TLogDown()
+        # one snapshot: pop() swaps the list on the commit thread
+        log = self._log
+        return log[bisect.bisect_right(log, from_version,
+                                       key=lambda r: r[0]):]
+
+    def hold_pop(self, name, version):
+        """Register a peek cursor: records newer than ``version`` survive
+        pop until the holder advances or releases."""
+        with self._holds_mu:
+            self._pop_holds[name] = version
+
+    def release_pop(self, name):
+        with self._holds_mu:
+            self._pop_holds.pop(name, None)
 
     def pop(self, up_to_version):
-        """Discard records <= up_to_version (durable downstream)."""
-        del self._log[:bisect.bisect_right(self._log, up_to_version,
-                                           key=lambda r: r[0])]
+        """Discard records <= up_to_version (durable downstream), clamped
+        so no registered cursor loses unread records."""
+        with self._holds_mu:
+            holds = list(self._pop_holds.values())
+        if holds:
+            up_to_version = min(up_to_version, *holds)
+        self._log = [(v, m) for v, m in self._log if v > up_to_version]
+        self._first_version = max(self._first_version, up_to_version)
+
+    @property
+    def last_version(self):
+        return self._log[-1][0] if self._log else self._first_version
 
     def status(self):
         return {"alive": self.alive, "retained_records": len(self._log),
-                "pushes": self.pushes, "mutations": self.mutations}
+                "last_version": self.last_version, "pushes": self.pushes,
+                "mutations": self.mutations}
+
+    def close(self):
+        self.alive = False
+        with self._data_cond:
+            self._data_cond.notify_all()
+        if self._wal is not None:
+            self._wal.close()
+            self._wal = None
+
+    @staticmethod
+    def recover(wal_path):
+        """Replay a WAL file → [(version, mutations)], tolerating a torn
+        tail (ref: DiskQueue recovery)."""
+        out = []
+        for rec in read_frames(wal_path):
+            if rec[0] == "abort":
+                # the marker undoes the PRECEDING record of that version
+                # only: a later re-grant of the number is a valid record
+                for i in range(len(out) - 1, -1, -1):
+                    if out[i][0] == rec[1]:
+                        del out[i]
+                        break
+            else:
+                out.append(rec)
+        return out
+
+
+class TLogSystem:
+    """k replicated TLogs with quorum-acked pushes, behind the one-TLog
+    interface (ref: TagPartitionedLogSystem). With a majority quorum
+    (the default), any surviving majority holds every acked commit."""
+
+    def __init__(self, n=3, wal_path=None, fsync=False, quorum=None):
+        self.n = n
+        self.quorum = quorum if quorum is not None else n // 2 + 1
+        self.wal_path = wal_path  # base path; replica i appends .i
+        self.logs = [TLog(wal_path=p, fsync=fsync)
+                     for p in (self.replica_paths(wal_path, n) if wal_path
+                               else [None] * n)]
+        self._data_cond = threading.Condition()
+
+    @staticmethod
+    def replica_paths(wal_path, n):
+        return [f"{wal_path}.{i}" for i in range(n)]
+
+    # ── replica lifecycle ──
+    def kill(self, i):
+        self.logs[i].kill()
+        with self._data_cond:
+            self._data_cond.notify_all()
+
+    def revive(self, i):
+        """A rebooted replica rejoins caught up from a live peer. Without
+        a live donor it stays dead and returns None: rejoining with a gap
+        would make merged peeks lose acked records."""
+        log = self.logs[i]
+        donor = next((d for d in self.logs if d.alive and d is not log),
+                     None)
+        if donor is None:
+            return None
+        log.alive = True
+        log._log = []
+        log._first_version = donor._first_version
+        for v, m in donor.peek(0):
+            log.push(v, m)
+        return log
+
+    @property
+    def live_count(self):
+        return sum(1 for log in self.logs if log.alive)
+
+    # ── the one-TLog interface ──
+    @property
+    def _first_version(self):
+        if self.live_count == 0:
+            raise TLogDown("no live tlog replicas")
+        return min(log._first_version for log in self.logs if log.alive)
+
+    @_first_version.setter
+    def _first_version(self, v):
+        for log in self.logs:
+            log._first_version = v
+
+    def push(self, version, mutations):
+        """Replicate to every live log; durable at ``quorum`` acks.
+        Raises TLogDown when a quorum is unreachable, after rolling the
+        partial replicas back (abort-marked in their WALs); the proxy
+        answers commit_unknown_result."""
+        accepted = []
+        for log in self.logs:
+            try:
+                log.push(version, mutations)
+                accepted.append(log)
+            except TLogDown:
+                continue
+        if len(accepted) < self.quorum:
+            for log in accepted:  # best-effort undo of the partial push
+                try:
+                    log.rollback(version)
+                except TLogDown:
+                    pass
+            raise TLogDown(
+                f"{len(accepted)}/{self.n} tlogs acked (need {self.quorum})")
+        with self._data_cond:
+            self._data_cond.notify_all()
+
+    def wait_for_version(self, version, timeout):
+        with self._data_cond:
+            return self._data_cond.wait_for(
+                lambda: self.live_count == 0 or self.last_version >= version,
+                timeout=timeout)
+
+    def peek(self, from_version):
+        """The union of the live replicas' records (an acked record is
+        on at least a quorum of them)."""
+        merged = {}
+        for log in self.logs:
+            if log.alive:
+                for v, m in log.peek(from_version):
+                    merged.setdefault(v, m)
+        return sorted(merged.items(), key=lambda r: r[0])
+
+    def hold_pop(self, name, version):
+        for log in self.logs:
+            log.hold_pop(name, version)
+
+    def release_pop(self, name):
+        for log in self.logs:
+            log.release_pop(name)
+
+    def pop(self, up_to_version):
+        for log in self.logs:
+            if log.alive:
+                log.pop(up_to_version)
+
+    @property
+    def alive(self):
+        """A quorum of replicas is live (pushes can be acked)."""
+        return self.live_count >= self.quorum
+
+    @property
+    def last_version(self):
+        if self.live_count == 0:
+            raise TLogDown("no live tlog replicas")
+        return max(log.last_version for log in self.logs if log.alive)
+
+    def status(self):
+        return {"alive": self.alive, "replicas": [log.status()
+                                                   for log in self.logs]}
+
+    def close(self):
+        for log in self.logs:
+            log.close()
+        with self._data_cond:
+            self._data_cond.notify_all()
+
+    @classmethod
+    def recover(cls, wal_path, n):
+        """Union the replica WALs → [(version, mutations)]. A record on
+        only a minority was never acked (its client saw 1021), so
+        including it is the legal outcome."""
+        merged = {}
+        for path in cls.replica_paths(wal_path, n):
+            for v, m in TLog.recover(path):
+                merged.setdefault(v, m)
+        return sorted(merged.items(), key=lambda r: r[0])

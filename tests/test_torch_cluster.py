@@ -468,13 +468,20 @@ def test_api_case_matches_jax(name):
 def test_open_paths_the_port_does_not_take():
     with pytest.raises(NotImplementedError):
         tfdb.open(cluster_file="fdb.cluster", device="cpu")
-    # log and storage counts are not arguments of the port's cluster (the
-    # commit pipeline and proxy count are: test_torch_pipeline; the
-    # resolver count is: test_torch_sharded)
+    # storage counts and replication are not arguments of the port's
+    # cluster (the commit pipeline and proxy count are:
+    # test_torch_pipeline; the resolver count: test_torch_sharded; the
+    # log count and the durability arguments: test_torch_durability)
     with pytest.raises(TypeError):
         TCluster(device="cpu", n_storage=2, **TEST_KNOBS)
     with pytest.raises(TypeError):
-        tfdb.open(device="cpu", n_tlogs=3, **TEST_KNOBS)
+        tfdb.open(device="cpu", replication=2, **TEST_KNOBS)
+    # nor are an injected coordination quorum (the reference's remote
+    # coordinators) and a coordinator count: three local ones serve
+    with pytest.raises(TypeError):
+        TCluster(device="cpu", n_coordinators=5, **TEST_KNOBS)
+    with pytest.raises(ValueError):
+        TCluster(device="cpu", storage_engines=[None, None], **TEST_KNOBS)
     with pytest.raises(ValueError):
         TCluster(device="cpu", n_resolvers=0, **TEST_KNOBS)
     with pytest.raises(ValueError):

@@ -788,3 +788,83 @@ def test_precompiled_resolver_only_replays(cuda, knobs):
     assert ck.graph_counts["captures"] == 0
     assert ck.graph_counts["replays"] == ck.graph_counts["dispatches"] == 4
     assert gpu.status()["graphs"]["graphs"] == len(keys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_native_packer_batches_staged_to_the_card_equal_numpy(cuda, name):
+    """The default (native) packer's arrays, staged to the card, equal
+    the numpy packer's, at the default widths."""
+    from foundationdb_tpu_torch.convert import batch_from_numpy
+    from foundationdb_tpu_torch.resolver.packing import BatchPacker
+
+    r = Resolver()
+    assert r.packer._native is not None
+    numpy_packer = BatchPacker(r.params, use_native=False)
+    for txns, cv, ws in STREAMS[name](3, seed=11):
+        got = batch_from_numpy(r.packer.pack(txns, r.base_version, cv, ws),
+                               cuda)
+        want = numpy_packer.pack(txns, r.base_version, cv, ws)
+        for f, t, a in zip(ck.ResolveBatch._fields, got, want):
+            assert t.device == cuda
+            np.testing.assert_array_equal(t.cpu().numpy(), np.asarray(a),
+                                          err_msg=f)
+
+
+def _durable_drive(device, d):
+    """A durable cluster (three WAL replicas, the sqlite engine) on
+    ``device``: preload, range-heavy batches, a dead log, a drop without
+    a close and a reopen, a fenced read version, more batches."""
+    from foundationdb_tpu_torch.server.kvstore import open_engine
+
+    def open_cluster():
+        return Cluster(device=device, wal_path=str(d / "wal"), n_tlogs=3,
+                       storage_engines=[open_engine("sqlite", str(d / "kv"))],
+                       coordination_dir=str(d / "coord"), **CLUSTER_KNOBS)
+
+    def reqs(c, b):
+        txns, cv, _ = b
+        return workloads.commit_requests(txns, cv, c.sequencer.committed_version,
+                                         c.knobs.key_limbs, b"w")
+
+    stream = STREAMS["range_heavy"](6, txns=64, seed=5, nkeys=300, lag=900)
+    c = open_cluster()
+    out = []
+    for pre in workloads.preload_requests(300, c.knobs.key_limbs, batch=64,
+                                          record_bytes=16):
+        out.append(c.commit_proxy.commit_batch(pre))
+    for b in stream[:2]:
+        out.append(c.commit_proxy.commit_batch(reqs(c, b)))
+    rv_old = c.sequencer.committed_version
+    c.tlog.kill(0)
+    out.append(c.commit_proxy.commit_batch(reqs(c, stream[2])))
+    del c
+    c = open_cluster()
+    tr = c.database().create_transaction()
+    tr.set_read_version(rv_old)
+    tr.set(b"stale", b"x")
+    try:
+        tr.commit()
+    except tfdb.FDBError as e:
+        out.append(e.code)
+    for b in stream[3:]:
+        out.append(c.commit_proxy.commit_batch(reqs(c, b)))
+    out = [[r.code if isinstance(r, tfdb.FDBError) else r for r in res]
+           if isinstance(res, list) else res for res in out]
+    result = (out, c.generation, c.database().get_range(b"", b"\xff"),
+              state_to_numpy(c.resolvers[0].state))
+    c.close()
+    return result
+
+
+@pytest.mark.gpu
+def test_wal_reopen_on_the_card_equals_cpu(cuda, tmp_path):
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    got = _durable_drive(None, tmp_path / "card")
+    want = _durable_drive("cpu", tmp_path / "cpu")
+    assert got[0] == want[0] and 1007 in got[0]
+    assert got[1] == want[1] == 2
+    assert got[2] == want[2]
+    for f, a, b in zip(ck.ResolverState._fields, got[3], want[3]):
+        np.testing.assert_array_equal(a, b, err_msg=f)
