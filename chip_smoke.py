@@ -122,10 +122,39 @@ Phases:
      for both, the sub-resolve pool's overlap (sub-resolve ms over the
      pool's wall ms); then the native fleet alone on CLUSTER_PRELOAD
      rows (BASELINE config 5's 1M): its rate and overlap; no kernel
-     launch.
+     launch;
+ 14. double replication, the ratekeeper and system keys, its launch and
+     graph counts zeroed first: FoundationDB's ``double`` mode
+     (Cluster(n_storage=3, replication=2, n_tlogs=3), in memory) on the
+     card; (a) REPL_PRELOAD rows of 1 KB through commit_batch, then
+     rebalance() until a round neither moves nor splits a shard (shards,
+     moves, team bytes, seconds a round), and the native 3-resolver
+     fleet's ranges derived from the map (a read from before a bound
+     move answers 1007); (b) the range-heavy stream, 12 commit_batch
+     calls and a backlog of 12 (committed txns/s, p50 / p99, and
+     against phase 8's), fused_accept launched, a batch's host stage
+     split with the routing, the tagged log push and each storage's
+     apply; (c) sampled keys and shards read from every replica of
+     their team, equal to each other and to the router, here and after
+     (d); the size estimate against the preloaded bytes, split points;
+     (d) storage 1 killed (its reads served by the other replica),
+     recruited from the log holding only the rows it owns (its tagged
+     peek equal to its owned mutations), then storage 2 excluded and
+     drained; (e) RK_CLIENTS threads of increments on a thread pipeline
+     cluster, unthrottled and with target_tps at RK_SHARE of that rate:
+     granted GRVs/s within 25% of the target, 1213 for a quota tag and
+     never for untagged clients; (f) the lock: a plain commit 1038, a
+     lock-aware one commits, after unlocking a plain one commits; (g)
+     automatic-idempotency increments on IDMP_COUNTERS counters with one
+     batch's log quorum lost and one reply lost: exact counters; (h) a
+     WAL-backed double cluster dropped without a close and reopened:
+     the shard map, the replication and the lock restored; (i) a card
+     and a CPU cluster given the phase's script at TWIN_PRELOAD rows:
+     outcomes, rows per storage, the map, admissions under one injected
+     clock and the 12 state fields equal.
 
 Every Resolver step runs as a CUDA graph replay (ops/conflict.StaticStep).
-Each of phases 4, 5, 8, 9, 10 and 12 zeroes the graph counts with the
+Each of phases 4, 5, 8, 9, 10, 12 and 14 zeroes the graph counts with the
 launch counts and checks after its drive that it captured, that every
 dispatch was a replay, and that no resolver step ran eagerly on the
 card (a wrapper counts calls of the eager steps on card tensors outside
@@ -2127,6 +2156,529 @@ def phase_native(stream):
     return report
 
 
+# ── phase 14: double replication, the ratekeeper and system keys ──
+REPL_STORAGE = 3  # FoundationDB's ``double`` mode: 2 copies, 3 storages
+REPL_COPIES = 2
+REPL_TLOGS = 3
+REPL_PRELOAD = 100_000  # config 2's 1M rows cut tenfold, as in phase 12a:
+# at 1M the phase took 121-150 s on the card's machines, over its budget
+REPL_MAX_ROUNDS = 60  # rebalance rounds before the map must have settled
+REPL_SAMPLE_KEYS = 64
+REPL_SAMPLE_RANGES = 16
+REPL_RANGE_KEYS = 64
+RK_CLIENTS = 64
+RK_WARMUP_S = 1.0  # the token bucket starts full: its first second is
+RK_WINDOW_S = 4.0  # a burst, so the rate is read over the window after it
+RK_SHARE = 0.25
+IDMP_COUNTERS = 16
+IDMP_ROUNDS = 4  # increments of each counter
+RESTART_PRELOAD = 8192
+TWIN_PRELOAD = 2048
+
+
+def repl_cluster(device=None, **kw):
+    """Phase 14's deployment: ``double`` replication (2 copies of each
+    shard) on 3 storage servers and 3 logs, in memory, no fsync."""
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    return Cluster(device=device, n_storage=REPL_STORAGE,
+                   replication=REPL_COPIES, n_tlogs=REPL_TLOGS, **kw)
+
+
+def settle_map(c, cap=REPL_MAX_ROUNDS):
+    """rebalance() until a round neither moves nor splits a shard: the
+    rounds' (moves, seconds) and the shard counts."""
+    rounds = []
+    for _ in range(cap):
+        n = len(c.dd.map)
+        t0 = time.perf_counter()
+        moves = c.rebalance()
+        rounds.append((len(moves), time.perf_counter() - t0))
+        if not moves and len(c.dd.map) == n:
+            return rounds
+    raise AssertionError(f"the shard map did not settle in {cap} rounds")
+
+
+def replica_check(c, rng, label):
+    """Sampled keys, and ranges of REPL_RANGE_KEYS keys cut at the shard
+    boundaries they cross, read from every replica of their team at one
+    version: all equal, and equal to the router's read."""
+    from foundationdb_tpu_torch import workloads
+
+    v = c.sequencer.committed_version
+    smap = c.dd.map
+    n_rows = 0
+    for i in rng.integers(0, REPL_PRELOAD, REPL_SAMPLE_KEYS).tolist():
+        k = workloads.user_key(i)
+        vals = {c.storages[s].get(k, v) for s in smap.team_for(k)}
+        assert len(vals) == 1, (label, k)
+        assert c.router.get(k, v) in vals, (label, k)
+    starts = rng.integers(0, REPL_PRELOAD - REPL_RANGE_KEYS,
+                          REPL_SAMPLE_RANGES).tolist()
+    for i in starts:
+        b, e = workloads.user_key(i), workloads.user_key(i + REPL_RANGE_KEYS)
+        rows = []
+        for j in smap.shards_overlapping(b, e):
+            sb, se = smap.shard_range(j)
+            lo, hi = max(b, sb), (e if se is None else min(e, se))
+            reads = [c.storages[s].get_range(lo, hi, v)
+                     for s in smap.teams[j]]
+            assert all(r == reads[0] for r in reads), (label, lo, hi)
+            rows += reads[0]
+        assert c.router.get_range(b, e, v) == rows, (label, b, e)
+        n_rows += len(rows)
+    log(f"[replication {label}] {REPL_SAMPLE_KEYS} keys and "
+        f"{REPL_SAMPLE_RANGES} ranges of {REPL_RANGE_KEYS} keys ({n_rows} "
+        "rows) read back equal from every replica of their team and the "
+        "router")
+    return n_rows
+
+
+def owned_only(c, sid):
+    """Storage ``sid`` holds user rows of the shards it owns only."""
+    s = c.storages[sid]
+    smap = c.dd.map
+    keys = [k for k, _ in s.get_range(b"", b"\xff", s.version)]
+    assert all(sid in smap.team_for(k) for k in keys), sid
+    return len(keys)
+
+
+def phase_replication_route(c):
+    """14a: preload, then rebalance until the map settles."""
+    from foundationdb_tpu_torch import workloads
+
+    preload_s = preload(c, REPL_PRELOAD)
+    rounds = settle_map(c)
+    tb = c.dd.team_bytes()
+    secs = [s for _, s in rounds]
+    r = dict(preload_rows=REPL_PRELOAD, preload_s=preload_s,
+             rounds=len(rounds), moves=sum(m for m, _ in rounds),
+             shards=len(c.dd.map), team_bytes=tb,
+             round_s_mean=float(np.mean(secs)), round_s_max=max(secs))
+    log(f"[replication rebalance] {REPL_PRELOAD} rows of "
+        f"{workloads.FIELDS * workloads.FIELD_BYTES} B preloaded on "
+        f"{REPL_STORAGE} storages x {REPL_COPIES} copies in {preload_s:.3f} s;"
+        f" {r['rounds']} rebalance rounds, {r['moves']} moves, "
+        f"{r['shards']} shards; team bytes max {max(tb)} / min {min(tb)}; "
+        f"{r['round_s_mean']:.4f} s a round (max {r['round_s_max']:.4f})")
+    return r
+
+
+def phase_replication_native(stream):
+    """14a, the host fleet: update_resolver_ranges on the native
+    3-resolver fleet of phase 13's shape derives each resolver's range
+    from the shard map's bytes, and a bound move fences the history."""
+    from foundationdb_tpu_torch.core.errors import FDBError
+
+    c = repl_cluster(resolver_backend="native", n_resolvers=SHARDED_LANES)
+    preload(c, NATIVE_PRELOAD)
+    proxy = c._commit_target()
+    assert proxy.resolver_bounds is None  # the even split until DD runs
+    rv_old = c.sequencer.committed_version
+    settle_map(c)
+    bounds = proxy.resolver_bounds
+    assert bounds is not None and len(bounds) == SHARDED_LANES - 1, bounds
+    code = stale_commit(c, rv_old)
+    assert code == 1007, f"a read from before the bound move got {code}"
+    outs, walls = commit_walls(c, stream[:CLUSTER_BATCHES], b"n")
+    ok = sum(isinstance(v, int) for b in outs for v in b)
+    assert ok > 0 and not any(isinstance(v, FDBError) for b in outs
+                              for v in b)
+    log(f"[replication native] {NATIVE_PRELOAD} rows, {len(c.dd.map)} "
+        f"shards: resolver bounds {[b.decode() for b in bounds]}; a read "
+        f"from before the move got {code}; {CLUSTER_BATCHES} range-heavy "
+        f"batches: {ok} committed, {ok / (sum(walls) / 1e3):.1f} committed "
+        "txns/s")
+    c.close()
+    return dict(bounds=[b.decode() for b in bounds], stale_code=code,
+                committed_txns_per_s=ok / (sum(walls) / 1e3))
+
+
+def phase_replication_commits(c, stream, value):
+    """14b: the range-heavy stream on the card through the routed,
+    tagged commit path; a batch's host stage split."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.ops import _kernels
+
+    f0 = _kernels.launches["fused_accept"]
+    r = proxy_stream(c, stream, CLUSTER_BATCHES, CLUSTER_BATCHES, value,
+                     "replication range_heavy")
+    r["fused_accept"] = _kernels.launches["fused_accept"] - f0
+    assert r["fused_accept"] > 0, "fused_accept never launched"
+    proxy = c.commit_proxy
+    sites = {"route": (proxy, "_route"), "tlog_push": (c.tlog, "push"),
+             **{f"storage_apply_{i}": (s, "apply")
+                for i, s in enumerate(c.storages) if i}}
+    i = 2 * CLUSTER_BATCHES
+    r["stage_split"] = split = commit_stage_split(
+        c, [lambda t=t, cv=cv: workloads.commit_requests(
+            t, cv, c.sequencer.committed_version, c.knobs.key_limbs, value)
+            for t, cv, _ in stream[i:i + SPLIT_BATCHES]], extra_sites=sites)
+    log(f"[replication range_heavy] fused_accept launches {r['fused_accept']};"
+        f" {SPLIT_BATCHES} commit_batch calls, host ms per batch: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split["host_ms"].items())
+        + f" of {split['wall_ms']:.3f} wall (storage_apply is storage 0's);"
+        f" device busy {split['device_busy_ms']:.3f} ms per batch "
+        f"({split['device_busy_share']:.1%})")
+    return r
+
+
+def phase_replication_failures(c, stream, value, rng):
+    """14d: a storage dies (its teams served by the other replica), is
+    recruited from the log keeping only what it owns (the tagged peek
+    carries exactly that), then storage 2 is excluded and drained."""
+    from foundationdb_tpu_torch import workloads
+
+    sid = 1
+    probe = [workloads.user_key(i)
+             for i in rng.integers(0, REPL_PRELOAD, REPL_SAMPLE_KEYS).tolist()]
+    v = c.sequencer.committed_version
+    before = [c.router.get(k, v) for k in probe]
+    c.storages[sid].kill()
+    assert [c.router.get(k, v) for k in probe] == before
+    v_kill = c.sequencer.committed_version
+    outs, _ = commit_walls(c, stream[:2], value)
+    smap = c.dd.map
+    tagged = c.tlog.peek(v_kill, tag=sid)
+    full = c.tlog.peek(v_kill)
+    assert [(v, [(m.op, m.key, m.param) for m in ms]) for v, ms in tagged] \
+        == [(v, [(m.op, m.key, m.param) for m in ms
+                 if c._storage_owns(smap, sid, m)]) for v, ms in full]
+    t0 = time.perf_counter()
+    events = c.detect_and_recruit()
+    recruit_s = time.perf_counter() - t0
+    assert events == [("storage", sid)], events
+    held = owned_only(c, sid)
+    replica_check(c, rng, "after the recruitment")
+    t0 = time.perf_counter()
+    moves = c.exclude_storage(2)
+    rounds = 1
+    while not c.storage_drained(2):
+        assert rounds < REPL_MAX_ROUNDS, "storage 2 never drained"
+        moves += c.rebalance()
+        rounds += 1
+    drain_s = time.perf_counter() - t0
+    replica_check(c, rng, "after the drain")
+    r = dict(killed=sid, recruit_s=recruit_s, recruit_rows=held,
+             tagged_records=len(tagged), drain_rounds=rounds,
+             drain_moves=len(moves), drain_s=drain_s,
+             team_bytes=c.dd.team_bytes())
+    log(f"[replication failures] storage {sid} killed: {len(probe)} reads "
+        f"served by the other replica, {len(outs)} batches committed without"
+        f" it; recruited in {recruit_s:.3f} s from the log, holding "
+        f"{held} user rows, all of its own shards (its tagged peek of "
+        f"{len(tagged)} records = the owned mutations); storage 2 excluded "
+        f"and drained in {rounds} rounds, {len(moves)} moves, "
+        f"{drain_s:.3f} s; team bytes {r['team_bytes']}")
+    c.include_storage(2)
+    return r
+
+
+def rk_run(target_tps, tagged=4, quota=1.0):
+    """RK_CLIENTS threads of read-modify-write increments on a thread
+    pipeline cluster; the first ``tagged`` threads tag their txns
+    "quota" with an operator quota. The GRVs granted per second over
+    RK_WINDOW_S after RK_WARMUP_S, and the errors each group rode out."""
+    import threading
+
+    from foundationdb_tpu_torch.txn.transaction import Transaction
+
+    c = repl_cluster(commit_pipeline="thread", target_tps=target_tps)
+    c.set_tag_quota("quota", quota)
+    db = c.database()
+    stop = threading.Event()
+    codes = {"tagged": {}, "untagged": {}}
+    mu = threading.Lock()
+    on_error = Transaction.on_error
+
+    def counted(tr, e):
+        group = "tagged" if tr._tags else "untagged"
+        with mu:
+            codes[group][e.code] = codes[group].get(e.code, 0) + 1
+        return on_error(tr, e)
+
+    def client(i):
+        k = b"rk%02d" % (i % IDMP_COUNTERS)
+
+        def inc(tr):
+            if i < tagged:
+                tr.options.set_tag("quota")
+            v = tr[k]
+            tr[k] = b"%d" % ((int(v) if v is not None else 0) + 1)
+
+        while not stop.is_set():
+            db.run(inc)
+
+    Transaction.on_error = counted
+    try:
+        ts = [threading.Thread(target=client, args=(i,), daemon=True)
+              for i in range(RK_CLIENTS)]
+        for t in ts:
+            t.start()
+        time.sleep(RK_WARMUP_S)
+        g0, t0 = c.grv_proxy.grv_count, time.perf_counter()
+        time.sleep(RK_WINDOW_S)
+        g1, t1 = c.grv_proxy.grv_count, time.perf_counter()
+        stop.set()
+        for t in ts:
+            t.join(CLIENT_DEADLINE_S)
+        assert not any(t.is_alive() for t in ts), "a client hung"
+    finally:
+        Transaction.on_error = on_error
+    rk = c.ratekeeper
+    r = dict(target_tps=target_tps, grv_per_s=(g1 - g0) / (t1 - t0),
+             errors={g: {str(k): v for k, v in d.items()}
+                     for g, d in codes.items()},
+             throttled=rk.throttled_count,
+             tag_throttled=rk.tag_throttled_count)
+    c.close()
+    return r
+
+
+def phase_ratekeeper():
+    """14e: the GRV rate unthrottled, then with target_tps at RK_SHARE
+    of it: granted GRVs/s within 25% of the target, 1213 for the quota
+    tag only."""
+    free = rk_run(None, tagged=0)
+    target = RK_SHARE * free["grv_per_s"]
+    held = rk_run(target)
+    ratio = held["grv_per_s"] / target
+    log(f"[ratekeeper] {RK_CLIENTS} threads of read-modify-write "
+        f"increments: unthrottled {free['grv_per_s']:.1f} GRVs/s; "
+        f"target_tps {target:.1f}: {held['grv_per_s']:.1f} GRVs/s granted "
+        f"({ratio:.3f} of the target); 1037s ridden out "
+        f"{held['errors']['untagged'].get('1037', 0)} untagged, "
+        f"{held['errors']['tagged'].get('1037', 0)} tagged; 1213s "
+        f"{held['errors']['tagged'].get('1213', 0)} tagged (quota 1 tps), "
+        f"{held['errors']['untagged'].get('1213', 0)} untagged")
+    assert 0.75 <= ratio <= 1.25, ratio
+    assert held["errors"]["tagged"].get("1213", 0) > 0
+    assert held["errors"]["untagged"].get("1213", 0) == 0
+    return dict(unthrottled=free, throttled=held, ratio=ratio)
+
+
+def lock_script(c):
+    """14f: plain commits 1038 under the lock, lock-aware ones pass."""
+    from foundationdb_tpu_torch.core.errors import FDBError
+
+    db = c.database()
+
+    def write(aware):
+        tr = db.create_transaction()
+        if aware:
+            tr.options.set_lock_aware()
+        tr[b"locktest"] = b"%d" % aware
+        try:
+            tr.commit()
+            return "committed"
+        except FDBError as e:
+            return e.code
+
+    c.lock_database(b"phase14")
+    out = [write(False), write(True)]
+    c.unlock_database()
+    out.append(write(False))
+    return out
+
+
+def idmp_script(c):
+    """14g: automatic-idempotency increments of IDMP_COUNTERS counters;
+    one batch loses the log quorum (two of three logs die for its push,
+    rejoining after: a 1021, nothing applied) and one reply is lost after
+    the commit applied (a 1021 the id's row resolves)."""
+    from foundationdb_tpu_torch.core.errors import FDBError
+
+    db = c.database()
+    tlog, proxy = c.tlog, c.commit_proxy
+    push, commit = tlog.push, proxy.commit
+    calls = {"push": 0, "commit": 0, "unknown": 0}
+
+    def quorum_lost_once(version, mutations, tags=None):
+        calls["push"] += 1
+        if calls["push"] != 5:
+            return push(version, mutations, tags=tags)
+        tlog.kill(1)
+        tlog.kill(2)
+        try:
+            return push(version, mutations, tags=tags)
+        finally:
+            tlog.revive(1)
+            tlog.revive(2)
+
+    def reply_lost_once(req):
+        res = commit(req)
+        calls["commit"] += 1
+        if calls["commit"] == 11 and isinstance(res, int):
+            calls["unknown"] += 1
+            return FDBError(1021)
+        return res
+
+    keys = [b"idmp%02d" % i for i in range(IDMP_COUNTERS)]
+    tlog.push, proxy.commit = quorum_lost_once, reply_lost_once
+    try:
+        for _ in range(IDMP_ROUNDS):
+            for k in keys:
+                def inc(tr, k=k):
+                    tr.options.set_automatic_idempotency()
+                    v = tr[k]
+                    tr[k] = b"%d" % ((int(v) if v is not None else 0) + 1)
+                db.run(inc)
+    finally:
+        del tlog.push, proxy.commit
+    counters = [int(db[k]) for k in keys]
+    s = c.storage
+    ids = len(s.get_range(b"\xff\x02/idmp/", b"\xff\x02/idmp0", s.version))
+    return counters, ids, calls
+
+
+def restart_script(device, d):
+    """14h: a WAL-backed double cluster, rebalanced and locked, dropped
+    without a close and reopened: the map, the replication and the lock
+    come back from \\xff/keyServers/, \\xff/conf/replication and
+    \\xff/dbLocked."""
+    c = repl_cluster(device, wal_path=os.path.join(d, "wal"),
+                     coordination_dir=os.path.join(d, "coordinators"))
+    c.dd.max_shard_bytes = 64_000
+    preload(c, RESTART_PRELOAD)
+    settle_map(c)
+    c.lock_database(b"restart")
+    want = (list(c.dd.map.boundaries), [list(t) for t in c.dd.map.teams])
+    del c  # a crash: no close
+    gc.collect()
+    c = repl_cluster(device, wal_path=os.path.join(d, "wal"),
+                     coordination_dir=os.path.join(d, "coordinators"))
+    got = (list(c.dd.map.boundaries), [list(t) for t in c.dd.map.teams])
+    out = [got == want, c.replication, c.lock_uid(), stale_commit(c, 0)]
+    c.unlock_database()
+    out.append(len(want[0]))
+    c.close()
+    return out
+
+
+def twin_script(device, stream):
+    """14i: the phase's script at TWIN_PRELOAD rows (with smaller
+    shards, so that the map splits): outcomes, rows per storage, the
+    map, the ratekeeper's admissions under one injected clock and the
+    resolver state."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.convert import state_to_numpy
+    from foundationdb_tpu_torch.core import deterministic
+
+    c = repl_cluster(device)
+    c.dd.max_shard_bytes = 64_000
+    out = []
+    for reqs in workloads.preload_requests(
+            TWIN_PRELOAD, c.knobs.key_limbs, batch=256, seed=SEED):
+        out.append(_outcomes(c.commit_proxy.commit_batch(reqs)))
+    out.append([m for m, _ in settle_map(c)])
+    out += commit_walls(c, stream[:2], b"t")[0]
+    c.storages[1].kill()
+    out += commit_walls(c, stream[2:3], b"t")[0]
+    out.append(c.detect_and_recruit())
+    out.append(c.exclude_storage(2))
+    out += commit_walls(c, stream[3:4], b"t")[0]
+    out.append(lock_script(c))
+    deterministic.seed(SEED)  # both twins draw the same idempotency ids
+    try:
+        out.append(idmp_script(c)[:2])
+    finally:
+        deterministic.unseed()
+    rows = [s.get_range(b"", b"\xff\xff", s.version) for s in c.storages]
+    smap = (list(c.dd.map.boundaries), [list(t) for t in c.dd.map.teams])
+    state = state_to_numpy(c.resolvers[0].state)
+    c.close()
+    clock = [0.0]
+    c = repl_cluster(device, target_tps=40.0, rk_clock=lambda: clock[0])
+    c.set_tag_quota("quota", 3.0)
+    rk = []
+    for i in range(120):
+        clock[0] += 0.004
+        tr = c.database().create_transaction()
+        if i % 3 == 0:
+            tr.options.set_tag("quota")
+        try:
+            tr.get_read_version()
+            rk.append("granted")
+        except Exception as e:
+            rk.append(e.code)
+    c.close()
+    return out, rows, smap, rk, state
+
+
+def phase_replication(stream):
+    """Phase 14 on the card; its launch and graph counts are zeroed at
+    its start and read before the CPU twin."""
+    from foundationdb_tpu_torch.ops import _kernels
+
+    value = b"d" * 100
+    rng = np.random.default_rng(SEED + 14)
+    report = {}
+    reset_counts()
+    c = repl_cluster()
+    report["rebalance"] = phase_replication_route(c)
+    est = [c.database().create_transaction().get_estimated_range_size_bytes(
+        b"", b"\xff")]
+    chunks = len(c.range_split_points(b"", b"\xff", 10_000_000)) - 1
+    report["native"] = phase_replication_native(stream)
+    report["commits"] = phase_replication_commits(c, stream, value)
+    report["sample_rows"] = replica_check(c, rng, "after the commits")
+    est.append(c.database().create_transaction()
+               .get_estimated_range_size_bytes(b"", b"\xff"))
+    preloaded = REPL_PRELOAD * (len(b"user00000000") + 1000)
+    log(f"[replication estimates] estimated bytes of the whole range "
+        f"{est[0]} after the preload against {preloaded} preloaded, "
+        f"{est[1]} after the range-heavy batches (DD halves a shard's "
+        f"sample at each clear range over it); {chunks} split-point chunks "
+        "of 10 MB after the preload")
+    report.update(estimated_bytes=est, preloaded_bytes=preloaded,
+                  split_chunks=chunks)
+    i = 2 * CLUSTER_BATCHES + SPLIT_BATCHES
+    report["failures"] = phase_replication_failures(
+        c, stream[i:i + 2], value, rng)
+    lock = lock_script(c)
+    assert lock == [1038, "committed", "committed"], lock
+    counters, ids, calls = idmp_script(c)
+    assert counters == [IDMP_ROUNDS] * IDMP_COUNTERS, counters
+    assert calls["unknown"] == 1 and calls["push"] >= 5, calls
+    log(f"[replication lock] plain commit under the lock {lock[0]}, "
+        f"lock-aware {lock[1]}, plain after unlock {lock[2]}")
+    log(f"[replication idempotency] {IDMP_COUNTERS} counters x {IDMP_ROUNDS} "
+        f"automatic-idempotency increments with a lost log quorum and a "
+        f"lost reply: counters {counters}, exact; {ids} id rows")
+    report.update(lock=lock, idmp=dict(counters=counters, id_rows=ids))
+    c.close()
+    del c
+    gc.collect()
+    report["ratekeeper"] = phase_ratekeeper()
+    with tempfile.TemporaryDirectory() as d:
+        restart = restart_script(None, d)
+    assert restart[:4] == [True, REPL_COPIES, b"restart", 1038], restart
+    log(f"[replication restart] dropped without a close and reopened: "
+        f"{restart[4]} shards and their teams, replication {restart[1]}, "
+        f"the lock {restart[2]!r} restored; a plain commit got {restart[3]}")
+    report["restart"] = dict(map_restored=restart[0],
+                             replication=restart[1],
+                             lock_uid=restart[2].decode(),
+                             plain_commit=restart[3], shards=restart[4])
+    launches = dict(_kernels.launches)
+    report["graphs"] = graph_report("replication")
+    log(f"[replication] launches {launches}")
+    gpu = twin_script(None, stream)
+    cpu = twin_script("cpu", stream)
+    for name, a, b in zip(("outcomes", "rows", "shard map", "admissions"),
+                          gpu[:4], cpu[:4]):
+        assert a == b, f"replication {name} differ between card and CPU"
+    for f, a, b in zip(type(gpu[4])._fields, gpu[4], cpu[4]):
+        assert np.array_equal(a, b), f"replication state field {f} differs"
+    log(f"[replication replay] {TWIN_PRELOAD} rows, rebalance, 4 range-heavy"
+        f" batches, a dead and recruited storage, an exclusion, the lock, "
+        f"idempotent increments, {len(gpu[3])} GRVs under one clock: card "
+        f"== CPU ({sum(map(len, gpu[1]))} rows over {REPL_STORAGE} storages,"
+        f" {len(gpu[2][0])} shards, admissions, 12 state fields)")
+    report["launches"] = launches
+    return report, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2179,6 +2731,17 @@ def main():
         + RECOVERY_AFTER_KILL + RECOVERY_AFTER), seed=SEED)
     recovery_report, recovery_launches = phase_recovery(durable_stream)
     native_report = phase_native(durable_stream)
+    gc.collect()
+    repl_stream = workloads.range_heavy(
+        2 * CLUSTER_BATCHES + SPLIT_BATCHES + 2, seed=SEED)
+    repl_report, repl_launches = phase_replication(repl_stream)
+    rh = cluster_report["range_heavy"]["commit_batch_committed_per_s"]
+    repl_report["vs_phase8"] = (
+        repl_report["commits"]["commit_batch_committed_per_s"] / rh)
+    log(f"[replication] range-heavy commit_batch "
+        f"{repl_report['commits']['commit_batch_committed_per_s']:.0f} "
+        f"committed txns/s against phase 8's {rh:.0f}: "
+        f"{repl_report['vs_phase8']:.3f}x")
 
     kernels = []
     for name, src, replaces in (
@@ -2197,7 +2760,8 @@ def main():
                    "pipeline": pipeline_launches[name],
                    "sharded_and_partitioned": sharded_launches[name],
                    "recovery": recovery_launches[name],
-                   "native": native_report["launches"][name]}
+                   "native": native_report["launches"][name],
+                   "replication": repl_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -2212,9 +2776,11 @@ def main():
                    graphs=graphs_report, cluster=cluster_report,
                    pipeline=pipeline_report_, sharded=sharded_report,
                    recovery=recovery_report, native=native_report,
+                   replication=repl_report,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
-    paths = {"fused_accept": ("main", "cluster", "pipeline", "recovery"),
+    paths = {"fused_accept": ("main", "cluster", "pipeline", "recovery",
+                              "replication"),
              "ring_hits": ("ring_route",),
              "accept_sweep": ("main", "ring_route",
                               "sharded_and_partitioned")}

@@ -11,11 +11,14 @@ concurrent clients (``commit_pipeline="thread"``), a fleet of resolver
 lanes on one card (``n_resolvers=k``), client-side transaction repair
 (``txn_repair``, on by default), the native host code (the g++-built
 batch packer and the C++ conflict set of ``resolver_backend="native"``),
-and durability and recovery: write-ahead logs (replicated with
-``n_tlogs``), disk storage engines, the coordinators' generation and
-the transaction-system recovery of ``Cluster.detect_and_recruit``. The
-package imports ``torch`` and numpy only and keeps its own copy of
-every module it needs.
+durability and recovery (write-ahead logs replicated with ``n_tlogs``,
+disk storage engines, the coordinators' generation and the
+transaction-system recovery of ``Cluster.detect_and_recruit``), and the
+cluster's controls: several storage servers with ``replication``
+copies of each shard, data distribution and the storage router, the
+ratekeeper's admission with tag quotas, the database lock and
+idempotency ids. The package imports ``torch`` and numpy only and keeps
+its own copy of every module it needs.
 
 Entry points: :func:`open` returns a Database whose resolver runs on
 ``cuda:0`` (``device="cpu"`` runs it on the CPU);
@@ -40,8 +43,10 @@ def open(cluster_file=None, **kw):
     fdb.open() in bindings/python/fdb/__init__.py). The cluster runs
     in-process: every keyword goes to
     :class:`~foundationdb_tpu_torch.server.cluster.Cluster` (``device``,
-    ``commit_pipeline``, ``n_resolvers``, the durability arguments
-    ``wal_path``, ``n_tlogs``, ``storage_engines``, ``fsync`` and
+    ``commit_pipeline``, ``n_resolvers``, the placement arguments
+    ``n_storage`` and ``replication``, the ratekeeper's ``target_tps``
+    and ``rk_clock``, the durability arguments ``wal_path``,
+    ``n_tlogs``, ``storage_engines``, ``fsync`` and
     ``coordination_dir``) or, if it is none of those, to the Knobs."""
     if cluster_file is not None:
         raise NotImplementedError(

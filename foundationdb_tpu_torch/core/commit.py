@@ -16,18 +16,26 @@ from foundationdb_tpu_torch.core import flatpack
 class CommitRequest:
     __slots__ = ("read_version", "mutations", "_read_conflict_ranges",
                  "_write_conflict_ranges", "report_conflicting_keys",
-                 "flat_conflicts")
+                 "lock_aware", "idempotency_id", "flat_conflicts", "tags")
 
     def __init__(self, read_version, mutations, read_conflict_ranges,
                  write_conflict_ranges, report_conflicting_keys=False,
-                 flat_conflicts=None):
+                 lock_aware=False, idempotency_id=None,
+                 flat_conflicts=None, tags=()):
         # None: a read-free txn; the proxy assigns its read version
         self.read_version = read_version
         self.mutations = mutations
         self._read_conflict_ranges = read_conflict_ranges  # [(begin, end)]
         self._write_conflict_ranges = write_conflict_ranges
         self.report_conflicting_keys = report_conflicting_keys
+        # ref: the LOCK_AWARE option: commits while the database is locked
+        self.lock_aware = lock_aware
+        # ref: IdempotencyId: a client token the proxy records with the
+        # commit and dedupes on, so a retry after 1021 cannot apply twice
+        self.idempotency_id = idempotency_id
         self.flat_conflicts = flat_conflicts
+        # the client's set_tag() labels (ref: TransactionTagRef)
+        self.tags = tuple(tags) if tags else ()
 
     @property
     def read_conflict_ranges(self):

@@ -206,10 +206,12 @@ class FlatTxnBatch:
         return [self[i] for i in range(len(self))]
 
 
-def build_flat_batch(requests, num_limbs):
+def build_flat_batch(requests, num_limbs, idmp_key_of=None):
     """Join a request batch's FlatConflicts into one FlatTxnBatch — the
     proxy's flat twin of its legacy build. None when any request lacks a
-    FlatConflicts of this width (the caller takes the legacy build)."""
+    FlatConflicts of this width (the caller takes the legacy build).
+    ``idmp_key_of(request)`` names the idempotency row an id-carrying
+    request conflicts on (or None): its point entry joins both sides."""
     n = len(requests)
     if n == 0:
         z = np.zeros(0, dtype=np.int64)
@@ -217,6 +219,9 @@ def build_flat_batch(requests, num_limbs):
     fcs = [r.flat_conflicts for r in requests]
     if None in fcs:
         return None
+    if idmp_key_of is not None and any(r.idempotency_id is not None
+                                       for r in requests):
+        return _build_with_ids(requests, num_limbs, idmp_key_of)
     (nls, rps, rpbs, rrs, rrbs, wps, wpbs, wrs, wrbs) = zip(*fcs)
     if any(nl != num_limbs for nl in nls):
         return None
@@ -231,3 +236,29 @@ def build_flat_batch(requests, num_limbs):
         b"".join(rpbs), b"".join(wpbs),
         b"".join(rrbs), b"".join(wrbs),
     )
+
+
+def _build_with_ids(requests, num_limbs, idmp_key_of):
+    """build_flat_batch for a batch carrying idempotency ids: each id's
+    row entry appended to its request's read and write points."""
+    n = len(requests)
+    counts = np.empty((5, n), dtype=np.int64)  # rp, wp, rr, wr, rv
+    rp, wp, rr, wr = [], [], [], []
+    for i, r in enumerate(requests):
+        f = r.flat_conflicts
+        if f.num_limbs != num_limbs:
+            return None
+        ik = idmp_key_of(r)
+        e = b"" if ik is None else encode_entry(ik, num_limbs)
+        if e is None:
+            return None  # an over-capacity id key: the legacy build
+        extra = 1 if e else 0
+        counts[:, i] = (f.read_points + extra, f.write_points + extra,
+                        f.read_ranges, f.write_ranges, r.read_version)
+        rp.append(f.read_point_blob + e)
+        wp.append(f.write_point_blob + e)
+        rr.append(f.read_range_blob)
+        wr.append(f.write_range_blob)
+    return FlatTxnBatch(num_limbs, counts[4], counts[0], counts[1],
+                        counts[2], counts[3], b"".join(rp), b"".join(wp),
+                        b"".join(rr), b"".join(wr))

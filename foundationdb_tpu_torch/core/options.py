@@ -69,6 +69,13 @@ class Knobs:
     # to the cold restart (fresh GRV, backoff): the livelock bound
     txn_repair_max_rounds: int = 4
 
+    # --- per-tag auto-throttling (server/ratekeeper.py) ---
+    # admission share above which a tag is throttled even without
+    # global pressure (ref: TagThrottler's standalone busy-tag policy;
+    # the under-pressure path is always on). 1.0 turns the standalone
+    # path off: a share never exceeds 1.0
+    tag_throttle_busyness: float = 1.0
+
     # --- versions / MVCC ---
     max_read_transaction_life_versions: int = 5_000_000
 

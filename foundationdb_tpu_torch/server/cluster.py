@@ -37,19 +37,37 @@ round of the failure monitor: a dead sequencer or commit proxy (a
 ``GateTimeout`` kills a fleet member) runs the transaction-system
 recovery, a dead log replica rejoins from a live peer, a dead resolver
 is respawned fenced at the committed version, a dead storage reboots on
-its engine and replays the log. The caller pumps it, as the reference's
-simulation does.
+its engine and replays the log, keeping only the mutations it owns. The
+caller pumps it, as the reference's simulation does.
 
-Not ported: several storage replicas and data distribution (the cluster
-has one storage server holding the whole keyspace, so a log peek serves
-it untagged), regions, and ``configure``'s resizes.
+Replication and data distribution: ``n_storage`` storage servers (one
+engine each in ``storage_engines``) and ``replication`` copies of each
+shard (default: every storage a full replica). With ``replication <
+n_storage`` the keyspace is cut into shards owned by teams of that size
+(server/datadistribution.py): the commit proxy routes each mutation to
+its team and tags the log push, reads go through the storage router
+(server/router.py, ``read_storage()``), and ``rebalance()`` splits,
+merges and moves shards, persisting the map in ``\\xff/keyServers/``,
+from which WAL recovery restores it. ``exclude_storage`` drains a
+storage. The ratekeeper (server/ratekeeper.py; ``target_tps``,
+``rk_clock``, ``set_tag_quota``) gates read versions at the GRV proxies
+and read-free commits at the commit proxy. ``lock_database`` persists
+``\\xff/dbLocked`` and fails every commit that is not lock-aware with
+1038 until ``unlock_database``; the lock survives recovery.
+
+Not ported: regions, change feeds, tenants, the replica consistency
+check and ``configure``'s resizes.
 """
 
 import contextlib
 import dataclasses
+import itertools
 import threading
 
-from foundationdb_tpu_torch.core.errors import FDBError
+from foundationdb_tpu_torch.core import systemdata
+from foundationdb_tpu_torch.core.commit import CommitRequest
+from foundationdb_tpu_torch.core.errors import FDBError, err
+from foundationdb_tpu_torch.core.mutations import Mutation, Op
 from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
 from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 from foundationdb_tpu_torch.resolver.resolver import Resolver, _device_of
@@ -58,22 +76,37 @@ from foundationdb_tpu_torch.server.coordination import (
     CoordinatorDown,
     GenerationConflict,
 )
+from foundationdb_tpu_torch.server.datadistribution import (
+    DataDistributor,
+    ShardMap,
+)
 from foundationdb_tpu_torch.server.grv import BatchingGrvProxy, GrvProxy
 from foundationdb_tpu_torch.server.health import RecoveryTimeline
 from foundationdb_tpu_torch.server.proxy import CommitProxy, VersionGate
+from foundationdb_tpu_torch.server.ratekeeper import Ratekeeper
+from foundationdb_tpu_torch.server.router import StorageRouter
 from foundationdb_tpu_torch.server.sequencer import Sequencer
 from foundationdb_tpu_torch.server.storage import StorageServer
 from foundationdb_tpu_torch.server.tlog import TLog, TLogSystem
+from foundationdb_tpu_torch.utils.trace import SEV_WARN_ALWAYS, TraceEvent
 
 COMMIT_PIPELINES = ("sync", "thread", "manual")
+
+
+def _lock_state(uid):
+    """Locked iff a uid exists (an empty uid still fences commits)."""
+    if uid is None:
+        return {"locked": False, "lock_uid": None}
+    return {"locked": True, "lock_uid": uid.decode("utf-8", "replace")}
 
 
 class Cluster:
     def __init__(self, knobs=None, device=None, commit_pipeline="sync",
                  commit_batch_max=None, commit_flush_after=4,
-                 n_commit_proxies=1, n_resolvers=1, wal_path=None,
-                 n_tlogs=1, storage_engines=None, fsync=False,
-                 coordination_dir=None, **knob_overrides):
+                 n_commit_proxies=1, n_resolvers=1, n_storage=1,
+                 replication=None, wal_path=None, n_tlogs=1,
+                 storage_engines=None, fsync=False, coordination_dir=None,
+                 target_tps=None, rk_clock=None, **knob_overrides):
         if commit_pipeline not in COMMIT_PIPELINES:
             raise ValueError(f"commit_pipeline must be one of "
                              f"{COMMIT_PIPELINES}, got {commit_pipeline!r}")
@@ -82,9 +115,13 @@ class Cluster:
                              f"{n_commit_proxies}")
         if n_resolvers < 1:
             raise ValueError(f"n_resolvers must be >= 1, got {n_resolvers}")
-        if storage_engines is not None and len(storage_engines) != 1:
-            raise ValueError("one storage engine: the storage server holds "
-                             "the whole keyspace (no data distribution)")
+        if storage_engines is None:
+            storage_engines = [None] * n_storage
+        elif len(storage_engines) != n_storage:
+            if n_storage != 1:
+                raise ValueError(f"n_storage={n_storage} but "
+                                 f"{len(storage_engines)} storage_engines")
+            n_storage = len(storage_engines)
         # an argument the port does not take is an unknown Knobs field:
         # replace raises TypeError
         knobs = dataclasses.replace(knobs or DEFAULT_KNOBS, **knob_overrides)
@@ -95,6 +132,9 @@ class Cluster:
         self._commit_batch_max = commit_batch_max
         self._commit_flush_after = commit_flush_after
         self.n_commit_proxies = n_commit_proxies
+        self.ratekeeper = Ratekeeper(
+            target_tps=target_tps if target_tps is not None else 1e9,
+            clock=rk_clock, tag_busy_threshold=knobs.tag_throttle_busyness)
         # ── recovery (ref: master recovery replaying the logs into
         # storage): a replicated log recovers the union of its replicas'
         # WALs. Conflict history is not persisted: the resolvers open at
@@ -105,9 +145,12 @@ class Cluster:
             records = TLog.recover(wal_path)
         else:
             records = []
+        # every storage replays the whole log: a non-owner holds shadow
+        # rows of shards it does not own, which routing never reads and a
+        # relocation clears before it installs
         self.storages = [StorageServer.recover(
-            (storage_engines or [None])[0], records,
-            knobs.max_read_transaction_life_versions)]
+            eng, records, knobs.max_read_transaction_life_versions)
+            for eng in storage_engines]
         recovered = max(s.version for s in self.storages)
         self.recovered_records = len(records)
         # ── the coordinated state: read, then lock the generation ──
@@ -134,7 +177,49 @@ class Cluster:
                                        device=device)
                               for _ in range(n_resolvers)]
         self.device = self.resolvers[0].device
+        # ── placement: the shard map persisted in \xff/keyServers/ is
+        # restored (ref: recovery reading keyServers), else every shard
+        # starts on the first ``replication`` storages ──
+        restored = None
+        if records:
+            restored, replication = self._restored_shard_map(replication)
+        self.replication = replication or n_storage
+        self.dd = DataDistributor(self.storages, shard_map=restored,
+                                  replication=self.replication)
+        self.router = StorageRouter(self.storages, self.dd.map,
+                                    itertools.count())
         self.commit_proxy, self.grv_proxy = self._build_txn_frontend()
+        if records:
+            # the lock is cluster state kept in the system keys
+            s0 = self.storages[0]
+            lock_row = s0.get(systemdata.DB_LOCKED, s0.version)
+            if lock_row is not None:
+                self._commit_target().lock_uid = lock_row
+
+    def _restored_shard_map(self, replication):
+        """(ShardMap, replication) from the recovered \\xff/keyServers/
+        and \\xff/conf/replication rows, or (None, ``replication``) when
+        none were persisted, the map is torn, or it names a storage this
+        fleet lacks (then full placement, as for a decode failure)."""
+        s0 = self.storages[0]
+        decoded = systemdata.decode_shard_map(s0.read_range(
+            systemdata.KEY_SERVERS_PREFIX, systemdata.KEY_SERVERS_END,
+            s0.version))
+        if decoded is None:
+            return None, replication
+        smap = ShardMap.restore(*decoded)
+        rep_row = s0.get(systemdata.CONF_REPLICATION, s0.version)
+        persisted = int(rep_row) if rep_row is not None else replication
+        fleet = len(self.storages)
+        if (any(sid >= fleet for team in smap.teams for sid in team)
+                or (persisted or 0) > fleet):
+            TraceEvent("ShardMapFleetMismatch", severity=SEV_WARN_ALWAYS
+                       ).detail(shards=len(smap), replication=persisted,
+                                fleet=fleet).log()
+            return None, replication
+        TraceEvent("ShardMapRestored").detail(
+            shards=len(smap), replication=persisted).log()
+        return smap, persisted
 
     def _win_generation(self, recovered):
         """CAS a new recovery generation at the coordinators: read g,
@@ -154,8 +239,9 @@ class Cluster:
 
     def _make_commit_proxy(self, resolve_gate=None, log_gate=None):
         return CommitProxy(self.sequencer, self.resolvers, self.tlog,
-                           self.storages, self.knobs,
-                           resolve_gate=resolve_gate, log_gate=log_gate)
+                           self.storages, self.knobs, self.ratekeeper,
+                           dd=self.dd, resolve_gate=resolve_gate,
+                           log_gate=log_gate)
 
     def _build_txn_frontend(self):
         """One commit proxy and GRV proxy, or a fleet of
@@ -193,7 +279,7 @@ class Cluster:
                 inner, max_batch=self._commit_batch_max,
                 flush_after=self._commit_flush_after,
                 mode=self.commit_pipeline)
-        grv = GrvProxy(self.sequencer)
+        grv = GrvProxy(self.sequencer, self.ratekeeper)
         if self.commit_pipeline == "thread":
             grv = BatchingGrvProxy(grv,
                                    interval_s=self.knobs.grv_batch_interval_s)
@@ -288,11 +374,14 @@ class Cluster:
         self.sequencer = Sequencer(start_version=recovered)
         for i, r in enumerate(self.resolvers):
             self.resolvers[i] = r.respawn(recovered)
+        # the lock is cluster state, not proxy state: it survives
+        lock_uid = old_inners[0].lock_uid
         old_grv = self.grv_proxy
         self.commit_proxy, self.grv_proxy = self._build_txn_frontend()
         rec.phase("recruit")
-        # (the reference re-derives the database lock, the tenant mode
-        # and the resolver ranges here; none is ported)
+        target = self._commit_target()
+        target.lock_uid = lock_uid
+        target.update_resolver_ranges(fence=False)
         rec.phase("replay")
         if self.commit_pipeline != "sync":
             # queued commits raced the death: 1021, their clients retry
@@ -306,24 +395,192 @@ class Cluster:
 
     def _recruit_storage(self, sid):
         """Replace a dead storage by rebooting on its durable engine and
-        replaying the log from its durable version (ref: a storage
-        process rejoining). The in-memory window died with it; the log
-        covers the gap, as the pump never pops past a dead storage's
-        durable version."""
+        replaying the log from its durable version, keeping the
+        mutations it owns under the shard map (ref: a storage process
+        rejoining). The in-memory window died with it; the log covers
+        the gap, as the pump never pops past a dead storage's durable
+        version."""
         old = self.storages[sid]
+        smap = self.dd.map if self.replication < len(self.storages) else None
         new = StorageServer.recover(
             old.engine, self.tlog.peek(old.engine.stored_version()),
-            self.knobs.max_read_transaction_life_versions)
+            self.knobs.max_read_transaction_life_versions,
+            owns=(None if smap is None
+                  else lambda m: self._storage_owns(smap, sid, m)))
         new.counters = old.counters  # counters survive recruitment
-        self.storages[sid] = new  # the proxies share this list
+        # the proxies, DD and the router share this list
+        self.storages[sid] = new
         # watches parked on the dead instance fire: clients re-read
         for key in list(old._watches):
             for w in old._watches.pop(key):
                 w._fire()
 
+    @staticmethod
+    def _storage_owns(smap, sid, m):
+        """Does storage ``sid`` own mutation ``m`` under ``smap`` (None:
+        full replication)? System keys replicate everywhere."""
+        if smap is None or m.key >= b"\xff":
+            return True
+        if m.op == Op.CLEAR_RANGE:
+            return any(sid in smap.teams[i]
+                       for i in smap.shards_overlapping(m.key, m.param))
+        return sid in smap.team_for(m.key)
+
     def read_storage(self, key=b""):
-        """The storage that serves reads of ``key``: the one replica."""
-        return self.storages[0]
+        """The read surface: the router sends each read of a key or range
+        to a live replica of its shard's team (ref: NativeAPI's
+        getKeyLocation and LoadBalance)."""
+        return self.router
+
+    # ── data distribution ──
+    def rebalance(self):
+        """One data-distribution round (splits, merges, moves), then the
+        new map persisted in the system keys and the host resolvers'
+        ranges derived from it. Returns the moves."""
+        moves = self.dd.rebalance()
+        self.persist_shard_map()
+        self.commit_proxy.update_resolver_ranges()
+        return moves
+
+    def exclude_storage(self, sid):
+        """Begin draining a storage (ref: fdbcli exclude): DD moves its
+        shards away; poll ``storage_drained``."""
+        self.dd.excluded.add(sid)
+        return self.rebalance()
+
+    def include_storage(self, sid):
+        """Cancel an exclusion (ref: fdbcli include)."""
+        self.dd.excluded.discard(sid)
+
+    def list_excluded(self):
+        return sorted(self.dd.excluded)
+
+    def storage_drained(self, sid):
+        return self.dd.storage_owns_nothing(sid)
+
+    def storage_owned_ranges(self, sid):
+        """The merged key ranges storage ``sid`` owns, with the system
+        keys that every storage holds."""
+        end_cap = b"\xff\xff"
+        if self.replication >= len(self.storages):
+            return [(b"", end_cap)]
+        smap = self.dd.map
+        owned = sorted(
+            (smap.shard_range(i)[0], smap.shard_range(i)[1] or b"\xff")
+            for i in range(len(smap)) if sid in smap.teams[i])
+        merged = []
+        for b, e in owned:
+            if merged and b <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([b, e])
+        merged.append([b"\xff", end_cap])
+        return [tuple(r) for r in merged]
+
+    def estimated_range_size_bytes(self, begin, end):
+        """Ref: fdb_transaction_get_estimated_range_size_bytes — DD's
+        sampled bytes per shard, a boundary shard prorated by the share
+        of its keys the range covers (counted on a live replica)."""
+        smap = self.dd.map
+        total = 0
+        for i in smap.shards_overlapping(begin, end):
+            sb, se = smap.shard_range(i)
+            size = smap.sizes[i]
+            if size == 0:
+                continue
+            if sb >= begin and se is not None and se <= end:
+                total += size
+                continue
+            owner = self.router._pick(smap.teams[i])
+            lo = max(begin, sb)
+            shard_end = se if se is not None else b"\xff\xff"
+            hi = min(end, shard_end)
+            n_all = n_cov = 0
+            for k, _ in owner._iter_live(sb, shard_end, owner.version):
+                n_all += 1
+                if lo <= k < hi:
+                    n_cov += 1
+            total += size * n_cov // max(n_all, 1)
+        return total
+
+    def range_split_points(self, begin, end, chunk_size):
+        """Ref: fdb_transaction_get_range_split_points — keys cutting
+        [begin, end) into chunks of about ``chunk_size`` bytes, from a
+        live replica's rows shard by shard; begin and end included."""
+        if chunk_size <= 0:
+            raise err("invalid_option_value")
+        if begin > end:
+            raise err("inverted_range")
+        version = self.sequencer.committed_version
+        points = [begin]
+        acc = 0
+        smap = self.dd.map
+        for i in smap.shards_overlapping(begin, end):
+            sb, se = smap.shard_range(i)
+            lo = max(begin, sb)
+            hi = min(end, se) if se is not None else end
+            owner = self.router._pick(smap.teams[i])
+            for k, v in owner._iter_live(lo, hi, min(version, owner.version)):
+                acc += len(k) + len(v or b"")
+                if acc >= chunk_size and k != points[-1]:
+                    points.append(k)
+                    acc = 0
+        points.append(end)
+        return points
+
+    def _system_commit(self, mutations):
+        """Commit system-key mutations through the commit path (durable
+        in the log, restored by WAL recovery); True if it committed."""
+        req = CommitRequest(read_version=self.sequencer.committed_version,
+                            mutations=mutations, read_conflict_ranges=[],
+                            write_conflict_ranges=[])
+        return not isinstance(self.commit_proxy.commit(req), Exception)
+
+    def persist_shard_map(self):
+        """Write the shard map and the replication to the system keys
+        (ref: keyServers commits). Best effort: a failed commit leaves
+        the previous map, and the next round retries."""
+        muts = [Mutation(Op.CLEAR_RANGE, systemdata.KEY_SERVERS_PREFIX,
+                         systemdata.KEY_SERVERS_END)]
+        muts += [Mutation(Op.SET, k, v)
+                 for k, v in systemdata.encode_shard_map(self.dd.map)]
+        muts.append(Mutation(Op.SET, systemdata.CONF_REPLICATION,
+                             str(self.replication).encode()))
+        return self._system_commit(muts)
+
+    # ── the database lock and the ratekeeper ──
+    def lock_database(self, uid=b"lock"):
+        """Ref: ManagementAPI lockDatabase — commits without the
+        lock_aware option fail 1038 until unlocked. The uid persists as
+        \\xff/dbLocked; locking over another uid raises 1038 (the same
+        uid is a no-op)."""
+        uid = bytes(uid)
+
+        def txn(tr):
+            tr.options.set_lock_aware()
+            held = tr.get(systemdata.DB_LOCKED)
+            if held is not None and held != uid:
+                raise err("database_locked")
+            if held is None:
+                tr.set(systemdata.DB_LOCKED, uid)
+
+        self.database().run(txn)
+        self._commit_target().lock_uid = uid
+
+    def unlock_database(self):
+        def txn(tr):
+            tr.options.set_lock_aware()
+            tr.clear(systemdata.DB_LOCKED)
+
+        self.database().run(txn)
+        self._commit_target().lock_uid = None
+
+    def lock_uid(self):
+        return self._commit_target().lock_uid
+
+    def set_tag_quota(self, tag, tps):
+        """An operator's rate limit for a tag (None clears it)."""
+        self.ratekeeper.set_tag_quota(tag, tps)
 
     def database(self):
         from foundationdb_tpu_torch.txn.database import Database
@@ -336,12 +593,27 @@ class Cluster:
         each role's status."""
         cp = self.commit_proxy
         inners = self._inner_proxies()
+        rk = self.ratekeeper
         return {"cluster": {
             "database_available": all(
                 (self.sequencer.alive, self._commit_target().alive,
-                 self.tlog.alive, self.storage.alive,
+                 self.tlog.alive, any(s.alive for s in self.storages),
                  *(r.alive for r in self.resolvers))),
             "generation": self.generation,
+            "data": {"shards": len(self.dd.map),
+                     "team_bytes": self.dd.team_bytes(),
+                     "replication_factor": self.replication,
+                     # a relocation copies, then flips the map, within
+                     # one rebalance call: no move is ever in flight
+                     "moving_data": False},
+            "database_lock_state": _lock_state(self.lock_uid()),
+            "qos": {
+                "transactions_per_second_limit": rk.target_tps,
+                "batch_transactions_per_second_limit": (
+                    rk.target_tps * rk.batch_priority_fraction),
+                "throttled_count": rk.throttled_count,
+                "throttled_tags": rk.throttled_tags(),
+                "tag_throttled_count": rk.tag_throttled_count},
             "recovery": self.recovery_timeline.snapshot(),
             # lanes, not host objects: a 3-lane fleet counts 3
             "resolvers": sum(getattr(r, "n_lanes", 1) for r in self.resolvers),
@@ -357,7 +629,11 @@ class Cluster:
                 "resolvers": [r.status() for r in self.resolvers],
                 "log": self.tlog.status(),
                 "storage": self.storage.status(),
+                "storage_servers": [dict(s.status(), id=i)
+                                    for i, s in enumerate(self.storages)],
+                "ratekeeper": rk.status(),
             },
+            "storage_servers": len(self.storages),
         }}
 
     def close(self):

@@ -9,13 +9,12 @@ different proxies interleave into one serial order. The chaining is
 stateful stages across the fleet (server/proxy.py). These facades give
 the fleet the surface one proxy has:
 
-- ``ProxyFleet`` round-robins client commits across its members and
-  sums their counters;
+- ``ProxyFleet`` round-robins client commits across its members, fans
+  the database lock out to every member, derives the host resolvers'
+  ranges once for all of them, and sums their counters;
 - ``GrvFleet`` round-robins read-version requests.
 
-Not ported: the fan-out of the database lock and the tenant mode to
-every member, and ``update_resolver_ranges`` (the port has one
-resolver).
+Not ported: the tenant mode's fan-out (tenants are not ported).
 """
 
 import itertools
@@ -62,6 +61,25 @@ class ProxyFleet:
     def kill(self):
         for p in self.inners:
             p.kill()
+
+    @property
+    def lock_uid(self):
+        return self.inners[0].lock_uid
+
+    @lock_uid.setter
+    def lock_uid(self, uid):
+        # every member enforces the lock: a commit through any proxy of a
+        # locked database fails 1038
+        for p in self.inners:
+            p.lock_uid = uid
+
+    def update_resolver_ranges(self, fence=True):
+        """One member derives (and on a move fences) the ranges; the
+        rest copy its bounds: deriving per member would fence the shared
+        resolvers once a proxy."""
+        self.inners[0].update_resolver_ranges(fence=fence)
+        for p in self.inners[1:]:
+            p.resolver_bounds = self.inners[0].resolver_bounds
 
     # ── lifecycle / pipeline plumbing ──
     def flush(self):

@@ -1,15 +1,17 @@
-"""GRV proxy: hands out read versions.
+"""GRV proxy: hands out read versions, gated by the ratekeeper.
 
 Ref parity: fdbserver/GrvProxyServer.actor.cpp — a read version is the
 latest committed version, so reads observe every prior commit (external
-consistency).
+consistency); the ratekeeper (server/ratekeeper.py) can refuse a grant
+under saturation (1037, process_behind) or for a throttled tag (1213,
+tag_throttled), both retryable.
 
 ``BatchingGrvProxy`` is the reference's transaction-start batching
 loop: concurrent clients' requests queue for a batch window and are
-granted from ONE committed-version read. The port has no ratekeeper, so
-a round grants every queued request (the reference's proxy with an
-unlimited ratekeeper); a request older than ``max_wait_s`` is still
-rejected retryably, and the per-priority queues are kept.
+granted from ONE committed-version read. Under throttling a request is
+delayed in its queue until the token bucket refills, not bounced; only
+a request older than ``max_wait_s`` is rejected (retryable). A tagged
+request meets its tag gate on entry, before it queues.
 """
 
 import threading
@@ -20,25 +22,40 @@ from foundationdb_tpu_torch.utils.backoff import Backoff
 
 
 class GrvProxy:
-    def __init__(self, sequencer):
+    def __init__(self, sequencer, ratekeeper=None):
         self.sequencer = sequencer
+        self.ratekeeper = ratekeeper
         self.grv_count = 0
+        self.throttled = 0  # 1037s for the budget
+        self.tag_throttled = 0  # 1213s for a tag
 
     def get_read_version(self, priority="default", tags=()):
-        """The latest committed version. ``priority`` and ``tags`` are the
-        reference's admission arguments; without a ratekeeper every
-        request is admitted."""
+        """The latest committed version, if the ratekeeper admits the
+        request: ``priority`` "batch" pays more, "immediate" passes."""
         if not self.sequencer.alive:
+            # the version authority is dead: retryable until recruitment
             raise err("process_behind")
+        if self.ratekeeper is not None:
+            ok, reason = self.ratekeeper.admit_with_reason(priority, tags)
+            if not ok:
+                # which gate closed: a tag's quota (1213) or the budget
+                if reason == "tag":
+                    self.tag_throttled += 1
+                    raise err("tag_throttled")
+                self.throttled += 1
+                raise err("process_behind")
         self.grv_count += 1
         return self.sequencer.committed_version
 
     def status(self):
-        return {"alive": self.sequencer.alive, "grv_grants": self.grv_count}
+        return {"alive": self.sequencer.alive, "grv_grants": self.grv_count,
+                "grv_throttled": self.throttled,
+                "grv_tag_throttled": self.tag_throttled}
 
 
 class BatchingGrvProxy:
-    """Cross-client GRV batching (thread deployments)."""
+    """Cross-client GRV batching with delay-based admission (thread
+    deployments)."""
 
     def __init__(self, inner, interval_s=0.0005, max_wait_s=2.0,
                  start_thread=True):
@@ -75,11 +92,20 @@ class BatchingGrvProxy:
         if priority == "immediate":
             with self._lock:  # counter consistency with the grant loop
                 return self.inner.get_read_version(priority)
+        rk = self.inner.ratekeeper
+        if rk is not None and tags and not rk.tag_gate(tags):
+            # a tag gate closes at once (1213) rather than queueing: a
+            # throttled tag must not hold the shared FIFO ahead of other
+            # traffic; the global budget is charged by the grant round
+            raise err("tag_throttled")
         qkey = "batch" if priority == "batch" else "default"
         with self._lock:
-            if not self._closed and self._pending == 0:
-                # uncontended: no request ahead in any state — grant
-                # inline, no thread handoff
+            if (not self._closed and self._pending == 0
+                    and (rk is None or rk.admit(priority))):
+                # uncontended: no request ahead in any state, and the
+                # budget has room — grant inline, no thread handoff (a
+                # fresh arrival never takes a refilled token from an
+                # older request a grant round holds)
                 self.inner.grv_count += 1
                 self.fast_grants += 1
                 return self.inner.sequencer.committed_version
@@ -135,15 +161,14 @@ class BatchingGrvProxy:
 
     def _grant_round(self, now=None):
         """One grant round: drain the queues, grant strict-FIFO per
-        priority (default first) from one committed-version read, age
-        out over-waited requests, requeue the rest at the front. With no
-        ratekeeper every queued request is admitted, so nothing is left
-        to requeue; the aging path is the reference's, kept for when one
-        is ported. ``now`` overrides the aging clock. Returns whether
-        anything was granted."""
+        priority (default first) from one committed-version read until
+        the ratekeeper's first denial, age out over-waited requests,
+        requeue the rest at the front. ``now`` overrides the aging
+        clock. Returns whether anything was granted."""
         with self._lock:
             work = {p: list(self._queues[p]) for p in ("default", "batch")}
             self._queues = {"default": [], "batch": []}
+        rk = self.inner.ratekeeper
         if not self.inner.sequencer.alive:
             # the sequencer died with requests queued: fail them
             # retryably rather than grant a dead authority's version
@@ -164,7 +189,8 @@ class BatchingGrvProxy:
             queue = work[qkey]
             n_granted = 0
             for fut in queue:
-                if not self._admit(fut["priority"]):
+                # one admit per denial: a denied head holds its queue
+                if rk is not None and not rk.admit(fut["priority"]):
                     break
                 if version is None:
                     version = self.inner.sequencer.committed_version
@@ -198,11 +224,6 @@ class BatchingGrvProxy:
             self._pending -= resolved
             self.max_round = max(self.max_round, round_granted)
         return granted_any
-
-    @staticmethod
-    def _admit(priority):
-        """The ratekeeper's admission (not ported): every request passes."""
-        return True
 
     def status(self):
         out = self.inner.status()

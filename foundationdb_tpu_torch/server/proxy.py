@@ -14,34 +14,48 @@ order the stateful stages — resolver history, then log and storage —
 in the sequencer's chained grant order, so several proxies pack and
 route at once while the state changes serially.
 
-The proxy serves one storage server holding the whole keyspace (the
-cluster's list, so that a recruited replacement is seen), and
-either one resolver (a single device resolver, a lane fleet of
-resolver/meshresolver.py, or one host set, Python or native) or several
-host resolvers, each owning a contiguous byte range of keys: then every
-batch is clipped per resolver, the sub-batches resolve on a thread pool,
-and a txn commits iff every resolver accepts it (``_resolve``). Not
-ported, and so absent from every branch below: the database lock,
-tenant modes, the ratekeeper's admission of read-free requests,
-idempotency ids and their dedupe, system keys, regions, data
-distribution (the tlog push is untagged), metrics and spans. Where the
-reference tests for one of them, the port takes the branch the
-reference takes when it is absent.
+The proxy serves the cluster's storage servers (its own list, so that a
+recruited replacement is seen). With data distribution (server/
+datadistribution.py) and ``replication < n_storage``, ``_route`` sends
+each mutation to its shard's team (system keys to every storage) and
+the tlog push carries that per-storage split as tags; the proxy feeds
+DD's byte accounting in the ordered tail. It drives either one resolver
+(a single device resolver, a lane fleet of resolver/meshresolver.py, or
+one host set, Python or native) or several host resolvers, each owning
+a contiguous key range derived from the shard map
+(``update_resolver_ranges``): then every batch is clipped per resolver,
+the sub-batches resolve on a thread pool, and a txn commits iff every
+resolver accepts it (``_resolve``).
+
+Admission before a batch takes a version: an idempotency id already
+committed answers its original version (``_dedupe_idempotent``); under
+a constrained ratekeeper a read-free request pays its admission here
+(1037); a locked database (``lock_uid``) fails every request that is not
+lock-aware with 1038. An id-carrying request writes its
+``\\xff\\x02/idmp/`` row with the commit, and conflicts on it, and expired
+rows are cleared every ``pump_interval`` batches. Not ported: tenant
+modes, regions, change feeds, metrics and spans; where the reference
+tests for one of them, the port takes the branch it takes when absent.
 """
 
 import threading
 import time
 
-from foundationdb_tpu_torch.core import flatpack
+from foundationdb_tpu_torch.core import flatpack, systemdata
 from foundationdb_tpu_torch.core.commit import CommitRequest  # noqa: F401
 from foundationdb_tpu_torch.core.errors import FDBError
-from foundationdb_tpu_torch.core.mutations import Op, substitute_versionstamp
+from foundationdb_tpu_torch.core.mutations import (
+    Mutation,
+    Op,
+    substitute_versionstamp,
+)
 from foundationdb_tpu_torch.core.status import COMMITTED, CONFLICT, TOO_OLD
 from foundationdb_tpu_torch.resolver.resolver import ResolverDown
 from foundationdb_tpu_torch.resolver.skiplist import TxnRequest
 from foundationdb_tpu_torch.server import scheduler
 from foundationdb_tpu_torch.server.sequencer import SequencerDown
 from foundationdb_tpu_torch.server.tlog import TLogDown
+from foundationdb_tpu_torch.utils.trace import SEV_ERROR, TraceEvent
 
 _STAMPED = (Op.SET_VERSIONSTAMPED_KEY, Op.SET_VERSIONSTAMPED_VALUE)
 REPAIR_COUNTERS = ("repair_attempts", "repair_commits", "repair_fallbacks")
@@ -113,8 +127,12 @@ class _PipelinedGroup:
 
 
 class CommitProxy:
+    # id rows outlive the MVCC window by this factor: the slack a delayed
+    # retry has to arrive and still dedupe instead of applying twice
+    IDMP_RETENTION_WINDOWS = 10
+
     def __init__(self, sequencer, resolvers, tlog, storages, knobs,
-                 resolve_gate=None, log_gate=None):
+                 ratekeeper=None, dd=None, resolve_gate=None, log_gate=None):
         self.alive = True
         self.sequencer = sequencer
         # the cluster's own list: a recruit replacing an entry is seen here
@@ -123,6 +141,11 @@ class CommitProxy:
         # the cluster's own list: a recruited storage is seen here
         self.storages = storages
         self.knobs = knobs
+        self.ratekeeper = ratekeeper
+        self.dd = dd  # data distribution: the shard map and byte accounting
+        # the database lock's uid (None: unlocked); the cluster sets it
+        self.lock_uid = None
+        self.idmp_dedupe_hits = 0
         # fleet ordering (None when this proxy is the whole fleet)
         self.resolve_gate = resolve_gate
         self.log_gate = log_gate
@@ -144,11 +167,8 @@ class CommitProxy:
         self._batches_since_pump = 0
         self.pump_interval = 64  # batches between durability pumps
         self._pool = None  # sub-resolve threads, made at first fan-out
-
-    @property
-    def storage(self):
-        """The storage server holding the whole keyspace."""
-        return self.storages[0]
+        self.resolver_bounds = None  # n-1 split keys; None: even split
+        self.update_resolver_ranges(fence=False)
 
     @property
     def resolver(self):
@@ -165,7 +185,52 @@ class CommitProxy:
             "txn_conflicted": self.conflict_count,
             "pack_flat_batches": self.pack_flat_batches,
             "pack_legacy_batches": self.pack_legacy_batches,
+            "idmp_dedupe_hits": self.idmp_dedupe_hits,
             **self.repair_counts}}
+
+    def update_resolver_ranges(self, fence=True):
+        """Derive each host resolver's key range from the shard map,
+        weighted by the shards' sampled bytes, so resolver load follows
+        the writes (ref: the keyResolvers map the proxies keep from
+        keyServers); an even first-byte split until the map has enough
+        shards to cut n ranges. The cluster calls this after every
+        rebalance round and at recovery. A boundary that moves strands
+        history in the resolver that used to own a key, so a change
+        rebuilds the resolvers fenced at the committed version: in-flight
+        txns get TOO_OLD and retry with fresh reads, as a reference
+        resolver range changes only through a fencing recovery.
+        ``fence=False`` is for construction, when there is no history.
+        One resolver (a device resolver or a lane fleet) has no ranges."""
+        n = len(self.resolvers)
+        if n == 1:
+            return
+        smap = self.dd.map if self.dd is not None else None
+        if smap is None or len(smap) < n:
+            new_bounds = None
+        else:
+            weights = [size + 1 for size in smap.sizes]  # empty ones count
+            total = sum(weights)
+            bounds, acc = [], 0
+            for i in range(len(smap) - 1):
+                acc += weights[i]
+                if (acc >= (len(bounds) + 1) * total / n
+                        and len(bounds) < n - 1):
+                    bounds.append(smap.boundaries[i + 1])
+            new_bounds = bounds if len(bounds) == n - 1 else None
+        if new_bounds != self.resolver_bounds and fence:
+            cv = self.sequencer.committed_version
+            for i in range(n):
+                self.resolvers[i] = self.resolvers[i].respawn(cv)
+        self.resolver_bounds = new_bounds
+
+    def _resolver_range(self, i, n):
+        """Resolver i's key range: the shard map's bounds when derived,
+        else an even first-byte split. The last upper bound is None
+        (+infinity), so no key, the system keys included, escapes."""
+        b = self.resolver_bounds
+        if b is not None:
+            return (b[i - 1] if i else b""), (b[i] if i < len(b) else None)
+        return _resolver_range(i, n)
 
     def kill(self):
         """Process death: every commit answers 1021 until the failure
@@ -203,10 +268,120 @@ class CommitProxy:
         self.kill()
         return _errors("commit_unknown_result", n)
 
+    def _partition_rejects(self, requests, reject_fn):
+        """Per-request admission: ``reject_fn(request)`` names an error
+        (rejected) or is None (passes); the passing requests commit as a
+        sub-batch. The merged results, or None when nothing was rejected
+        (the caller goes on with the whole batch)."""
+        results = [None] * len(requests)
+        passing = []
+        for i, r in enumerate(requests):
+            bad = reject_fn(r)
+            if bad is None:
+                passing.append((i, r))
+            else:
+                results[i] = FDBError.from_name(bad)
+        if len(passing) == len(requests):
+            return None
+        if passing:
+            try:
+                sub = self._commit_batch_admitted([r for _, r in passing])
+            except GateTimeout:
+                # only the sub-batch's fate is unknown: the definite
+                # rejections stand
+                sub = self._gate_wedged(len(passing))
+            for (i, _), res in zip(passing, sub):
+                results[i] = res
+        return results
+
+    def _idmp_lookup(self, idempotency_id):
+        """The commit version recorded for ``idempotency_id``, or None,
+        read from a live storage's system keys (replicated everywhere) at
+        its latest version: every earlier commit of this serialized
+        pipeline is visible there."""
+        key = systemdata.idmp_key(idempotency_id)
+        for s in self.storages:
+            if s.alive:
+                row = s.get(key, s.version)
+                return None if row is None else systemdata.unpack_version(row)
+        return None
+
+    def _pin_idmp_rv(self, request_batches):
+        """Give read-free id-carrying requests their read version before
+        their dedupe lookup runs: the lookup and the OCC conflict on the
+        id row (``_idmp_point``) together cover every interleaving with
+        a concurrently committing original only if the read version is
+        fixed first."""
+        for reqs in request_batches:
+            for r in reqs:
+                if r.read_version is None and r.idempotency_id:
+                    r.read_version = self.sequencer.committed_version
+
+    def _dedupe_idempotent(self, requests):
+        """Exactly-once at the proxy (ref: IdempotencyId): a request whose
+        id already committed answers its original version and applies
+        nothing. The merged results, or None when nothing matched."""
+        self._pin_idmp_rv([requests])
+        results = [None] * len(requests)
+        passing = []
+        for i, r in enumerate(requests):
+            v = (self._idmp_lookup(r.idempotency_id)
+                 if r.idempotency_id else None)
+            if v is None:
+                passing.append((i, r))
+            else:
+                self.idmp_dedupe_hits += 1
+                results[i] = v  # the original commit's version: success
+        if len(passing) == len(requests):
+            return None
+        if passing:
+            sub = self._commit_batch_admitted([r for _, r in passing])
+            for (i, _), res in zip(passing, sub):
+                results[i] = res
+        return results
+
+    def _constrained(self):
+        """True when the ratekeeper's budget can refuse an admission."""
+        rk = self.ratekeeper
+        return rk is not None and rk.target_tps < rk.UNLIMITED_TPS
+
     def _commit_batch_locked(self, requests):
-        # (the reference's idempotency dedupe, constrained-ratekeeper
-        # admission, database lock and tenant-mode partitions run here;
-        # none is ported, so every request passes)
+        if any(r.idempotency_id for r in requests):
+            out = self._dedupe_idempotent(requests)
+            if out is not None:
+                return out
+        return self._commit_batch_admitted(requests)
+
+    def _commit_batch_admitted(self, requests):
+        """The batch past the idempotency dedupe: the ratekeeper's gate
+        for read-free requests, the database lock, then the pipeline."""
+        if self._constrained():
+            # read-free requests skipped the GRV; under a constrained
+            # budget they pay admission here instead (the same bucket,
+            # the same retryable 1037). The gate assigns the read version
+            # on admission, so a sub-batch cannot be charged twice
+            rk = self.ratekeeper
+            rv_now = self.sequencer.committed_version
+
+            def gate(r):
+                if r.read_version is not None:
+                    return None
+                if rk.admit():
+                    r.read_version = rv_now
+                    return None
+                return "process_behind"
+
+            out = self._partition_rejects(requests, gate)
+            if out is not None:
+                return out
+        if self.lock_uid is not None:
+            # the database is locked (ref: lockDatabase, 1038): only
+            # lock-aware transactions pass
+            out = self._partition_rejects(
+                requests,
+                lambda r: None if r.lock_aware else "database_locked")
+            if out is not None:
+                return out
         try:
             prev, cv = self.sequencer.next_commit_versions(1)[0]
         except SequencerDown:
@@ -279,11 +454,41 @@ class CommitProxy:
             return [self.commit_batch(reqs) for reqs in request_batches]
         try:
             with self._commit_mu:
+                if self.lock_uid is not None:
+                    # checked under the mutex: a lock that landed while
+                    # the backlog queued fences it as commit_batch would
+                    return self._commit_each(request_batches)
                 return self._commit_batches_locked(request_batches)
         except GateTimeout:
             return [self._gate_wedged(len(reqs)) for reqs in request_batches]
 
+    def _commit_each(self, request_batches):
+        """A backlog batch by batch, under the held mutex. A wedge part
+        way through leaves the known outcomes standing: only the rest is
+        unknown."""
+        out = []
+        try:
+            for reqs in request_batches:
+                out.append(self._commit_batch_locked(reqs))
+        except GateTimeout:
+            for reqs in request_batches[len(out):]:
+                out.append(self._gate_wedged(len(reqs)))
+        return out
+
+    def _needs_serial_route(self, request_batches):
+        """A dedupe hit, or a read-free request under a constrained
+        budget, sends a backlog batch by batch, where each is admitted
+        (both are rare: a real 1021 retry, an overloaded cluster)."""
+        self._pin_idmp_rv(request_batches)
+        if any(r.idempotency_id and self._idmp_lookup(r.idempotency_id)
+               is not None for reqs in request_batches for r in reqs):
+            return True
+        return self._constrained() and any(
+            r.read_version is None for reqs in request_batches for r in reqs)
+
     def _commit_batches_locked(self, request_batches):
+        if self._needs_serial_route(request_batches):
+            return self._commit_each(request_batches)
         try:
             # the whole backlog's versions in one chained grant: no other
             # proxy's batch lands inside the run, so one gate span covers it
@@ -351,12 +556,13 @@ class CommitProxy:
 
     def pipeline_eligible(self, request_batches):
         """Stage-A admission: the pipelined route serves the common case.
-        The reference sends a database lock, a tenant mode, a constrained
-        ratekeeper and an idempotency-dedupe hit back to the serial
-        route; none is ported, so only the host resolvers' fan-out and
-        dead roles do here."""
-        return (len(self.resolvers) == 1 and self.alive
-                and self.sequencer.alive)
+        The database lock, a constrained ratekeeper with read-free
+        requests, a dedupe hit, the host resolvers' fan-out and dead
+        roles take the serial commit_batches, which handles them."""
+        if (len(self.resolvers) != 1 or not self.alive
+                or not self.sequencer.alive or self.lock_uid is not None):
+            return False
+        return not self._needs_serial_route(request_batches)
 
     def commit_batches_begin(self, request_batches):
         """Stages A+B of the pipelined backlog: chained version grant,
@@ -482,7 +688,16 @@ class CommitProxy:
                 or len(self.resolvers) != 1
                 or not self.resolver.accepts_flat):
             return None
-        return flatpack.build_flat_batch(requests, self.knobs.key_limbs)
+        return flatpack.build_flat_batch(requests, self.knobs.key_limbs,
+                                         self._idmp_point)
+
+    @staticmethod
+    def _idmp_point(r):
+        """The id row an id-carrying request writes and read-conflicts
+        on, or None: OCC then serializes a retry against its own
+        original even on different fleet members or pipeline groups."""
+        iid = r.idempotency_id
+        return systemdata.idmp_key(iid) if iid else None
 
     def _build_txns(self, requests):
         """The batch for the resolver: a FlatTxnBatch, or TxnRequests
@@ -490,11 +705,17 @@ class CommitProxy:
         None) gets the current committed version: the resolver compares
         nothing against it, it only places the txn in the window."""
         rv_assigned = None
+        n_lazy = 0
         for r in requests:
             if r.read_version is None:
                 if rv_assigned is None:
                     rv_assigned = self.sequencer.committed_version
                 r.read_version = rv_assigned
+                n_lazy += 1
+        if n_lazy and self.ratekeeper is not None:
+            # they bypassed the GRV's admission sample: feed its base, or
+            # tagged shares read inflated
+            self.ratekeeper.note_untagged_admissions(n_lazy)
         flat = self._try_build_flat(requests)
         if flat is not None:
             self.pack_flat_batches += 1
@@ -502,14 +723,25 @@ class CommitProxy:
         self.pack_legacy_batches += 1
         if not all(r.wants_point_split for r in self.resolvers):
             # the Python host set takes a point as the tiny range it is
-            return [TxnRequest(read_version=r.read_version,
-                               range_reads=r.read_conflict_ranges,
-                               range_writes=r.write_conflict_ranges)
-                    for r in requests]
+            out = []
+            for r in requests:
+                ik = self._idmp_point(r)
+                extra = [(ik, ik + b"\x00")] if ik is not None else []
+                out.append(TxnRequest(
+                    read_version=r.read_version,
+                    range_reads=(list(r.read_conflict_ranges) + extra
+                                 if extra else r.read_conflict_ranges),
+                    range_writes=(list(r.write_conflict_ranges) + extra
+                                  if extra else r.write_conflict_ranges)))
+            return out
         out = []
         for r in requests:
             pr, rr = _split_ranges(r.read_conflict_ranges)
             pw, rw = _split_ranges(r.write_conflict_ranges)
+            ik = self._idmp_point(r)
+            if ik is not None:
+                pr = pr + [ik]
+                pw = pw + [ik]
             out.append(TxnRequest(read_version=r.read_version,
                                   point_reads=pr, point_writes=pw,
                                   range_reads=rr, range_writes=rw))
@@ -517,8 +749,9 @@ class CommitProxy:
 
     def _finalize_batch(self, requests, txns, statuses, cv, window,
                         prev=None):
-        """Everything after resolution: results, the tlog push (1021
-        when it fails), storage apply, version reporting and the
+        """Everything after resolution: results, the id rows and their
+        clean-up, the routing, then (ordered) DD accounting, the tlog push
+        (1021 when it fails), storage apply, version reporting and the
         periodic durability pump. ``prev`` orders this batch behind the
         fleet's earlier grants at the log gate (None: the caller holds
         the order); the results are assembled outside the ordered
@@ -534,6 +767,12 @@ class CommitProxy:
                                                 txn_order=i)
                         if m.op in _STAMPED else m
                         for m in req.mutations)
+                    if req.idempotency_id:
+                        # the id row commits with the txn's mutations:
+                        # its presence later proves this commit applied
+                        batch_mutations.append(Mutation(
+                            Op.SET, systemdata.idmp_key(req.idempotency_id),
+                            systemdata.pack_version(cv)))
                     results.append(cv)
                 elif st == TOO_OLD:
                     results.append(FDBError.from_name("transaction_too_old"))
@@ -546,6 +785,18 @@ class CommitProxy:
                         e.conflict_version = cv
                     results.append(e)
                     conflicts += 1
+            if self._batches_since_pump == 0 and self.commit_count:
+                # the clean-up of expired ids rides the batch after each
+                # pump; the retention is a multiple of the MVCC window,
+                # as a 1021 retry may arrive long after its original
+                horizon = max(0, cv - self.IDMP_RETENTION_WINDOWS
+                              * self.knobs.max_read_transaction_life_versions)
+                batch_mutations.extend(self._idmp_expired(horizon))
+            # routed before the push, so that the log keeps the
+            # per-storage split (ref: mutations tagged with storage tags)
+            routed = self._route(batch_mutations)
+            tags = (dict(enumerate(routed)) if self.dd is not None
+                    and self.dd.replication < len(self.storages) else None)
         except BaseException:
             # the version's log turn must still be consumed
             if prev is not None:
@@ -554,21 +805,32 @@ class CommitProxy:
         if prev is not None and self.log_gate is not None:
             self.log_gate.enter(prev)
         try:
-            return self._finalize_ordered(results, batch_mutations,
-                                          conflicts, cv, window)
+            return self._finalize_ordered(len(requests), results,
+                                          batch_mutations, conflicts,
+                                          routed, tags, cv, window)
         finally:
             if prev is not None and self.log_gate is not None:
                 self.log_gate.advance(cv)
 
-    def _finalize_ordered(self, results, batch_mutations, conflicts, cv,
-                          window):
-        """The version-ordered tail: counters, the tlog push, storage
-        apply and reporting — everything that mutates shared state."""
+    def _finalize_ordered(self, n_requests, results, batch_mutations,
+                          conflicts, routed, tags, cv, window):
+        """The version-ordered tail: counters, DD's byte samples, the
+        tlog push, storage apply and reporting — everything that mutates
+        shared state."""
         self.conflict_count += conflicts
         n_ok = len(results) - conflicts
+        if self.dd is not None:
+            for m in batch_mutations:
+                if m.key >= b"\xff":
+                    continue  # system rows are not user load
+                if m.op == Op.CLEAR_RANGE:
+                    self.dd.note_clear_range(m.key, m.param)
+                else:
+                    self.dd.note_write(m.key,
+                                       len(m.key) + len(m.param or b""))
         # push even empty batches so storage's version advances with cv
         try:
-            self.tlog.push(cv, batch_mutations)
+            self.tlog.push(cv, batch_mutations, tags=tags)
         except TLogDown:
             # the would-be commits are in limbo: honest 1021; definite
             # rejections stand
@@ -576,10 +838,26 @@ class CommitProxy:
                     else FDBError.from_name("commit_unknown_result")
                     for r in results]
         self.commit_count += n_ok
-        if self.storage.alive:
-            self.storage.apply(cv, batch_mutations)
-            self.storage.advance_window(window)
+        for sid, muts in enumerate(routed):
+            storage = self.storages[sid]
+            if not storage.alive:
+                # a dead storage misses the batch; its recruit replays
+                # the log, so skipping strands no partial state
+                continue
+            try:
+                storage.apply(cv, muts)
+                storage.advance_window(window)
+            except Exception:
+                # the batch is committed (the log has it): a 1021 here
+                # would let a retry pass the dedupe and commit twice. The
+                # storage's state is suspect: it dies, and its recruit
+                # replays the log from its durable version
+                TraceEvent("StorageApplyFailed", severity=SEV_ERROR).detail(
+                    storage=sid, version=cv).log()
+                storage.kill()
         self.sequencer.report_committed(cv)
+        if self.ratekeeper is not None:
+            self.ratekeeper.observe_commit(n_requests, conflicts)
         self._batches_since_pump += 1
         if self._batches_since_pump >= self.pump_interval:
             self._batches_since_pump = 0
@@ -611,7 +889,7 @@ class CommitProxy:
         n = len(self.resolvers)
         shard_batches = []
         for ri in range(n):
-            lo, hi = _resolver_range(ri, n)
+            lo, hi = self._resolver_range(ri, n)
             shard_batches.append([
                 TxnRequest(
                     read_version=t.read_version,
@@ -641,13 +919,64 @@ class CommitProxy:
                 out.append(CONFLICT)
         return out
 
+    def _idmp_expired(self, horizon, cap=1000):
+        """CLEARs of the id rows whose commit version fell below the
+        retention horizon, scanned from a live storage's system keys."""
+        live = next((s for s in self.storages if s.alive), None)
+        if live is None:
+            return []
+        out = []
+        for k, v in live.read_range(systemdata.IDMP_PREFIX,
+                                    systemdata.IDMP_END, live.version):
+            if systemdata.unpack_version(v) < horizon:
+                out.append(Mutation(Op.CLEAR, k, None))
+                if len(out) >= cap:
+                    break
+        return out
+
     def _pump_durability(self, window):
         """The updateStorage analog: fold versions that left the MVCC
-        window into the engine, then pop the log up to what is durable."""
-        if not self.storage.alive:
+        window into the engines, pop the log up to what every storage
+        (a dead one's frozen durable version included: its recruit
+        replays from there) holds durably, and feed the ratekeeper the
+        durability lag found before the flush."""
+        live = [s for s in self.storages if s.alive]
+        if not live:
             return
-        self.storage.flush(window)
-        self.tlog.pop(self.storage.durable_version)
+        lag = max(0, window - min(s.durable_version for s in live))
+        for s in live:
+            # a versioned engine serves reads below its durable version,
+            # so it may flush to the latest; a single-version engine
+            # stops at the window floor
+            s.flush(None if s.versioned_engine else window)
+        self.tlog.pop(min(s.durable_version for s in self.storages))
+        if self.ratekeeper is not None:
+            self.ratekeeper.update(storage_lag_versions=lag)
+
+    def _route(self, mutations):
+        """The batch's mutations by owning storage, in one pass (ref:
+        mutations tagged with storage tags through keyServers). Full
+        replication is the identity. A clear range goes to every storage
+        whose shards it overlaps (a partial owner clears only what it
+        holds); system keys go everywhere, so recovery can read the
+        shard map from any storage."""
+        n = len(self.storages)
+        if self.dd is None or self.dd.replication >= n:
+            return [mutations] * n
+        smap = self.dd.map
+        per = [[] for _ in range(n)]
+        for m in mutations:
+            if m.key >= b"\xff":
+                owners = range(n)
+            elif m.op == Op.CLEAR_RANGE:
+                owners = set()
+                for i in smap.shards_overlapping(m.key, m.param):
+                    owners.update(smap.teams[i])
+            else:
+                owners = smap.team_for(m.key)
+            for sid in owners:
+                per[sid].append(m)
+        return per
 
 
 def _split_ranges(ranges):

@@ -9,20 +9,25 @@ in-memory overlay holding the window, above a single-version engine
 ``flush()`` folds overlay versions into the engine. A versioned engine
 (``versioned = True``) takes every overlay version instead, and serves
 reads below the durable version from its chains.
+
+Selector resolution and range reads live in :class:`RangeReadInterface`,
+which the storage router (server/router.py) shares, so the partitioned
+tier's reads cannot diverge from one storage's. ``export_shard`` /
+``ingest_shard`` are data distribution's copy of a shard with its MVCC
+history (ref: fetchKeys).
 """
 
 import itertools
 import threading
 from collections import deque
 
-from foundationdb_tpu_torch.core.errors import err
+from foundationdb_tpu_torch.core.errors import FDBError, err
 from foundationdb_tpu_torch.core.keys import KeySelector, key_successor
 from foundationdb_tpu_torch.core.mutations import ATOMIC_OPS, Op, apply_atomic
 from foundationdb_tpu_torch.server.kvstore import KeyValueStoreMemory
 from foundationdb_tpu_torch.utils.sorteddict import SortedDict
 
 _MISS = object()  # the overlay has no entry at or below the read version
-_WALK_END = b"\xff\xff"  # past every user and system key
 
 
 class Watch:
@@ -48,7 +53,66 @@ class Watch:
                 cb()
 
 
-class StorageServer:
+class RangeReadInterface:
+    """Selector resolution and range reads over any provider of
+    ``_iter_live(begin, end, version, reverse)`` and ``_check_version``:
+    one storage's merged overlay and engine, or the router's tier
+    stitched across shards."""
+
+    _WALK_END = b"\xff\xff"  # past every user and system key
+
+    def _live_keys(self, begin, end, version, reverse=False):
+        for k, _ in self._iter_live(begin, end, version, reverse=reverse):
+            yield k
+
+    def read_range(self, begin, end, version, limit=None):
+        """The (key, value) rows of [begin, end) at ``version``, without
+        selectors: data distribution's shard read (ref: fetchKeys'
+        getRange stream)."""
+        self._check_version(version)
+        out = []
+        for kv in self._iter_live(begin, end, version):
+            out.append(kv)
+            if limit is not None and len(out) >= limit:
+                break
+        return out
+
+    def resolve_selector(self, sel: KeySelector, version):
+        """A key selector's key (ref: findKey): start at the last live
+        key < (or <=) sel.key, then move ``offset`` live keys right.
+        Clamps to b'' and the \\xff sentinel."""
+        self._check_version(version)
+        offset = sel.offset
+        upper = sel.key + b"\x00" if sel.or_equal else sel.key
+        need = 1 if offset > 0 else (-offset + 1)
+        prev = list(itertools.islice(
+            self._live_keys(b"", upper, version, reverse=True), need))
+        if offset > 0:
+            start = prev[0] + b"\x00" if prev else b""
+            following = self._live_keys(start, self._WALK_END, version)
+            k = next(itertools.islice(following, offset - 1, None), None)
+            return k if k is not None else b"\xff"
+        idx = -offset
+        return prev[idx] if idx < len(prev) else b""
+
+    def get_range(self, begin_sel, end_sel, version, limit=0, reverse=False):
+        """Half-open range read between keys or key selectors."""
+        self._check_version(version)
+        begin = (begin_sel if isinstance(begin_sel, bytes)
+                 else self.resolve_selector(begin_sel, version))
+        end = (end_sel if isinstance(end_sel, bytes)
+               else self.resolve_selector(end_sel, version))
+        if begin > end:
+            return []
+        out = []
+        for kv in self._iter_live(begin, end, version, reverse=reverse):
+            out.append(kv)
+            if limit and len(out) >= limit:
+                break
+        return out
+
+
+class StorageServer(RangeReadInterface):
     def __init__(self, window_versions=5_000_000, engine=None):
         # overlay: key -> [(version, value or None)] ascending, every
         # version > durable_version; None is a tombstone
@@ -72,12 +136,18 @@ class StorageServer:
                          "range_reads": 0}
 
     @classmethod
-    def recover(cls, engine, log_records, window_versions=5_000_000):
+    def recover(cls, engine, log_records, window_versions=5_000_000,
+                owns=None):
         """Rebuild from a durable engine and the log records past its
-        durable version (ref: storage server recovery peeking the tlog)."""
+        durable version (ref: storage server recovery peeking the tlog).
+        ``owns(mutation)``, when given, keeps only the mutations this
+        storage owns under the shard map (a recruit of a partitioned
+        tier)."""
         ss = cls(window_versions=window_versions, engine=engine)
         for version, mutations in log_records:
             if version > ss.durable_version:
+                if owns is not None:
+                    mutations = [m for m in mutations if owns(m)]
                 ss.apply(version, mutations)
         return ss
 
@@ -227,6 +297,30 @@ class StorageServer:
         with self._mu:
             return self._lookup(key, version)
 
+    def read_batch(self, ops):
+        """Serve several reads under one lock crossing. ``ops`` are
+        ``("g", key, rv)`` → value or None, ``("r", begin, end, rv,
+        limit, reverse)`` → [(k, v)], ``("s", selector, rv)`` → key; an
+        FDBError fills its own slot, never the batch's."""
+        out = []
+        with self._mu:
+            for op in ops:
+                try:
+                    kind = op[0]
+                    if kind == "g":
+                        out.append(self.get(op[1], op[2]))
+                    elif kind == "r":
+                        out.append(self.get_range(op[1], op[2], op[3],
+                                                  limit=op[4],
+                                                  reverse=op[5]))
+                    elif kind == "s":
+                        out.append(self.resolve_selector(op[1], op[2]))
+                    else:
+                        raise err("client_invalid_operation")
+                except FDBError as e:
+                    out.append(e)
+        return out
+
     def _iter_live(self, begin, end, version, reverse=False):
         """Lazy merged (key, value) iteration of engine and overlay at
         ``version``: the overlay wins ties, and the engine cursor moves
@@ -270,45 +364,63 @@ class StorageServer:
                 yield kb
                 kb = next(base, sentinel)
 
-    def _live_keys(self, begin, end, version, reverse=False):
-        for k, _ in self._iter_live(begin, end, version, reverse=reverse):
-            yield k
+    def export_shard(self, begin, end):
+        """A snapshot of [begin, end) with its MVCC history: the engine's
+        rows at the durable version (a versioned engine's chains) and
+        every overlay chain, for a joiner to ingest so that reads at
+        pre-move versions stay right (ref: fetchKeys and the mutations
+        that bring a joining storage up to date)."""
+        with self._mu:
+            if self.versioned_engine:
+                base = dict(self.engine.iter_chains(begin, end))
+            else:
+                base = {k: [(self.durable_version, v)]
+                        for k, v in self.engine.iter_range(begin, end)}
+            keys = set(base)
+            keys.update(self._overlay.irange(begin, end,
+                                             inclusive=(True, False)))
+            rows = []
+            for k in sorted(keys):
+                chain = list(base.get(k, ()))
+                chain.extend(self._overlay.get(k, ()))
+                rows.append((k, chain))
+            return self.oldest_version, self.version, rows
 
-    def resolve_selector(self, sel: KeySelector, version):
-        """A key selector's key (ref: findKey): start at the last live
-        key < (or <=) sel.key, then move ``offset`` live keys right.
-        Clamps to b'' and the \\xff sentinel."""
-        self._check_version(version)
-        offset = sel.offset
-        upper = sel.key + b"\x00" if sel.or_equal else sel.key
-        need = 1 if offset > 0 else (-offset + 1)
-        prev = list(itertools.islice(
-            self._live_keys(b"", upper, version, reverse=True), need))
-        if offset > 0:
-            start = prev[0] + b"\x00" if prev else b""
-            following = self._live_keys(start, _WALK_END, version)
-            k = next(itertools.islice(following, offset - 1, None), None)
-            return k if k is not None else b"\xff"
-        idx = -offset
-        return prev[idx] if idx < len(prev) else b""
-
-    def get_range(self, begin_sel, end_sel, version, limit=0, reverse=False):
-        """Half-open range read between keys or key selectors."""
-        self._check_version(version)
-        begin = (begin_sel if isinstance(begin_sel, bytes)
-                 else self.resolve_selector(begin_sel, version))
-        end = (end_sel if isinstance(end_sel, bytes)
-               else self.resolve_selector(end_sel, version))
-        if begin > end:
-            return []
-        out = []
-        for kv in self._iter_live(begin, end, version, reverse=reverse):
-            out.append(kv)
-            if limit and len(out) >= limit:
-                break
-        return out
+    def ingest_shard(self, begin, end, export):
+        """Install an ``export_shard`` snapshot: [begin, end) is cleared
+        first, so stale rows and the source's deletes do not survive, and
+        the read floor rises to the source's (versions below it were not
+        exported: they answer TOO_OLD, never a silent miss)."""
+        oldest, version, rows = export
+        with self._mu:
+            self.version = max(self.version, version)
+            self.oldest_version = max(self.oldest_version, oldest)
+            if self.versioned_engine:
+                # evict the stale history physically: a clear would
+                # tombstone at the durable version, above the ingested
+                # chain's lower versions
+                self.engine.erase_range(begin, end)
+            else:
+                self.engine.clear_range(begin, end)
+            for k in list(self._overlay.irange(begin, end,
+                                               inclusive=(True, False))):
+                del self._overlay[k]
+            for k, chain in rows:
+                self._overlay[k] = list(chain)
+                for v, _ in chain:
+                    self._dirty.append((v, k))
 
     # ───────────────────────────── watches ─────────────────────────────
+    def fire_watches_in_range(self, begin, end):
+        """Fire every watch on a key of [begin, end): the shard moved
+        away, so watchers re-read from its new owner instead of waiting
+        on a storage that no longer receives the key's mutations."""
+        with self._mu:
+            for key in list(self._watches):
+                if begin <= key and (end is None or key < end):
+                    for w in self._watches.pop(key):
+                        w._fire()
+
     def watch(self, key, seen_value):
         if not self.alive:
             raise err("process_behind")

@@ -9,9 +9,14 @@ push when asked (the reference fsyncs a DiskQueue).
 ``TLogSystem`` is the replicated tier (ref: TagPartitionedLogSystem):
 k TLog replicas, a push acked once a quorum logged it, peeks merged
 across live replicas, and recovery the union of the surviving WALs, so
-losing a minority of logs loses no acked commit. Tag partitioning (a
-peek per storage tag) waits for data distribution: an untagged peek
-serves every storage, as the reference does with no shard map.
+losing a minority of logs loses no acked commit.
+
+Tags (ref: the per-tag streams of TLogServer): a push may carry the
+proxy's split of the batch by destination storage, ``{tag: [mutation]}``,
+and ``peek(v, tag=t)`` then serves that storage's stream, every version
+present (possibly empty) so cursors advance. The split lives in memory;
+the WAL keeps the untagged batch, so a record recovered from the WAL
+serves its full batch to every tag — conservative, never lossy.
 """
 
 import bisect
@@ -55,6 +60,7 @@ def read_frames(path):
 class TLog:
     def __init__(self, wal_path=None, fsync=False):
         self._log = []  # [(version, mutations)] in version order
+        self._tags = {}  # version -> {tag: [mutations]} (memory only)
         self._first_version = 0
         self.wal_path = wal_path
         self.fsync = fsync
@@ -77,12 +83,16 @@ class TLog:
         if self.fsync:
             os.fsync(self._wal.fileno())
 
-    def push(self, version, mutations):
+    def push(self, version, mutations, tags=None):
+        """Append one batch; ``tags`` is its {tag: [mutations]} split by
+        destination storage, or None (untagged)."""
         if not self.alive:
             raise TLogDown()
         if self._log and version <= self._log[-1][0]:
             raise ValueError("tlog push out of order")
         self._log.append((version, mutations))
+        if tags is not None:
+            self._tags[version] = tags
         self._wal_append((version, mutations))
         self.pushes += 1
         self.mutations += len(mutations)
@@ -112,16 +122,24 @@ class TLog:
             raise TLogDown()
         if self._log and self._log[-1][0] == version:
             self._log.pop()
+            self._tags.pop(version, None)
             self._wal_append(("abort", version))
 
-    def peek(self, from_version):
-        """All records with version > from_version, in order."""
+    def peek(self, from_version, tag=None):
+        """All records with version > from_version, in order; with
+        ``tag``, each record carries only that tag's mutations (a record
+        pushed untagged, as a recovered one, its whole batch)."""
         if not self.alive:
             raise TLogDown()
         # one snapshot: pop() swaps the list on the commit thread
         log = self._log
-        return log[bisect.bisect_right(log, from_version,
+        recs = log[bisect.bisect_right(log, from_version,
                                        key=lambda r: r[0]):]
+        if tag is None:
+            return recs
+        tags = self._tags
+        return [(v, tags[v].get(tag, []) if v in tags else m)
+                for v, m in recs]
 
     def hold_pop(self, name, version):
         """Register a peek cursor: records newer than ``version`` survive
@@ -141,6 +159,9 @@ class TLog:
         if holds:
             up_to_version = min(up_to_version, *holds)
         self._log = [(v, m) for v, m in self._log if v > up_to_version]
+        if self._tags:
+            self._tags = {v: t for v, t in self._tags.items()
+                          if v > up_to_version}
         self._first_version = max(self._first_version, up_to_version)
 
     @property
@@ -213,9 +234,10 @@ class TLogSystem:
             return None
         log.alive = True
         log._log = []
+        log._tags = {}
         log._first_version = donor._first_version
         for v, m in donor.peek(0):
-            log.push(v, m)
+            log.push(v, m, tags=donor._tags.get(v))
         return log
 
     @property
@@ -234,7 +256,7 @@ class TLogSystem:
         for log in self.logs:
             log._first_version = v
 
-    def push(self, version, mutations):
+    def push(self, version, mutations, tags=None):
         """Replicate to every live log; durable at ``quorum`` acks.
         Raises TLogDown when a quorum is unreachable, after rolling the
         partial replicas back (abort-marked in their WALs); the proxy
@@ -242,7 +264,7 @@ class TLogSystem:
         accepted = []
         for log in self.logs:
             try:
-                log.push(version, mutations)
+                log.push(version, mutations, tags=tags)
                 accepted.append(log)
             except TLogDown:
                 continue
@@ -263,13 +285,13 @@ class TLogSystem:
                 lambda: self.live_count == 0 or self.last_version >= version,
                 timeout=timeout)
 
-    def peek(self, from_version):
+    def peek(self, from_version, tag=None):
         """The union of the live replicas' records (an acked record is
-        on at least a quorum of them)."""
+        on at least a quorum of them), of ``tag`` only if given."""
         merged = {}
         for log in self.logs:
             if log.alive:
-                for v, m in log.peek(from_version):
+                for v, m in log.peek(from_version, tag=tag):
                     merged.setdefault(v, m)
         return sorted(merged.items(), key=lambda r: r[0])
 

@@ -16,13 +16,22 @@ Transaction repair (txn/repair.py) is on by default (``txn_repair``):
 each attempt records its storage reads, every commit asks for the
 conflicting ranges, and ``on_error`` repairs a 1020 instead of backing
 off — a replay (``repair_ready``: resubmit without the body) or a
-seeded rerun whose reads come from the verified cache. Special keys,
-tenants, tags, idempotency ids and tracing are not ported yet.
+seeded rerun whose reads come from the verified cache.
+
+Options for the cluster's controls: ``set_lock_aware`` (commits while
+the database is locked), ``set_tag`` (at most 5 tags of at most 16
+bytes, throttled per tag at the GRV: 1213), the GRV priorities
+``set_priority_batch`` / ``set_priority_system_immediate``, and
+idempotency ids (``set_idempotency_id``, ``set_automatic_idempotency``:
+an id drawn from core/deterministic.py's ``"idempotency-id"`` stream,
+kept across retries), with which a 1021 is answered by looking the id's
+row up instead of a blind retry. Special keys, tenants and tracing are
+not ported yet.
 """
 
 import time
 
-from foundationdb_tpu_torch.core import flatpack
+from foundationdb_tpu_torch.core import deterministic, flatpack, systemdata
 from foundationdb_tpu_torch.core.commit import CommitRequest
 from foundationdb_tpu_torch.core.errors import FDBError, err
 from foundationdb_tpu_torch.core.keys import (
@@ -78,6 +87,50 @@ class TransactionOptions:
         if self._tr._repair is None:
             self._tr._repair = repair_mod.RepairEngine()
 
+    def set_lock_aware(self):
+        """Ref: LOCK_AWARE — commit even while the database is locked."""
+        self._tr._lock_aware = True
+
+    def set_tag(self, tag):
+        """A transaction tag for per-tag throttling (ref: the TAG option
+        and TagThrottler): at most 5 tags of at most 16 bytes."""
+        if isinstance(tag, bytes):
+            # latin-1 is a byte bijection: distinct tags stay distinct
+            tag = tag.decode("latin-1")
+        if len(tag.encode("latin-1", "replace")) > 16:
+            raise err("invalid_option_value")
+        if tag not in self._tr._tags:
+            if len(self._tr._tags) >= 5:
+                raise err("invalid_option_value")
+            self._tr._tags.append(tag)
+
+    def set_auto_throttle_tag(self, tag):
+        """Ref: AUTO_THROTTLE_TAG — the ratekeeper samples every tag for
+        auto-throttling, so this is set_tag."""
+        self.set_tag(tag)
+
+    def set_priority_batch(self):
+        """Ref: PRIORITY_BATCH — the GRV runs on spare capacity only."""
+        self._tr._priority = "batch"
+
+    def set_priority_system_immediate(self):
+        """Ref: PRIORITY_SYSTEM_IMMEDIATE — the GRV bypasses the
+        ratekeeper."""
+        self._tr._priority = "immediate"
+
+    def set_idempotency_id(self, idempotency_id):
+        """Ref: IDEMPOTENCY_ID — a token of at most 255 bytes the proxy
+        records with the commit: a retry after 1021 resolves to the
+        original outcome instead of applying twice."""
+        if not idempotency_id or len(idempotency_id) > 255:
+            raise err("invalid_option_value")
+        self._tr._idempotency_id = bytes(idempotency_id)
+
+    def set_automatic_idempotency(self):
+        """Ref: AUTOMATIC_IDEMPOTENCY — an id drawn at commit time and
+        kept across the retry loop."""
+        self._tr._auto_idempotency = True
+
 
 
 class _Snapshot:
@@ -131,6 +184,11 @@ class Transaction:
         self._ryw_disabled = False
         self._next_write_no_conflict = False
         self._report_conflicting_keys = False
+        self._lock_aware = False
+        self._idempotency_id = None
+        self._auto_idempotency = False
+        self._tags = []  # transaction tags (per-tag throttling)
+        self._priority = "default"
         self._retry_limit = None
         self._max_retry_delay = knobs.max_retry_delay_s
         self._backoff = Backoff(initial_s=knobs.initial_backoff_s,
@@ -167,7 +225,8 @@ class Transaction:
     # ─────────────────────────── versions ─────────────────────────────
     def get_read_version(self):
         if self._read_version is None:
-            self._read_version = self._cluster.grv_proxy.get_read_version()
+            self._read_version = self._cluster.grv_proxy.get_read_version(
+                priority=self._priority, tags=tuple(self._tags))
         return self._read_version
 
     def set_read_version(self, version):
@@ -488,6 +547,25 @@ class Transaction:
         else:
             self.clear(key)
 
+    def get_estimated_range_size_bytes(self, begin, end):
+        """Ref: fdb_transaction_get_estimated_range_size_bytes — from
+        data distribution's sampled shard sizes, an estimate."""
+        self._guard()
+        if self._repair is not None:
+            self._repair.unreplayable = True  # sampled: not re-verifiable
+        return self._cluster.estimated_range_size_bytes(
+            _check_key(begin), _check_key(end))
+
+    def get_range_split_points(self, begin, end, chunk_size):
+        """Ref: fdb_transaction_get_range_split_points — keys cutting
+        [begin, end) into chunks of about ``chunk_size`` bytes, both
+        ends included."""
+        self._guard()
+        if self._repair is not None:
+            self._repair.unreplayable = True
+        return self._cluster.range_split_points(
+            _check_key(begin), _check_key(end), int(chunk_size))
+
     def get_approximate_size(self):
         """The commit payload this transaction has accumulated so far."""
         self._guard()
@@ -522,8 +600,13 @@ class Transaction:
     def _build_commit_request(self):
         self._drain_reads()
         # a read-free txn needs no GRV: the proxy assigns its read
-        # version (the resolver compares nothing against it)
-        if self._read_version is None and not self._read_conflicts:
+        # version (the resolver compares nothing against it). A tagged
+        # txn pays the GRV (its tag gate is there), and so does one with
+        # an idempotency id: OCC serializes a retry against its original
+        # on the id row, which needs an honest read version
+        idmp = self._ensure_idempotency_id()
+        if (self._read_version is None and not self._read_conflicts
+                and not self._tags and idmp is None):
             rv = None
         else:
             rv = self.get_read_version()
@@ -541,8 +624,31 @@ class Transaction:
             # rejecting commit version on every 1020 it might repair
             report_conflicting_keys=(self._report_conflicting_keys
                                      or self._repair is not None),
+            lock_aware=self._lock_aware,
+            idempotency_id=idmp,
             flat_conflicts=flat,
+            tags=tuple(self._tags),
         )
+
+    def _ensure_idempotency_id(self):
+        if self._idempotency_id is None and self._auto_idempotency:
+            self._idempotency_id = deterministic.token_bytes(
+                16, name="idempotency-id")
+        return self._idempotency_id
+
+    def _lookup_idempotency(self):
+        """The commit version if this txn's id row exists at a fresh read
+        version, else None. A cluster mid-recovery may fail the check:
+        the 1021 then stands, and the retry resubmits the same id, which
+        the proxy's dedupe resolves."""
+        key = systemdata.idmp_key(self._idempotency_id)
+        try:
+            rv = self._cluster.grv_proxy.get_read_version(
+                priority="immediate")
+            row = self._cluster.read_storage(key).get(key, rv)
+        except Exception:
+            return None
+        return None if row is None else systemdata.unpack_version(row)
 
     @property
     def repair_ready(self):
@@ -609,6 +715,14 @@ class Transaction:
         self._finish_commit(fut.result(timeout=0))
 
     def _finish_commit(self, result):
+        if (isinstance(result, FDBError) and result.code == 1021
+                and self._idempotency_id is not None):
+            # commit_unknown_result (ref: IdempotencyId): the id row
+            # commits with the mutations, so its presence proves the
+            # commit applied: the original outcome, not a 1021
+            recovered = self._lookup_idempotency()
+            if recovered is not None:
+                result = recovered
         if isinstance(result, FDBError):
             self._state = "error"
             self._conflicting_ranges = getattr(
@@ -638,12 +752,15 @@ class Transaction:
         self._backoff.max_s = self._max_retry_delay
         self._backoff.sleep()
         # the retry count, backoff schedule and these options survive the
-        # reset, as in the reference binding
+        # reset, as in the reference binding; the idempotency id too: the
+        # same id rides every retry, or the dedupe has nothing to match
         keep = (self._retries, self._backoff, self._retry_limit,
-                self._max_retry_delay)
+                self._max_retry_delay, self._idempotency_id,
+                self._auto_idempotency, self._tags)
         self._reset()
         (self._retries, self._backoff, self._retry_limit,
-         self._max_retry_delay) = keep
+         self._max_retry_delay, self._idempotency_id,
+         self._auto_idempotency, self._tags) = keep
 
     def reset(self):
         self._reset()

@@ -1,15 +1,51 @@
-"""Stage timers and latency samples of the commit pipeline.
+"""Stage timers, latency samples and trace events.
 
 The port's own copy of ``StageStats`` (the JAX package's
 ``utils/trace.py``), without a metrics registry: the port has none yet,
 so the batcher's submit→settle latency (``commit_e2e``) is a
 :class:`LatencySample` of its own. Both are fed from several threads
 (the batcher thread, the apply worker, waiting clients) under a plain
-lock.
+lock. :class:`TraceEvent` is the reference's structured event
+(``TraceEvent("Type").detail(k=v).log()``), kept in a bounded
+in-process log (:func:`trace_events`) instead of a file sink.
 """
 
+import collections
 import random
 import threading
+import time
+
+SEV_INFO = 10
+SEV_WARN_ALWAYS = 30
+SEV_ERROR = 40
+
+_events = collections.deque(maxlen=10_000)
+
+
+class TraceEvent:
+    """One structured event: a type, a severity and details, appended to
+    the in-process log by ``log()`` (once)."""
+
+    def __init__(self, type_, severity=SEV_INFO):
+        self.type = type_
+        self.severity = severity
+        self._details = {}
+        self._logged = False
+
+    def detail(self, **kwargs):
+        self._details.update(kwargs)
+        return self
+
+    def log(self):
+        if not self._logged:
+            self._logged = True
+            _events.append(dict(self._details, type=self.type,
+                                severity=self.severity, time=time.time()))
+
+
+def trace_events(type_=None):
+    """The logged events, oldest first (of ``type_`` only, if given)."""
+    return [e for e in list(_events) if type_ is None or e["type"] == type_]
 
 
 class StageStats:

@@ -468,20 +468,21 @@ def test_api_case_matches_jax(name):
 def test_open_paths_the_port_does_not_take():
     with pytest.raises(NotImplementedError):
         tfdb.open(cluster_file="fdb.cluster", device="cpu")
-    # storage counts and replication are not arguments of the port's
-    # cluster (the commit pipeline and proxy count are:
-    # test_torch_pipeline; the resolver count: test_torch_sharded; the
-    # log count and the durability arguments: test_torch_durability)
+    # regions are not an argument of the port's cluster (the commit
+    # pipeline and proxy count are: test_torch_pipeline; the resolver
+    # count: test_torch_sharded; the log count and the durability
+    # arguments: test_torch_durability; the storage count and the
+    # replication: test_torch_datadistribution)
     with pytest.raises(TypeError):
-        TCluster(device="cpu", n_storage=2, **TEST_KNOBS)
-    with pytest.raises(TypeError):
-        tfdb.open(device="cpu", replication=2, **TEST_KNOBS)
+        TCluster(device="cpu", regions={}, **TEST_KNOBS)
     # nor are an injected coordination quorum (the reference's remote
     # coordinators) and a coordinator count: three local ones serve
     with pytest.raises(TypeError):
         TCluster(device="cpu", n_coordinators=5, **TEST_KNOBS)
+    # one engine a storage: a count that disagrees with n_storage
     with pytest.raises(ValueError):
-        TCluster(device="cpu", storage_engines=[None, None], **TEST_KNOBS)
+        TCluster(device="cpu", n_storage=3, storage_engines=[None, None],
+                 **TEST_KNOBS)
     with pytest.raises(ValueError):
         TCluster(device="cpu", n_resolvers=0, **TEST_KNOBS)
     with pytest.raises(ValueError):

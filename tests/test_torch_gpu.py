@@ -398,6 +398,37 @@ def test_proxy_range_traffic_launches_fused_accept(cuda):
     assert _kernels.launches["ring_hits"] == 0
 
 
+@pytest.mark.gpu
+def test_replicated_cluster_on_card_equals_cpu(cuda):
+    """Cluster(n_storage=3, replication=2) on the card: the range-heavy
+    stream commits with fused_accept launched, and its outcomes, each
+    storage's rows, the shard map and the resolver state equal a CPU
+    twin's."""
+    def drive(c):
+        c.dd.max_shard_bytes = 4000  # the preload splits into shards
+        db = c.database()
+        for i in range(0, 300, 30):
+            db.run(lambda tr, i=i: [tr.set(workloads.user_key(j), b"p" * 100)
+                                    for j in range(i, i + 30)])
+        moves = c.rebalance()
+        out = _drive_cluster(c, "range_heavy")
+        rows = [s.get_range(b"", b"\xff\xff", s.version) for s in c.storages]
+        return out, moves, rows, (c.dd.map.boundaries, c.dd.map.teams)
+
+    gpu = Cluster(n_storage=3, replication=2, **CLUSTER_KNOBS)
+    cpu = Cluster(device="cpu", n_storage=3, replication=2, **CLUSTER_KNOBS)
+    _kernels.reset_launches()
+    got = drive(gpu)
+    assert _kernels.launches["fused_accept"] > 0
+    want = drive(cpu)
+    assert got[0][0] == want[0][0] and 1020 in got[0][0]
+    assert got[0][1] == want[0][1]
+    for f, a, b in zip(ck.ResolverState._fields, got[0][2], want[0][2]):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert got[1:] == want[1:]
+    assert len(got[3][0]) > 1  # the map split
+
+
 def test_cluster_and_open_raise_without_a_card():
     """With no card visible, Cluster() and open() raise; only
     device="cpu" runs on the CPU. In a subprocess with

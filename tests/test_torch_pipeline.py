@@ -511,24 +511,20 @@ def test_thread_pipeline_without_a_card_raises():
 
 def _grv_rounds(side, seed):
     """A seeded schedule of enqueues, commits, admission switches and
-    grant rounds on a threadless batching GRV proxy. The JAX proxy's
-    ratekeeper and the port's ``_admit`` (the port has no ratekeeper)
-    take the same switch. Returns each round's view of every request."""
+    grant rounds on a threadless batching GRV proxy. Both packages'
+    proxies take the same switch as their ratekeeper. Returns each
+    round's view of every request."""
     rng = random.Random(seed)
     seq = side.sequencer()
     seq.report_committed(seq.next_commit_versions(1)[0][1])
     allow = {"on": True}
-    if side is JAX:
-        class Gate:  # a ratekeeper that only admits
-            def admit(self, priority):
-                return allow["on"]
 
-        bp = side.grv.BatchingGrvProxy(side.grv.GrvProxy(seq, Gate()),
-                                       start_thread=False)
-    else:
-        bp = side.grv.BatchingGrvProxy(side.grv.GrvProxy(seq),
-                                       start_thread=False)
-        bp._admit = lambda priority: allow["on"]
+    class Gate:  # a ratekeeper that only admits
+        def admit(self, priority):
+            return allow["on"]
+
+    bp = side.grv.BatchingGrvProxy(side.grv.GrvProxy(seq, Gate()),
+                                   start_thread=False)
     now, futs, log = 100.0, [], []
     for _ in range(60):
         if rng.random() < 0.6:

@@ -243,9 +243,10 @@ def test_packer_matches_jax_packer(use_native, key_limbs):
 def test_port_imports_without_jax_or_the_jax_package():
     """The port and every one of its modules import with ``jax`` and
     ``foundationdb_tpu`` blocked: the cluster, the commit pipeline
-    (batcher, fleet, GRV batching, stage timers), the client transaction
-    and the package's ``open`` by name, then every module of the
-    package."""
+    (batcher, fleet, GRV batching, stage timers), data distribution, the
+    storage router, the ratekeeper, the system keys, the client
+    transaction and the package's ``open`` by name, then every module of
+    the package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -258,6 +259,11 @@ def test_port_imports_without_jax_or_the_jax_package():
         "import foundationdb_tpu_torch.server.fleet\n"
         "import foundationdb_tpu_torch.server.grv\n"
         "import foundationdb_tpu_torch.utils.trace\n"
+        "import foundationdb_tpu_torch.server.datadistribution\n"
+        "import foundationdb_tpu_torch.server.router\n"
+        "import foundationdb_tpu_torch.server.ratekeeper\n"
+        "import foundationdb_tpu_torch.core.systemdata\n"
+        "import foundationdb_tpu_torch.core.deterministic\n"
         "import foundationdb_tpu_torch.txn.transaction\n"
         "assert callable(open) and callable(transactional)\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
@@ -271,7 +277,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 40
+    assert int(out.stdout.strip()) >= 45
 
 
 @pytest.mark.parametrize("name", sorted(workloads.STREAMS))
