@@ -151,10 +151,40 @@ Phases:
      the shard map, the replication and the lock restored; (i) a card
      and a CPU cluster given the phase's script at TWIN_PRELOAD rows:
      outcomes, rows per storage, the map, admissions under one injected
-     clock and the 12 state fields equal.
+     clock and the 12 state fields equal;
+ 15. regions, change feeds, configure() and tenants, its launch and graph
+     counts zeroed first, on the JAX region tests' layout (2 storages, 3
+     logs, {"primary": "east", "remote": "west", "satellites": 1}) in
+     memory: (a) REGION_PRELOAD rows of 1 KB, then configure(regions=)
+     with a sync satellite (the seed's rows and seconds), the
+     range-heavy stream through 12 commit_batch calls and a backlog of
+     12 (committed txns/s, p50 / p99, against phase 8's), a batch's host
+     stage split with sync_push; fused_accept launched, every dispatch a
+     replay, no sync miss, no lag; (b) a change feed over a sixteenth of
+     the keyspace, registered before (a)'s commits: its entries equal
+     the committed requests' mutations clipped to it, by version; popped,
+     a read from below gets 1007; (c) the whole primary region killed,
+     one detect_and_recruit round: the failover ms, the generation one
+     higher, every row of (a) read back from the promoted storages, a
+     read version from before 1007, the first commit after it a replay
+     without a capture, card memory within 5%; (d) an async satellite
+     on a fresh cluster: lag during a backlog, none after stream_now(),
+     every commit at or below the frontier kept across a failover; (e)
+     configure() on (c)'s promoted cluster: 3 lanes (accept_sweep, no
+     fused_accept), 1 (fused_accept again), 3 again (card memory within
+     5% of the first 3-lane resize's), 1, commit_proxies=3, the same
+     call (no recovery), regions off (the row cleared), each resize's
+     recovery ms and first commit; (f) TENANTS tenants in mode
+     "required" on a WAL-backed thread pipeline: range-heavy shaped
+     db.run transactions in them from 64 threads (committed txns/s,
+     fused_accept launched), a plain write 2130, a quota's 1213 for its
+     tenant only, a restart restoring the mode, the quota and the region
+     row; (g) a card and a CPU cluster given the phase's script at
+     REGION_TWIN_PRELOAD rows: outcomes, rows per storage, the feed, the
+     region status and the 12 state fields equal.
 
 Every Resolver step runs as a CUDA graph replay (ops/conflict.StaticStep).
-Each of phases 4, 5, 8, 9, 10, 12 and 14 zeroes the graph counts with the
+Each of phases 4, 5, 8, 9, 10, 12, 14 and 15 zeroes the graph counts with the
 launch counts and checks after its drive that it captured, that every
 dispatch was a replay, and that no resolver step ran eagerly on the
 card (a wrapper counts calls of the eager steps on card tensors outside
@@ -2679,6 +2709,507 @@ def phase_replication(stream):
     return report, launches
 
 
+
+# ── phase 15: regions, change feeds, configure() and tenants ──
+REGION_STORAGE = 2  # the JAX region tests' layout, in memory
+REGION_TLOGS = 3
+REGIONS = {"primary": "east", "remote": "west", "satellites": 1}
+REGION_PRELOAD = 100_000  # config 2's 1M rows cut tenfold, as in phase 14
+REGION_ASYNC_PRELOAD = 8192  # (d)'s fresh cluster
+REGION_RESIZE_BATCHES = 4  # (e): range-heavy batches on the 3 lanes
+
+
+def region_stream_batches():
+    """Range-heavy batches phase 15 commits on its main cluster: (a)'s
+    timed drive and stage split, (c)'s first commit and (e)'s."""
+    return (2 * CLUSTER_BATCHES + SPLIT_BATCHES + 1
+            + 2 * REGION_RESIZE_BATCHES + 7)
+FEED_ID = b"sixteenth"
+TENANTS = 64
+TENANT_ROWS = 64  # rows preloaded in each tenant
+TENANT_TXNS = 4096  # (f): db.run transactions over the 64 client threads
+TENANT_QUOTA_TRIES = 16
+REGION_TWIN_PRELOAD = 2048
+REGION_MEMORY_SLACK = 0.05
+
+
+def region_cluster(device=None, mode="sync", **kw):
+    """Phase 15's deployment: 2 storage servers and 3 logs in the
+    primary region, one satellite log in the remote region."""
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    if mode is not None:
+        kw["regions"] = dict(REGIONS, satellite_mode=mode)
+    return Cluster(device=device, n_storage=REGION_STORAGE,
+                   n_tlogs=REGION_TLOGS, **kw)
+
+
+def kill_primary_region(c):
+    """Every primary process dies in one event: the storages, every log
+    replica, the resolvers and the transaction system."""
+    for s in c.storages:
+        s.kill()
+    for i in range(len(c.tlog.logs)):
+        c.tlog.kill(i)
+    for r in c.resolvers:
+        r.kill()
+    c.sequencer.kill()
+    c._commit_target().kill()
+
+
+def storage_digests(c, version):
+    """Each storage's (rows, sha256 of its user rows) at ``version``."""
+    out = []
+    for s in c.storages:
+        h = hashlib.sha256()
+        rows = s.get_range(b"", b"\xff", version)
+        for k, v in rows:
+            h.update(len(k).to_bytes(4, "big") + k + len(v).to_bytes(4, "big")
+                     + v)
+        out.append((len(rows), h.hexdigest()))
+    return out
+
+
+def card_bytes():
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def feed_range():
+    from foundationdb_tpu_torch import workloads
+
+    return workloads.user_key(0), workloads.user_key(workloads.NKEYS // 16)
+
+
+def expected_feed(batches, outcomes, value, limbs):
+    """What the feed must hold: the mutations of the committed requests,
+    clipped to its range, by commit version (each version's mutations
+    sorted: the batch scheduler may commit a batch's requests in
+    another order than they were sent)."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.core.mutations import Op
+
+    lo, hi = feed_range()
+    by_v = {}
+    for (txns, cv, _), outs in zip(batches, outcomes):
+        reqs = workloads.commit_requests(txns, cv, cv, limbs, value)
+        for req, o in zip(reqs, outs):
+            if not isinstance(o, int):
+                continue
+            for m in req.mutations:
+                hit = (m.key < hi and lo < m.param
+                       if m.op == Op.CLEAR_RANGE else lo <= m.key < hi)
+                if hit:
+                    by_v.setdefault(o, []).append(
+                        (m.op.value, m.key, m.param))
+    return [(v, sorted(ms)) for v, ms in sorted(by_v.items())]
+
+
+def feed_entries(db, end_version=None):
+    return [(v, sorted((m.op.value, m.key, m.param) for m in ms))
+            for v, ms in db.read_change_feed(FEED_ID, 0, end_version)]
+
+
+def region_sync_arm(c, stream, value):
+    """15(a) and (b): the sync satellite attached after the preload by
+    configure(), the feed registered, the range-heavy stream through
+    commit_batch and a backlog; the feed against the committed
+    mutations, then popped."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.ops import _kernels
+
+    preload_s = preload(c, REGION_PRELOAD)
+    db = c.database()
+    db.register_change_feed(FEED_ID, *feed_range())
+    t0 = time.perf_counter()
+    shape = c.configure(regions=dict(REGIONS, satellite_mode="sync"))
+    attach_s = time.perf_counter() - t0
+    reg = c.regions
+    seed_v, seed_muts = reg.satellite.peek(0)[0]
+    attach = dict(preload_rows=REGION_PRELOAD, preload_s=preload_s,
+                  attach_s=attach_s, seed_version=seed_v,
+                  seed_rows=len(seed_muts),
+                  recovery_ms=c.recovery_timeline.records[-1]["total_ms"],
+                  shape=shape)
+    assert len(seed_muts) >= REGION_PRELOAD, len(seed_muts)
+    log(f"[regions attach] {REGION_PRELOAD} rows preloaded in "
+        f"{preload_s:.3f} s; configure(regions=sync) in {attach_s:.3f} s "
+        f"(its recovery {attach['recovery_ms']} ms): a seed of "
+        f"{len(seed_muts)} rows at version {seed_v}")
+    f0 = _kernels.launches["fused_accept"]
+    n = 2 * CLUSTER_BATCHES
+    r = proxy_stream(c, stream, CLUSTER_BATCHES, CLUSTER_BATCHES, value,
+                     "regions sync", keep_outcomes=True)
+    outcomes = r.pop("outcomes")
+    r["fused_accept"] = _kernels.launches["fused_accept"] - f0
+    assert r["fused_accept"] > 0, "fused_accept never launched"
+    last_v = max(v for b in outcomes for v in b if isinstance(v, int))
+    got = feed_entries(db, last_v)
+    want = expected_feed(stream[:n], outcomes, value, c.knobs.key_limbs)
+    assert got == want, "the change feed differs from the commits"
+    mid = got[len(got) // 2][0]
+    db.pop_change_feed(FEED_ID, mid)
+    code = None
+    try:
+        db.read_change_feed(FEED_ID, 0)
+    except Exception as e:
+        code = e.code
+    assert code == 1007, code
+    feed = dict(entries=len(got), mutations=sum(len(m) for _, m in got),
+                popped_at=mid, read_below=code)
+    log(f"[regions feed] {len(got)} versions, {feed['mutations']} mutations "
+        "in the feed's sixteenth of the keyspace, equal to the committed "
+        f"requests' mutations clipped to it; popped at {mid}: a read from "
+        f"below got {code}")
+    assert reg.sync_misses == 0 and reg.lag_versions() == 0, reg.status()
+    sites = {"sync_push": (reg, "sync_push"), "tlog_push": (c.tlog, "push"),
+             "storage_apply_1": (c.storages[1], "apply")}
+    r["stage_split"] = split = commit_stage_split(
+        c, [lambda t=t, cv=cv: workloads.commit_requests(
+            t, cv, c.sequencer.committed_version, c.knobs.key_limbs, value)
+            for t, cv, _ in stream[n:n + SPLIT_BATCHES]], extra_sites=sites)
+    log(f"[regions sync] {SPLIT_BATCHES} commit_batch calls, host ms per "
+        "batch: " + ", ".join(f"{k} {v:.3f}"
+                              for k, v in split["host_ms"].items())
+        + f" of {split['wall_ms']:.3f} wall; device busy "
+        f"{split['device_busy_ms']:.3f} ms per batch "
+        f"({split['device_busy_share']:.1%}); sync misses "
+        f"{reg.sync_misses}, lag {reg.lag_versions()} versions")
+    assert reg.sync_misses == 0 and reg.lag_versions() == 0, reg.status()
+    return attach, r, feed
+
+
+def region_failover_arm(c, stream, value, rv_old):
+    """15(c): the whole primary region dies; one detect_and_recruit()
+    round promotes the remote one on the card."""
+    from foundationdb_tpu_torch.ops import conflict as ck
+
+    v = c.sequencer.committed_version
+    before = storage_digests(c, v)
+    gen0, mem0 = c.generation, card_bytes()
+    kill_primary_region(c)
+    t0 = time.perf_counter()
+    events = c.detect_and_recruit()
+    failover_ms = (time.perf_counter() - t0) * 1e3
+    assert events == [("region-failover", 0)], events
+    assert c.generation == gen0 + 1, (gen0, c.generation)
+    rec = c.recovery_timeline.records[-1]
+    assert rec["trigger"] == "region_failover", rec
+    after = storage_digests(c, v)
+    assert after == before, "an acknowledged row was lost in the failover"
+    code = stale_commit(c, rv_old)
+    assert code == 1007, f"a read from before the failover got {code}"
+    caps = ck.graph_counts["captures"]
+    outs, walls = commit_walls(c, stream[:1], value)
+    assert ck.graph_counts["captures"] == caps, "a capture after the failover"
+    mem1 = card_bytes()
+    assert abs(mem1 - mem0) <= REGION_MEMORY_SLACK * mem0, (mem0, mem1)
+    st = c.regions.status()
+    r = dict(failover_ms=failover_ms, recovery_ms=rec["total_ms"],
+             phases_ms=rec["phases"], generation=c.generation,
+             rows=[n for n, _ in after], stale_code=code,
+             first_commit_ms=walls[0],
+             first_commit_committed=sum(isinstance(o, int) for o in outs[0]),
+             memory_before=mem0, memory_after=mem1, status=st)
+    log(f"[regions failover] primary region killed: detect_and_recruit "
+        f"{failover_ms:.3f} ms (timeline {rec['total_ms']} ms "
+        f"{rec['phases']}), generation {gen0} -> {c.generation}; rows "
+        f"{r['rows']} equal to the primary's at {v}; a read from before "
+        f"got {code}; first commit after it {walls[0]:.3f} ms, a replay "
+        f"(captures unchanged); card memory {mem0} -> {mem1} B")
+    return r
+
+
+def region_async_arm(stream, value):
+    """15(d): an async satellite on a fresh cluster: lag during a
+    backlog, none after stream_now(), and after a failover every commit
+    at or below the frontier survives."""
+    from foundationdb_tpu_torch import workloads
+
+    c = region_cluster(mode="async")
+    preload(c, REGION_ASYNC_PRELOAD)
+    reg = c.regions
+    reqs = [workloads.commit_requests(t, cv, c.sequencer.committed_version,
+                                      c.knobs.key_limbs, value)
+            for t, cv, _ in stream[:4]]
+    outs = [_outcomes(r) for r in c.commit_proxy.commit_batches(reqs)]
+    lag_backlog = reg.lag_versions()
+    assert lag_backlog > 0, "no lag behind an async backlog"
+    t0 = time.perf_counter()
+    copied = reg.stream_now()
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    assert reg.lag_versions() == 0
+    frontier = reg.position
+    at_frontier = storage_digests(c, frontier)
+    outs += commit_walls(c, stream[4:6], value)[0]
+    lag_after = reg.lag_versions()
+    acked = [v for b in outs for v in b if isinstance(v, int)]
+    kill_primary_region(c)
+    events = c.detect_and_recruit()
+    assert events == [("region-failover", 0)], events
+    assert reg.position == frontier
+    assert storage_digests(c, frontier) == at_frontier, \
+        "a commit at or below the frontier was lost"
+    survived = sum(v <= frontier for v in acked)
+    r = dict(lag_during_backlog=lag_backlog, records_streamed=copied,
+             stream_ms=stream_ms, lag_at_failover=lag_after,
+             frontier=frontier, acked=len(acked), acked_at_or_below=survived,
+             status=reg.status())
+    log(f"[regions async] lag {lag_backlog} versions behind a backlog of 4;"
+        f" stream_now copied {copied} records in {stream_ms:.3f} ms, lag 0;"
+        f" lag at the failover {lag_after} versions: the {survived} commits "
+        f"at or below the frontier {frontier} survived, rows "
+        f"{[n for n, _ in at_frontier]}")
+    c.close()
+    return r
+
+
+def region_configure_arm(c, stream, value):
+    """15(e): configure() on the promoted cluster: 3 resolver lanes, back
+    to one, 3 lanes again (the leak check: the card memory after it
+    against after the first), back to one, 3 commit proxies, the same
+    call again, regions off."""
+    from foundationdb_tpu_torch.core import systemdata
+    from foundationdb_tpu_torch.ops import _kernels
+
+    steps = []
+    i = 0
+    for cfg, batches in ((dict(resolvers=SHARDED_LANES),
+                          REGION_RESIZE_BATCHES),
+                         (dict(resolvers=1), 2),
+                         (dict(resolvers=SHARDED_LANES),
+                          REGION_RESIZE_BATCHES),
+                         (dict(resolvers=1), 1),
+                         (dict(commit_proxies=3), 2),
+                         (dict(commit_proxies=3), 1),
+                         (dict(regions="off"), 1)):
+        gen0 = c.generation
+        l0 = dict(_kernels.launches)
+        t0 = time.perf_counter()
+        shape = c.configure(**cfg)
+        ms = (time.perf_counter() - t0) * 1e3
+        outs, walls = commit_walls(c, stream[i:i + batches], value)
+        i += batches
+        step = dict(config={k: str(v) for k, v in cfg.items()}, shape=shape,
+                    configure_ms=ms, recovered=c.generation - gen0,
+                    recovery_ms=(c.recovery_timeline.records[-1]["total_ms"]
+                                 if c.generation > gen0 else None),
+                    first_commit_ms=walls[0],
+                    committed=sum(isinstance(o, int) for b in outs for o in b),
+                    launches={k: v - l0[k]
+                              for k, v in _kernels.launches.items()},
+                    memory=card_bytes())
+        steps.append(step)
+        log(f"[regions configure] {cfg}: {shape}, {ms:.3f} ms, recovery "
+            f"{step['recovery_ms']} ms, first commit {walls[0]:.3f} ms, "
+            f"{step['committed']} committed over {batches} batches; launches"
+            f" {step['launches']}; card memory {step['memory']} B")
+    lanes, one, lanes2, _, proxies, again, off = steps
+    for st in (lanes, lanes2):
+        assert st["shape"]["resolver_lanes"] == SHARDED_LANES
+        assert st["launches"]["accept_sweep"] > 0
+        assert st["launches"]["fused_accept"] == 0
+    assert one["launches"]["fused_accept"] > 0
+    assert proxies["shape"]["commit_proxies"] == 3
+    assert again["recovered"] == 0, "a repeated configure recovered"
+    assert all(st["recovered"] == 1 for st in steps if st is not again)
+    assert c.regions is None
+    s0 = c.storage
+    assert s0.get(systemdata.CONF_REGIONS, s0.version) is None
+    # replaced resolvers release their history and graphs: the third
+    # resize's 3 lanes hold what the first's did
+    m1, m3 = lanes["memory"], lanes2["memory"]
+    assert abs(m3 - m1) <= REGION_MEMORY_SLACK * m1, (m1, m3)
+    return dict(steps=steps)
+
+
+def tenant_arm(d):
+    """15(f): TENANTS tenants in mode "required" on a WAL-backed thread
+    pipeline cluster with an async satellite; range-heavy shaped
+    transactions in the tenants from 64 client threads; a plain write
+    2130; a quota's 1213 for its tenant only; a restart restores the
+    mode, the quotas and the region row."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.core.errors import FDBError
+    from foundationdb_tpu_torch.layers.tenant import (
+        Tenant,
+        TenantManagement,
+        tenant_tag,
+    )
+    from foundationdb_tpu_torch.ops import _kernels
+
+    kw = dict(wal_path=os.path.join(d, "wal"),
+              coordination_dir=os.path.join(d, "coordinators"))
+    c = region_cluster(mode="async", commit_pipeline="thread", **kw)
+    db = c.database()
+    names = [b"tenant%02d" % i for i in range(TENANTS)]
+    for name in names:
+        TenantManagement.create_tenant(db, name)
+        rows = [(workloads.user_key(j), b"t" * 100)
+                for j in range(TENANT_ROWS)]
+        Tenant(db, name).run(lambda tr, rows=rows: [tr.set(k, v)
+                                                    for k, v in rows])
+    TenantManagement.set_tenant_mode(db, "required")
+    per = TENANT_TXNS // PIPE_CLIENTS
+    rng = np.random.default_rng(SEED + 15)
+    starts = rng.integers(0, TENANT_ROWS - 8, (PIPE_CLIENTS, per)).tolist()
+    walls = [[] for _ in range(PIPE_CLIENTS)]
+
+    def client(i):
+        t = Tenant(db, names[i % TENANTS])
+        for j in range(per):
+            s = starts[i][j]
+
+            def txn(tr):
+                tr.get_range(workloads.user_key(s), workloads.user_key(s + 8))
+                tr.clear_range(workloads.user_key(s + 2),
+                               workloads.user_key(s + 6))
+                tr.set(workloads.user_key(s + 2), b"r" * 100)
+
+            t0 = time.perf_counter()
+            t.run(txn)
+            walls[i].append((time.perf_counter() - t0) * 1e3)
+
+    f0 = _kernels.launches["fused_accept"]
+    wall = run_clients(PIPE_CLIENTS, client)
+    fused = _kernels.launches["fused_accept"] - f0
+    assert fused > 0, "fused_accept never launched on tenant traffic"
+    flat = [w for ws in walls for w in ws]
+    try:
+        db[b"plain"] = b"x"
+        plain = "committed"
+    except FDBError as e:
+        plain = e.code
+    assert plain == 2130, plain
+    TenantManagement.set_tenant_quota(db, names[0], 1.0)
+    codes = {}
+    for name in names[:2]:
+        got = []
+        for k in range(TENANT_QUOTA_TRIES):
+            tr = Tenant(db, name).create_transaction()
+            try:
+                tr[b"quota%02d" % k] = b"q"
+                tr.commit()
+                got.append("committed")
+            except FDBError as e:
+                got.append(e.code)
+        codes[name.decode()] = got
+    assert 1213 in codes[names[0].decode()], codes
+    assert 1213 not in codes[names[1].decode()], codes
+    region_row = c.regions.config.to_json()
+    c.close()
+    c = region_cluster(mode=None, **kw)  # the row brings the regions back
+    restored = dict(tenant_mode=c.tenant_mode(),
+                    quota=c.ratekeeper.tag_quotas.get(tenant_tag(names[0])),
+                    regions=(c.regions.config.to_json()
+                             if c.regions is not None else None))
+    assert restored == dict(tenant_mode="required", quota=1.0,
+                            regions=region_row), restored
+    c.close()
+    r = dict(tenants=TENANTS, txns=len(flat), wall_s=wall,
+             committed_txns_per_s=len(flat) / wall,
+             client_p50_ms=float(np.percentile(flat, 50)),
+             client_p99_ms=float(np.percentile(flat, 99)),
+             fused_accept=fused, plain_write=plain,
+             quota_1213={k: v.count(1213) for k, v in codes.items()},
+             restored=restored)
+    log(f"[regions tenants] {TENANTS} tenants, mode required, {len(flat)} "
+        f"transactions (get_range of 8, clear_range of 4, a set) on "
+        f"{PIPE_CLIENTS} threads in {wall:.3f} s: "
+        f"{r['committed_txns_per_s']:.1f} committed txns/s, client p50 "
+        f"{r['client_p50_ms']:.3f} / p99 {r['client_p99_ms']:.3f} ms; "
+        f"fused_accept {fused}; a plain write got {plain}; 1213s with the "
+        f"quota {r['quota_1213']}; restart restored {restored}")
+    return r
+
+
+def region_twin(device, stream):
+    """15(g): the phase's script at REGION_TWIN_PRELOAD rows: outcomes,
+    rows per storage, the feed, the region status and the resolver
+    state."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.convert import state_to_numpy
+    from foundationdb_tpu_torch.layers.tenant import Tenant, TenantManagement
+
+    c = region_cluster(device, mode=None)
+    db = c.database()
+    out = []
+    for reqs in workloads.preload_requests(
+            REGION_TWIN_PRELOAD, c.knobs.key_limbs, batch=256, seed=SEED):
+        out.append(_outcomes(c.commit_proxy.commit_batch(reqs)))
+    db.register_change_feed(FEED_ID, *feed_range())
+    out.append(c.configure(regions=dict(REGIONS, satellite_mode="sync")))
+    out += commit_walls(c, stream[:2], b"g")[0]
+    c.regions.partition()
+    out += commit_walls(c, stream[2:3], b"g")[0]
+    c.regions.heal()
+    out += commit_walls(c, stream[3:4], b"g")[0]
+    kill_primary_region(c)
+    out.append(c.detect_and_recruit())
+    out += commit_walls(c, stream[4:5], b"g")[0]
+    out.append(c.configure(resolvers=SHARDED_LANES))
+    out += commit_walls(c, stream[5:6], b"g")[0]
+    out.append(c.configure(resolvers=1, commit_proxies=2))
+    TenantManagement.create_tenant(db, b"twin")
+    TenantManagement.set_tenant_mode(db, "required")
+    Tenant(db, b"twin")[b"k"] = b"v"
+    out += commit_walls(c, stream[6:7], b"g")[0]
+    st = dict(c.regions.status())
+    st.pop("last_failover_ms")
+    rows = [s.get_range(b"", b"\xff\xff", s.version) for s in c.storages]
+    feed = feed_entries(db)
+    state = state_to_numpy(c.resolvers[0].state)
+    c.close()
+    return out, rows, feed, st, state
+
+
+def phase_regions(stream, rh_rate):
+    """Phase 15 on the card; its launch and graph counts are zeroed at
+    its start and read before the CPU twin."""
+    from foundationdb_tpu_torch.ops import _kernels
+
+    value = b"r" * 100
+    report = {}
+    reset_counts()
+    c = region_cluster(mode=None)
+    n = 2 * CLUSTER_BATCHES
+    report["attach"], report["sync"], report["feed"] = region_sync_arm(
+        c, stream, value)
+    report["sync"]["vs_phase8"] = (
+        report["sync"]["commit_batch_committed_per_s"] / rh_rate)
+    log(f"[regions sync] range-heavy commit_batch "
+        f"{report['sync']['commit_batch_committed_per_s']:.0f} committed "
+        f"txns/s against phase 8's {rh_rate:.0f}: "
+        f"{report['sync']['vs_phase8']:.3f}x")
+    rv_old = c.sequencer.committed_version - 1
+    rest = stream[n + SPLIT_BATCHES:]
+    report["failover"] = region_failover_arm(c, rest, value, rv_old)
+    report["configure"] = region_configure_arm(c, rest[1:], value)
+    c.close()
+    del c
+    gc.collect()
+    report["async"] = region_async_arm(stream, value)
+    with tempfile.TemporaryDirectory() as d:
+        report["tenants"] = tenant_arm(d)
+    launches = dict(_kernels.launches)
+    report["graphs"] = graph_report("regions")
+    log(f"[regions] launches {launches}")
+    gpu = region_twin(None, stream)
+    cpu = region_twin("cpu", stream)
+    for name, a, b in zip(("outcomes", "rows", "feed", "region status"),
+                          gpu[:4], cpu[:4]):
+        assert a == b, f"regions {name} differ between card and CPU"
+    for f, a, b in zip(type(gpu[4])._fields, gpu[4], cpu[4]):
+        assert np.array_equal(a, b), f"regions state field {f} differs"
+    log(f"[regions replay] {REGION_TWIN_PRELOAD} rows, a sync satellite, a "
+        f"partition and heal, a failover, 3 lanes and back, 2 proxies, a "
+        f"tenant: card == CPU ({sum(map(len, gpu[1]))} rows over "
+        f"{REGION_STORAGE} storages, {len(gpu[2])} feed versions, region "
+        "status, 12 state fields)")
+    report["launches"] = launches
+    return report, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2742,6 +3273,10 @@ def main():
         f"{repl_report['commits']['commit_batch_committed_per_s']:.0f} "
         f"committed txns/s against phase 8's {rh:.0f}: "
         f"{repl_report['vs_phase8']:.3f}x")
+    del repl_stream
+    gc.collect()
+    region_stream = workloads.range_heavy(region_stream_batches(), seed=SEED)
+    region_report, region_launches = phase_regions(region_stream, rh)
 
     kernels = []
     for name, src, replaces in (
@@ -2761,7 +3296,8 @@ def main():
                    "sharded_and_partitioned": sharded_launches[name],
                    "recovery": recovery_launches[name],
                    "native": native_report["launches"][name],
-                   "replication": repl_launches[name]}
+                   "replication": repl_launches[name],
+                   "regions": region_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -2776,14 +3312,14 @@ def main():
                    graphs=graphs_report, cluster=cluster_report,
                    pipeline=pipeline_report_, sharded=sharded_report,
                    recovery=recovery_report, native=native_report,
-                   replication=repl_report,
+                   replication=repl_report, regions=region_report,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
     paths = {"fused_accept": ("main", "cluster", "pipeline", "recovery",
-                              "replication"),
+                              "replication", "regions"),
              "ring_hits": ("ring_route",),
              "accept_sweep": ("main", "ring_route",
-                              "sharded_and_partitioned")}
+                              "sharded_and_partitioned", "regions")}
     for k in kernels:
         for path in paths[k["name"]]:
             assert k["launches_by_path"][path] > 0, \

@@ -17,7 +17,11 @@ transaction-system recovery of ``Cluster.detect_and_recruit``), and the
 cluster's controls: several storage servers with ``replication``
 copies of each shard, data distribution and the storage router, the
 ratekeeper's admission with tag quotas, the database lock and
-idempotency ids. The package imports ``torch`` and numpy only and keeps
+idempotency ids; multi-region replication (``regions=``: a sync or
+async satellite log in a remote region and its failover on the card),
+live ``Cluster.configure`` resizes of the proxies and resolvers, change
+feeds, and the tuple, subspace, directory and tenant layers
+(``foundationdb_tpu_torch.layers``). The package imports ``torch`` and numpy only and keeps
 its own copy of every module it needs.
 
 Entry points: :func:`open` returns a Database whose resolver runs on
@@ -47,7 +51,10 @@ def open(cluster_file=None, **kw):
     ``n_storage`` and ``replication``, the ratekeeper's ``target_tps``
     and ``rk_clock``, the durability arguments ``wal_path``,
     ``n_tlogs``, ``storage_engines``, ``fsync`` and
-    ``coordination_dir``) or, if it is none of those, to the Knobs."""
+    ``coordination_dir``, and ``regions``, a region config such as
+    ``{"primary": "east", "remote": "west", "satellites": 1,
+    "satellite_mode": "sync"}``) or, if it is none of those, to the
+    Knobs."""
     if cluster_file is not None:
         raise NotImplementedError(
             "cluster_file: the RPC client is not ported; open() runs the "

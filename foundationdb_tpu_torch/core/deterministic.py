@@ -7,10 +7,16 @@ its purpose (``rng("idempotency-id")``). Unseeded, a stream is seeded
 from OS entropy; ``seed(s)`` re-seeds every stream, present and future,
 to ``f"{s}:{name}"``, so two processes seeded alike draw the same ids.
 ``unseed()`` returns to OS entropy.
+
+``now()`` is the injected clock (the wall clock unless ``set_clock``
+swapped it): the region streamer's cadence and its lag in milliseconds
+read it, so a test that sets one clock on both packages gets the same
+lag.
 """
 
 import random
 import threading
+import time
 
 
 class _Streams:
@@ -18,6 +24,7 @@ class _Streams:
         self._lock = threading.Lock()
         self._streams = {}
         self._seed = None  # None: OS entropy
+        self.clock = time.time
 
     def rng(self, name):
         with self._lock:
@@ -61,3 +68,12 @@ def seed(master_seed):
 
 def unseed():
     _streams.unseed()
+
+
+def now():
+    """The injected clock (``time.time`` unless ``set_clock`` swapped it)."""
+    return _streams.clock()
+
+
+def set_clock(fn):
+    _streams.clock = fn

@@ -34,6 +34,11 @@ _ERRORS = {
     2101: "transaction_too_large",
     2102: "key_too_large",
     2103: "value_too_large",
+    2108: "tenant_not_found",
+    2130: "tenant_name_required",
+    2132: "tenant_already_exists",
+    2133: "tenant_not_empty",
+    2134: "tenants_disabled",
     2200: "api_version_unset",
 }
 

@@ -69,6 +69,13 @@ class Knobs:
     # to the cold restart (fresh GRV, backoff): the livelock bound
     txn_repair_max_rounds: int = 4
 
+    # --- multi-region replication (server/region.py) ---
+    # the satellite streamer drains the primary log at most once per
+    # interval (jittered off the "region-stream" deterministic stream);
+    # thread-mode clusters drive it from a daemon loop, others call
+    # maybe_stream() or stream_now()
+    region_stream_interval_s: float = 0.05
+
     # --- per-tag auto-throttling (server/ratekeeper.py) ---
     # admission share above which a tag is throttled even without
     # global pressure (ref: TagThrottler's standalone busy-tag policy;

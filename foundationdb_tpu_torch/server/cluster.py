@@ -53,10 +53,24 @@ storage. The ratekeeper (server/ratekeeper.py; ``target_tps``,
 ``rk_clock``, ``set_tag_quota``) gates read versions at the GRV proxies
 and read-free commits at the commit proxy. ``lock_database`` persists
 ``\\xff/dbLocked`` and fails every commit that is not lock-aware with
-1038 until ``unlock_database``; the lock survives recovery.
+1038 until ``unlock_database``; the lock survives recovery, as do the
+tenant mode and the tenant quotas (layers/tenant.py,
+``_restore_tenant_config``).
 
-Not ported: regions, change feeds, tenants, the replica consistency
-check and ``configure``'s resizes.
+Regions (server/region.py): ``regions={"primary", "remote",
+"satellites", "satellite_mode"}`` attaches a satellite log in the remote
+region, seeded with a snapshot of the database and kept caught up (sync
+mode: before each commit acks; async: by a streamer), and persists the
+config in ``\\xff/conf/regions``, from which WAL recovery re-attaches it.
+When every primary process is dead, ``detect_and_recruit`` promotes the
+remote region in place (``_region_failover``). ``configure`` resizes the
+commit proxies and resolvers and changes the regions through a
+transaction-system recovery. The cluster owns one change-feed registry
+(server/changefeed.py) that every commit proxy feeds.
+
+Not ported: the replica consistency check, the latency prober, the
+metrics history, device profiles, heatmaps and metric registries (the
+reference's recoveries and failovers also carry those).
 """
 
 import contextlib
@@ -71,6 +85,7 @@ from foundationdb_tpu_torch.core.mutations import Mutation, Op
 from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
 from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 from foundationdb_tpu_torch.resolver.resolver import Resolver, _device_of
+from foundationdb_tpu_torch.server.changefeed import ChangeFeedRegistry
 from foundationdb_tpu_torch.server.coordination import (
     CoordinationQuorum,
     CoordinatorDown,
@@ -84,6 +99,7 @@ from foundationdb_tpu_torch.server.grv import BatchingGrvProxy, GrvProxy
 from foundationdb_tpu_torch.server.health import RecoveryTimeline
 from foundationdb_tpu_torch.server.proxy import CommitProxy, VersionGate
 from foundationdb_tpu_torch.server.ratekeeper import Ratekeeper
+from foundationdb_tpu_torch.server.region import RegionConfig, RegionReplicator
 from foundationdb_tpu_torch.server.router import StorageRouter
 from foundationdb_tpu_torch.server.sequencer import Sequencer
 from foundationdb_tpu_torch.server.storage import StorageServer
@@ -106,7 +122,8 @@ class Cluster:
                  n_commit_proxies=1, n_resolvers=1, n_storage=1,
                  replication=None, wal_path=None, n_tlogs=1,
                  storage_engines=None, fsync=False, coordination_dir=None,
-                 target_tps=None, rk_clock=None, **knob_overrides):
+                 target_tps=None, rk_clock=None, regions=None,
+                 **knob_overrides):
         if commit_pipeline not in COMMIT_PIPELINES:
             raise ValueError(f"commit_pipeline must be one of "
                              f"{COMMIT_PIPELINES}, got {commit_pipeline!r}")
@@ -169,13 +186,7 @@ class Cluster:
             self.tlog = TLog(wal_path=wal_path, fsync=fsync)
         self.tlog._first_version = recovered
         self.sequencer = Sequencer(start_version=recovered)
-        if knobs.resolver_backend == "cuda" and n_resolvers > 1:
-            self.resolvers = [MeshResolver(knobs, base_version=recovered,
-                                           n_lanes=n_resolvers, device=device)]
-        else:
-            self.resolvers = [Resolver(knobs, base_version=recovered,
-                                       device=device)
-                              for _ in range(n_resolvers)]
+        self.resolvers = self._make_resolvers(n_resolvers, recovered, device)
         self.device = self.resolvers[0].device
         # ── placement: the shard map persisted in \xff/keyServers/ is
         # restored (ref: recovery reading keyServers), else every shard
@@ -188,13 +199,58 @@ class Cluster:
                                   replication=self.replication)
         self.router = StorageRouter(self.storages, self.dd.map,
                                     itertools.count())
+        self.change_feeds = ChangeFeedRegistry()
+        # the region replicator (None until a config attaches); the
+        # frontend reads it
+        self.regions = None
         self.commit_proxy, self.grv_proxy = self._build_txn_frontend()
         if records:
-            # the lock is cluster state kept in the system keys
+            self._restore_tenant_config()
+        # the argument wins; else a recovered \xff/conf/regions row
+        # re-attaches (re-seeding the satellite; only a new config
+        # writes the row)
+        region_cfg = regions
+        if region_cfg is None and records:
             s0 = self.storages[0]
-            lock_row = s0.get(systemdata.DB_LOCKED, s0.version)
-            if lock_row is not None:
-                self._commit_target().lock_uid = lock_row
+            region_cfg = s0.get(systemdata.CONF_REGIONS, s0.version)
+        if region_cfg is not None:
+            self._attach_regions(RegionConfig.parse(region_cfg),
+                                 persist=regions is not None)
+
+    def _make_resolvers(self, lanes, base_version, device):
+        """The resolvers for ``lanes`` lanes at ``base_version``: one
+        MeshResolver of that many lanes on the device for the "cuda"
+        backend, else that many Resolvers (host sets behind the proxy's
+        fan-out, or one device resolver). Construction and configure's
+        resize both build through here."""
+        if self.knobs.resolver_backend == "cuda" and lanes > 1:
+            return [MeshResolver(self.knobs, base_version=base_version,
+                                 n_lanes=lanes, device=device)]
+        return [Resolver(self.knobs, base_version=base_version,
+                         device=device) for _ in range(lanes)]
+
+    def _restore_tenant_config(self):
+        """Re-apply the lock, the tenant mode and the tenant quotas from
+        the system keys (their enforcement is proxy and ratekeeper state,
+        which a restart or a region failover rebuilds empty)."""
+        from foundationdb_tpu_torch.layers.tenant import (
+            TENANT_MODE_KEY,
+            TENANT_QUOTA_PREFIX,
+            tenant_tag,
+        )
+
+        s0 = self.storages[0]
+        target = self._commit_target()
+        lock_row = s0.get(systemdata.DB_LOCKED, s0.version)
+        if lock_row is not None:
+            target.lock_uid = lock_row
+        mode_row = s0.get(TENANT_MODE_KEY, s0.version)
+        if mode_row is not None:
+            target.tenant_mode = mode_row.decode()
+        for k, v in s0.read_range(TENANT_QUOTA_PREFIX,
+                                  TENANT_QUOTA_PREFIX + b"\xff", s0.version):
+            self.ratekeeper.set_tag_quota(
+                tenant_tag(k[len(TENANT_QUOTA_PREFIX):]), float(v))
 
     def _restored_shard_map(self, replication):
         """(ShardMap, replication) from the recovered \\xff/keyServers/
@@ -240,7 +296,8 @@ class Cluster:
     def _make_commit_proxy(self, resolve_gate=None, log_gate=None):
         return CommitProxy(self.sequencer, self.resolvers, self.tlog,
                            self.storages, self.knobs, self.ratekeeper,
-                           dd=self.dd, resolve_gate=resolve_gate,
+                           dd=self.dd, change_feeds=self.change_feeds,
+                           regions=self.regions, resolve_gate=resolve_gate,
                            log_gate=log_gate)
 
     def _build_txn_frontend(self):
@@ -321,6 +378,23 @@ class Cluster:
         """One failure-monitor round; returns [(role, index), ...] of the
         recruitments made."""
         events = []
+        # the loss of the whole primary region comes first: with its
+        # logs dead the transaction-system recovery below cannot read a
+        # frontier, and the satellite log is the only durable state
+        # left. A coordination failure part way leaves the roles dead and
+        # the next round retries
+        reg = self.regions
+        if reg is not None and reg.should_failover(self):
+            with self._recovery_mu:
+                if reg.should_failover(self):
+                    try:
+                        self._region_failover()
+                    except CoordinatorDown as e:
+                        reg.note_failed_attempt(e)
+                        return events
+                    events.append(("region-failover", 0))
+                    self.recruitments += 1
+                    return events
         if not self.sequencer.alive or not self._commit_target().alive:
             # a transaction-system recovery: new generation, fresh
             # sequencer and proxies, resolvers fenced; storage and the
@@ -344,14 +418,19 @@ class Cluster:
         self.recruitments += len(events)
         return events
 
-    def _recover_txn_system(self, trigger="role_failure"):
+    def _recover_txn_system(self, new_resolver_lanes=None,
+                            trigger="role_failure"):
         """The recovery state machine for a dead sequencer or commit
         proxy (ref: fdbserver/ClusterRecovery.actor.cpp): quiesce the old
         proxies, win a new generation at the coordinators, restart the
         version authority above everything the log acked, fence the
         resolvers at that version (pre-death read versions retry
         TOO_OLD) and recruit fresh proxies over the same storage and
-        logs. Each phase is marked in ``recovery_timeline``."""
+        logs. Each phase is marked in ``recovery_timeline``.
+        ``new_resolver_lanes`` (configure's resize) builds resolvers of
+        that many lanes here, after the quiesce, and releases the old
+        ones' history and compiled steps; otherwise each resolver is
+        respawned, handing its own over."""
         rec = self.recovery_timeline.begin(trigger)
         old_proxy = self.commit_proxy
         old_inners = self._inner_proxies()
@@ -372,15 +451,27 @@ class Cluster:
         gen = self.generation = self._win_generation(recovered)
         rec.phase("cas")
         self.sequencer = Sequencer(start_version=recovered)
-        for i, r in enumerate(self.resolvers):
-            self.resolvers[i] = r.respawn(recovered)
-        # the lock is cluster state, not proxy state: it survives
+        if new_resolver_lanes is None:
+            for i, r in enumerate(self.resolvers):
+                self.resolvers[i] = r.respawn(recovered)
+        else:
+            old = list(self.resolvers)
+            # in place: the quiesced proxies share this list
+            self.resolvers[:] = self._make_resolvers(
+                new_resolver_lanes, recovered, self.device)
+            for r in old:
+                r.kill()
+                r.release()
+        # the lock and the tenant mode are cluster state, not proxy
+        # state: they survive
         lock_uid = old_inners[0].lock_uid
+        tenant_mode = old_inners[0].tenant_mode
         old_grv = self.grv_proxy
         self.commit_proxy, self.grv_proxy = self._build_txn_frontend()
         rec.phase("recruit")
         target = self._commit_target()
         target.lock_uid = lock_uid
+        target.tenant_mode = tenant_mode
         target.update_resolver_ranges(fence=False)
         rec.phase("replay")
         if self.commit_pipeline != "sync":
@@ -393,6 +484,75 @@ class Cluster:
         rec.phase("accept")
         rec.finish(gen, recovered)
 
+    def _region_failover(self):
+        """Promote the remote region after the loss of the whole primary
+        (ref: ClusterRecovery recruiting from a remote region when the
+        primary's logs are lost). The phases of ``_recover_txn_system``
+        under trigger ``region_failover``, with two substitutions: the
+        satellite log becomes the log (its frontier bounds what
+        survives: every acked commit in sync mode, all but the measured
+        lag in async), and a fresh storage fleet replays it from its
+        seed snapshot, keeping what each storage owns under the shard
+        map. The resolvers are respawned fenced at the frontier, taking
+        their predecessors' history and compiled steps. The caller holds
+        ``_recovery_mu``."""
+        reg = self.regions
+        rec = self.recovery_timeline.begin("region_failover")
+        old_proxy = self.commit_proxy
+        old_inners = self._inner_proxies()
+        old_grv = self.grv_proxy
+        old_storages = list(self.storages)
+        for p in old_inners:
+            p.kill()
+        self.sequencer.kill()
+        with contextlib.ExitStack() as stack:
+            for p in old_inners:
+                stack.enter_context(p._commit_mu)
+            frontier = reg.position
+        rec.phase("fence")
+        # CoordinatorDown here: nothing is promoted yet, every role is
+        # still dead, and the caller counts a failed attempt
+        gen = self.generation = self._win_generation(frontier)
+        rec.phase("cas")
+        self.tlog = reg.promote_log()
+        self.sequencer = Sequencer(start_version=frontier)
+        for i, r in enumerate(self.resolvers):
+            self.resolvers[i] = r.respawn(frontier)
+        rec.phase("recruit")
+        # the primary's engines are lost with the region: the new fleet
+        # starts empty and swaps in place (DD, the router and the
+        # proxies share the list); the fleet's shape is unchanged, so
+        # the shard map stays valid
+        records = self.tlog.peek(0)
+        for sid in range(len(old_storages)):
+            self._replay_storage(sid, None, records, reg.config.remote)
+        for log in self._tlog_replicas():
+            log.region = reg.config.remote
+        self.commit_proxy, self.grv_proxy = self._build_txn_frontend()
+        self._commit_target().update_resolver_ranges(fence=False)
+        # the lock, the tenant mode and the quotas re-derive from the
+        # replayed system keys (the seed and the stream carried them)
+        self._restore_tenant_config()
+        rec.phase("replay")
+        if self.commit_pipeline != "sync":
+            old_proxy.fail_pending(FDBError.from_name("commit_unknown_result"))
+        old_proxy.close()
+        if hasattr(old_grv, "close"):
+            old_grv.close()
+        for old in old_storages:
+            old.engine.close()
+            # watches parked on the lost storages fire: clients re-read
+            for key in list(old._watches):
+                for w in old._watches.pop(key):
+                    w._fire()
+        rec.phase("accept")
+        rec.finish(gen, frontier)
+        reg.note_failover(rec.record["total_ms"])
+
+    def _tlog_replicas(self):
+        return (self.tlog.logs if isinstance(self.tlog, TLogSystem)
+                else [self.tlog])
+
     def _recruit_storage(self, sid):
         """Replace a dead storage by rebooting on its durable engine and
         replaying the log from its durable version, keeping the
@@ -401,19 +561,28 @@ class Cluster:
         the gap, as the pump never pops past a dead storage's durable
         version."""
         old = self.storages[sid]
-        smap = self.dd.map if self.replication < len(self.storages) else None
-        new = StorageServer.recover(
-            old.engine, self.tlog.peek(old.engine.stored_version()),
-            self.knobs.max_read_transaction_life_versions,
-            owns=(None if smap is None
-                  else lambda m: self._storage_owns(smap, sid, m)))
-        new.counters = old.counters  # counters survive recruitment
-        # the proxies, DD and the router share this list
-        self.storages[sid] = new
+        self._replay_storage(sid, old.engine,
+                             self.tlog.peek(old.engine.stored_version()),
+                             old.region)
         # watches parked on the dead instance fire: clients re-read
         for key in list(old._watches):
             for w in old._watches.pop(key):
                 w._fire()
+
+    def _replay_storage(self, sid, engine, records, region):
+        """Install storage ``sid``'s replacement: ``engine`` (None: a
+        fresh memory engine) replaying ``records``, keeping what ``sid``
+        owns under the shard map, its counters carried over and its
+        placement tag ``region``. The proxies, DD and the router share
+        the list it is swapped into."""
+        smap = self.dd.map if self.replication < len(self.storages) else None
+        new = StorageServer.recover(
+            engine, records, self.knobs.max_read_transaction_life_versions,
+            owns=(None if smap is None
+                  else lambda m: self._storage_owns(smap, sid, m)))
+        new.counters = self.storages[sid].counters
+        new.region = region
+        self.storages[sid] = new
 
     @staticmethod
     def _storage_owns(smap, sid, m):
@@ -578,9 +747,129 @@ class Cluster:
     def lock_uid(self):
         return self._commit_target().lock_uid
 
+    def set_tenant_mode(self, mode):
+        """Switch the proxies' enforcement (TenantManagement persists
+        the system row)."""
+        self._commit_target().tenant_mode = mode
+
+    def tenant_mode(self):
+        return self._commit_target().tenant_mode
+
     def set_tag_quota(self, tag, tps):
-        """An operator's rate limit for a tag (None clears it)."""
+        """An operator's rate limit for a tag (None clears it; tenant
+        quotas are tag quotas)."""
         self.ratekeeper.set_tag_quota(tag, tps)
+
+    # ── live reconfiguration and regions ──
+    def resolver_lanes(self):
+        return sum(getattr(r, "n_lanes", 1) for r in self.resolvers)
+
+    def configure(self, commit_proxies=None, resolvers=None, regions=None):
+        """Live reconfiguration (ref: fdbcli ``configure proxies=N
+        resolvers=N regions=<json>``, which forces a recovery): a change
+        of the commit-proxy count, the resolver lanes or the regions
+        rides a transaction-system recovery over the same storage and
+        logs; the new resolvers open fenced at the recovered version.
+        ``regions`` takes a RegionConfig, a dict or JSON, validated
+        before the recovery, or ``"off"`` / ``{}`` to detach; a new
+        region config attaches after the recovery and persists in
+        ``\\xff/conf/regions``. A call that changes nothing recovers
+        nothing: the lanes compare against the lanes last requested,
+        and a region config against the current one. Returns the
+        shape."""
+        for v in (commit_proxies, resolvers):
+            if v is not None and int(v) < 1:
+                raise err("invalid_option_value")
+        region_off = regions in ("off", b"off", "", {})
+        new_region_cfg = None
+        if regions is not None and not region_off:
+            new_region_cfg = RegionConfig.parse(regions)
+        with self._recovery_mu:
+            changed = False
+            lanes = None
+            region_change = False
+            if (commit_proxies is not None
+                    and int(commit_proxies) != self.n_commit_proxies):
+                self.n_commit_proxies = int(commit_proxies)
+                changed = True
+            if resolvers is not None:
+                current = (getattr(self, "_requested_resolver_lanes", None)
+                           or self.resolver_lanes())
+                if int(resolvers) != current:
+                    lanes = int(resolvers)
+                    self._requested_resolver_lanes = lanes
+                    changed = True
+            if regions is not None:
+                if region_off:
+                    region_change = self.regions is not None
+                else:
+                    region_change = (self.regions is None
+                                     or self.regions.config != new_region_cfg)
+                changed = changed or region_change
+            if changed:
+                self._recover_txn_system(new_resolver_lanes=lanes,
+                                         trigger="configure")
+            if region_change:
+                if new_region_cfg is None:
+                    self._detach_regions()
+                else:
+                    self._attach_regions(new_region_cfg, persist=True)
+        shape = {"commit_proxies": self.n_commit_proxies,
+                 "resolver_lanes": self.resolver_lanes()}
+        if regions is not None:
+            shape["regions"] = (self.regions.config.to_json()
+                                if self.regions is not None else None)
+        return shape
+
+    def _attach_regions(self, config, persist=True):
+        """Install the RegionReplicator for ``config``: the satellite log
+        at ``<wal_path>.satellite`` (in memory when the cluster is), the
+        region tags on the primary's logs and storages, the live proxies
+        given the replicator (sync mode gates their commits), and in a
+        thread pipeline the streamer started. ``persist`` writes the
+        \\xff/conf/regions row (False when a restart restores it)."""
+        if self.regions is not None:
+            self.regions.drop()
+            self.regions.close()
+        wal = getattr(self.tlog, "wal_path", None)
+        self.regions = RegionReplicator(
+            self, config, wal_path=f"{wal}.satellite" if wal else None)
+        for s in self.storages:
+            s.region = config.primary
+        for log in self._tlog_replicas():
+            log.region = config.primary
+        self._commit_target().regions = self.regions  # a fleet fans out
+        if persist:
+            self._persist_region_config()
+        if self.commit_pipeline == "thread":
+            self.regions.start()
+        return self.regions
+
+    def _detach_regions(self):
+        """``configure(regions="off")``: release the primary log's pin,
+        stop the streamer, close the satellite, clear the tags and the
+        persisted row."""
+        reg, self.regions = self.regions, None
+        if reg is not None:
+            reg.drop()
+            reg.close()
+        for s in self.storages:
+            s.region = None
+        for log in self._tlog_replicas():
+            log.region = None
+        self._commit_target().regions = None
+        self._persist_region_config()
+
+    def _persist_region_config(self):
+        """Write (or clear) the \\xff/conf/regions row through the commit
+        path: durable in the log, restored by WAL recovery, streamed to
+        the satellite. Best effort, as persist_shard_map."""
+        if self.regions is not None:
+            muts = [Mutation(Op.SET, systemdata.CONF_REGIONS,
+                             self.regions.config.to_json().encode())]
+        else:
+            muts = [Mutation(Op.CLEAR, systemdata.CONF_REGIONS)]
+        return self._system_commit(muts)
 
     def database(self):
         from foundationdb_tpu_torch.txn.database import Database
@@ -607,6 +896,9 @@ class Cluster:
                      # one rebalance call: no move is ever in flight
                      "moving_data": False},
             "database_lock_state": _lock_state(self.lock_uid()),
+            "regions": (self.regions.status() if self.regions is not None
+                        else {"configured": False}),
+            "change_feeds": len(self.change_feeds),
             "qos": {
                 "transactions_per_second_limit": rk.target_tps,
                 "batch_transactions_per_second_limit": (
@@ -616,7 +908,7 @@ class Cluster:
                 "tag_throttled_count": rk.tag_throttled_count},
             "recovery": self.recovery_timeline.snapshot(),
             # lanes, not host objects: a 3-lane fleet counts 3
-            "resolvers": sum(getattr(r, "n_lanes", 1) for r in self.resolvers),
+            "resolvers": self.resolver_lanes(),
             "workload": {"transactions": {
                 "committed": {"counter": cp.commit_count},
                 "conflicted": {"counter": cp.conflict_count}}},
@@ -640,7 +932,9 @@ class Cluster:
         """Stop the batcher and GRV threads (committing what is pending),
         release the resolvers' device history, then close the storage
         engine and the log files; later commits answer 1020 (the
-        resolver is down)."""
+        resolver is down). The region streamer stops first."""
+        if self.regions is not None:
+            self.regions.close()
         for frontend in (self.grv_proxy, self.commit_proxy):
             if hasattr(frontend, "close"):
                 frontend.close()

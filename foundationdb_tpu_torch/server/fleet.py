@@ -10,11 +10,10 @@ stateful stages across the fleet (server/proxy.py). These facades give
 the fleet the surface one proxy has:
 
 - ``ProxyFleet`` round-robins client commits across its members, fans
-  the database lock out to every member, derives the host resolvers'
-  ranges once for all of them, and sums their counters;
+  the database lock, the tenant mode and the region replicator out to
+  every member, derives the host resolvers' ranges once for all of
+  them, and sums their counters;
 - ``GrvFleet`` round-robins read-version requests.
-
-Not ported: the tenant mode's fan-out (tenants are not ported).
 """
 
 import itertools
@@ -72,6 +71,25 @@ class ProxyFleet:
         # locked database fails 1038
         for p in self.inners:
             p.lock_uid = uid
+
+    @property
+    def tenant_mode(self):
+        return self.inners[0].tenant_mode
+
+    @tenant_mode.setter
+    def tenant_mode(self, mode):
+        for p in self.inners:
+            p.tenant_mode = mode
+
+    @property
+    def regions(self):
+        return self.inners[0].regions
+
+    @regions.setter
+    def regions(self, replicator):
+        # a sync satellite gates every member's commits
+        for p in self.inners:
+            p.regions = replicator
 
     def update_resolver_ranges(self, fence=True):
         """One member derives (and on a move fences) the ranges; the

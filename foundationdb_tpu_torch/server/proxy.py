@@ -31,11 +31,18 @@ Admission before a batch takes a version: an idempotency id already
 committed answers its original version (``_dedupe_idempotent``); under
 a constrained ratekeeper a read-free request pays its admission here
 (1037); a locked database (``lock_uid``) fails every request that is not
-lock-aware with 1038. An id-carrying request writes its
+lock-aware with 1038; a tenant mode other than ``"optional"`` fails a
+request that writes outside the space the mode allows (2130 / 2134,
+``_tenant_mode_violation``). An id-carrying request writes its
 ``\\xff\\x02/idmp/`` row with the commit, and conflicts on it, and expired
-rows are cleared every ``pump_interval`` batches. Not ported: tenant
-modes, regions, change feeds, metrics and spans; where the reference
-tests for one of them, the port takes the branch it takes when absent.
+rows are cleared every ``pump_interval`` batches.
+
+After the log has a batch: with a sync satellite (server/region.py) the
+batch reaches the remote region's log before any storage applies it or
+any client sees its ack; the change feeds (server/changefeed.py) get its
+mutations after the storage apply and before the version is readable.
+Not ported: metrics and spans; where the reference tests for one of
+them, the port takes the branch it takes when absent.
 """
 
 import threading
@@ -132,7 +139,8 @@ class CommitProxy:
     IDMP_RETENTION_WINDOWS = 10
 
     def __init__(self, sequencer, resolvers, tlog, storages, knobs,
-                 ratekeeper=None, dd=None, resolve_gate=None, log_gate=None):
+                 ratekeeper=None, dd=None, change_feeds=None, regions=None,
+                 resolve_gate=None, log_gate=None):
         self.alive = True
         self.sequencer = sequencer
         # the cluster's own list: a recruit replacing an entry is seen here
@@ -145,6 +153,14 @@ class CommitProxy:
         self.dd = dd  # data distribution: the shard map and byte accounting
         # the database lock's uid (None: unlocked); the cluster sets it
         self.lock_uid = None
+        # "optional", "required" or "disabled" (layers/tenant.py); the
+        # cluster sets it
+        self.tenant_mode = "optional"
+        # the cluster's ChangeFeedRegistry (shared by a fleet's members)
+        self.change_feeds = change_feeds
+        # the cluster's RegionReplicator, or None; the cluster swaps it
+        # when regions are configured or removed
+        self.regions = regions
         self.idmp_dedupe_hits = 0
         # fleet ordering (None when this proxy is the whole fleet)
         self.resolve_gate = resolve_gate
@@ -294,6 +310,29 @@ class CommitProxy:
                 results[i] = res
         return results
 
+    @staticmethod
+    def _tenant_mode_violation(mode, mutations):
+        """The structural tenant-mode check, by key range: tenant data
+        lives in [\\xfd, \\xfe), plain user data in [, \\xfd) and
+        [\\xfe, \\xff), system keys (exempt) from \\xff. A clear range is
+        judged by its whole span: one that straddles a boundary violates
+        whichever space the mode forbids."""
+        for m in mutations:
+            if m.key >= b"\xff":
+                continue
+            if m.op == Op.CLEAR_RANGE:
+                b, e = m.key, min(m.param, b"\xff")
+                touches_tenant = b < b"\xfe" and e > b"\xfd"
+                touches_plain = b < b"\xfd" or e > b"\xfe"
+            else:
+                touches_tenant = m.key.startswith(b"\xfd")
+                touches_plain = not touches_tenant
+            if mode == "required" and touches_plain:
+                return "tenant_name_required"
+            if mode == "disabled" and touches_tenant:
+                return "tenants_disabled"
+        return None
+
     def _idmp_lookup(self, idempotency_id):
         """The commit version recorded for ``idempotency_id``, or None,
         read from a live storage's system keys (replicated everywhere) at
@@ -382,6 +421,13 @@ class CommitProxy:
                 lambda r: None if r.lock_aware else "database_locked")
             if out is not None:
                 return out
+        mode = self.tenant_mode
+        if mode != "optional":
+            out = self._partition_rejects(
+                requests,
+                lambda r: self._tenant_mode_violation(mode, r.mutations))
+            if out is not None:
+                return out
         try:
             prev, cv = self.sequencer.next_commit_versions(1)[0]
         except SequencerDown:
@@ -454,9 +500,12 @@ class CommitProxy:
             return [self.commit_batch(reqs) for reqs in request_batches]
         try:
             with self._commit_mu:
-                if self.lock_uid is not None:
-                    # checked under the mutex: a lock that landed while
-                    # the backlog queued fences it as commit_batch would
+                if (self.lock_uid is not None
+                        or self.tenant_mode != "optional"):
+                    # checked under the mutex: a lock or a tenant mode
+                    # that landed while the backlog queued applies to it
+                    # as commit_batch would (the reference checks only
+                    # the lock here, so its backlogs skip the mode)
                     return self._commit_each(request_batches)
                 return self._commit_batches_locked(request_batches)
         except GateTimeout:
@@ -556,11 +605,12 @@ class CommitProxy:
 
     def pipeline_eligible(self, request_batches):
         """Stage-A admission: the pipelined route serves the common case.
-        The database lock, a constrained ratekeeper with read-free
-        requests, a dedupe hit, the host resolvers' fan-out and dead
-        roles take the serial commit_batches, which handles them."""
+        The database lock, a tenant mode, a constrained ratekeeper with
+        read-free requests, a dedupe hit, the host resolvers' fan-out and
+        dead roles take the serial commit_batches, which handles them."""
         if (len(self.resolvers) != 1 or not self.alive
-                or not self.sequencer.alive or self.lock_uid is not None):
+                or not self.sequencer.alive or self.lock_uid is not None
+                or self.tenant_mode != "optional"):
             return False
         return not self._needs_serial_route(request_batches)
 
@@ -838,6 +888,13 @@ class CommitProxy:
                     else FDBError.from_name("commit_unknown_result")
                     for r in results]
         self.commit_count += n_ok
+        regions = self.regions
+        if regions is not None and regions.config.satellite_mode == "sync":
+            # the batch reaches the remote region's log before any client
+            # sees its ack: a primary-region loss from here on loses
+            # nothing. A partitioned WAN or a dead satellite degrades to
+            # a counted miss, never a stall
+            regions.sync_push(cv, batch_mutations)
         for sid, muts in enumerate(routed):
             storage = self.storages[sid]
             if not storage.alive:
@@ -855,6 +912,11 @@ class CommitProxy:
                 TraceEvent("StorageApplyFailed", severity=SEV_ERROR).detail(
                     storage=sid, version=cv).log()
                 storage.kill()
+        if self.change_feeds is not None and batch_mutations:
+            # after the log has the batch and before its version is
+            # readable: a consumer reading up to a version it observed
+            # sees that version's entries
+            self.change_feeds.note_commit(cv, batch_mutations)
         self.sequencer.report_committed(cv)
         if self.ratekeeper is not None:
             self.ratekeeper.observe_commit(n_requests, conflicts)

@@ -134,6 +134,9 @@ class StorageServer(RangeReadInterface):
         self._watches = {}  # key -> [Watch]
         self.counters = {"mutations_applied": 0, "point_reads": 0,
                          "range_reads": 0}
+        # placement tag: the primary region's id when regions are
+        # configured (recruitment carries it to the replacement)
+        self.region = None
 
     @classmethod
     def recover(cls, engine, log_records, window_versions=5_000_000,
@@ -435,4 +438,5 @@ class StorageServer(RangeReadInterface):
     def status(self):
         return {"alive": self.alive, "version": self.version,
                 "durable_version": self.durable_version,
+                "region": self.region,
                 "metrics": dict(self.counters)}

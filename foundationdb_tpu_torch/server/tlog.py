@@ -70,6 +70,10 @@ class TLog:
         self._wal = open(wal_path, "ab") if wal_path else None
         self._pop_holds = {}  # name -> version: keep records > version
         self._holds_mu = threading.Lock()
+        # placement tag: the cluster stamps its primary region's id, the
+        # region replicator its satellite replicas' remote id (None: no
+        # regions configured)
+        self.region = None
         # peekers park here instead of polling last_version
         self._data_cond = threading.Condition()
 
@@ -169,7 +173,8 @@ class TLog:
         return self._log[-1][0] if self._log else self._first_version
 
     def status(self):
-        return {"alive": self.alive, "retained_records": len(self._log),
+        return {"alive": self.alive, "region": self.region,
+                "retained_records": len(self._log),
                 "last_version": self.last_version, "pushes": self.pushes,
                 "mutations": self.mutations}
 

@@ -20,7 +20,8 @@ def retry_loop(tr, fn):
     result = None
     while True:
         try:
-            if not tr.repair_ready:
+            # a wrapper (a TenantTransaction) need not carry the flag
+            if not getattr(tr, "repair_ready", False):
                 result = fn(tr)
             tr.commit()
             return result
@@ -92,6 +93,31 @@ class Database:
             self.clear_range(key.start, key.stop)
         else:
             self.clear(key)
+
+    def open_tenant(self, name):
+        from foundationdb_tpu_torch.layers.tenant import Tenant
+
+        return Tenant(self, name)
+
+    # ── change feeds (ref: getChangeFeedStream / the change feed API) ──
+    def register_change_feed(self, feed_id, begin, end):
+        """Subscribe ``feed_id`` to every committed mutation touching
+        [begin, end), streamed in commit-version order."""
+        self._cluster.change_feeds.register(
+            bytes(feed_id), bytes(begin), bytes(end))
+
+    def read_change_feed(self, feed_id, begin_version, end_version=None,
+                         limit=0):
+        """[(version, [Mutation])] with begin_version < v <= end_version;
+        transaction_too_old (1007) below the popped or trimmed frontier."""
+        return self._cluster.change_feeds.read(
+            bytes(feed_id), begin_version, end_version, limit)
+
+    def pop_change_feed(self, feed_id, version):
+        self._cluster.change_feeds.pop(bytes(feed_id), version)
+
+    def deregister_change_feed(self, feed_id):
+        self._cluster.change_feeds.deregister(bytes(feed_id))
 
     def status(self):
         return self._cluster.status()

@@ -25,8 +25,11 @@ bytes, throttled per tag at the GRV: 1213), the GRV priorities
 idempotency ids (``set_idempotency_id``, ``set_automatic_idempotency``:
 an id drawn from core/deterministic.py's ``"idempotency-id"`` stream,
 kept across retries), with which a 1021 is answered by looking the id's
-row up instead of a blind retry. Special keys, tenants and tracing are
-not ported yet.
+row up instead of a blind retry. Tenants wrap a transaction in
+layers/tenant.py's ``TenantTransaction`` (keys under the tenant's
+prefix, the tenant's tag set). Not ported yet: special keys (the
+``\\xff\\xff`` views, which wait on the metrics, heatmap, history and
+consistency-scan modules) and tracing spans.
 """
 
 import time

@@ -468,13 +468,19 @@ def test_api_case_matches_jax(name):
 def test_open_paths_the_port_does_not_take():
     with pytest.raises(NotImplementedError):
         tfdb.open(cluster_file="fdb.cluster", device="cpu")
-    # regions are not an argument of the port's cluster (the commit
-    # pipeline and proxy count are: test_torch_pipeline; the resolver
-    # count: test_torch_sharded; the log count and the durability
-    # arguments: test_torch_durability; the storage count and the
-    # replication: test_torch_datadistribution)
-    with pytest.raises(TypeError):
-        TCluster(device="cpu", regions={}, **TEST_KNOBS)
+    # an empty region config is refused before any role starts, as the
+    # reference refuses it (valid configs: test_torch_regions; the commit
+    # pipeline and proxy count: test_torch_pipeline; the resolver count:
+    # test_torch_sharded; the log count and the durability arguments:
+    # test_torch_durability; the storage count and the replication:
+    # test_torch_datadistribution)
+    codes = []
+    for make, error in ((JCluster, JError),
+                        (functools.partial(TCluster, device="cpu"), TError)):
+        with pytest.raises(error) as ei:
+            make(regions={}, **TEST_KNOBS)
+        codes.append(ei.value.code)
+    assert codes == [2006, 2006]
     # nor are an injected coordination quorum (the reference's remote
     # coordinators) and a coordinator count: three local ones serve
     with pytest.raises(TypeError):

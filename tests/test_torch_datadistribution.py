@@ -12,6 +12,7 @@ resolver and compares its 12 state fields too.
 """
 
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -397,3 +398,68 @@ def test_replicated_cluster_matches_jax_end_to_end():
         np.testing.assert_array_equal(a, b)
     assert any(r == ("err", 1020) for b in got[0:10:2] for r in b)
 
+
+
+def _mixed_rounds(side, route, seed, rounds=8, txns=40):
+    """Rounds of ``db.run`` transactions mixing sets, ``add``,
+    ``byte_max``, versionstamped keys and 2% clear ranges, each with a
+    read, on ``double`` replication over 3 storages, with a rebalance
+    after each round: through the sync proxy, a 3-proxy fleet or the
+    thread pipeline (one client, so the batches are the same on both)."""
+    kw = dict(n_storage=3, replication=2, resolver_backend="cpu")
+    if route == "fleet":
+        kw["n_commit_proxies"] = 3
+    elif route == "thread":
+        kw["commit_pipeline"] = "thread"
+        if side is JAX:
+            kw.update(health_probe_enabled=False, history_enabled=False,
+                      consistency_scan_enabled=False)
+    c = side.cluster(**dict(TEST_KNOBS, **kw))
+    c.dd.max_shard_bytes = 2000
+    c.dd.min_shard_bytes = 300
+    db = c.database()
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(rounds):
+        for _ in range(txns):
+            plan = [(int(rng.integers(0, 6)), int(rng.integers(0, NKEYS)),
+                     int(rng.integers(20, 200))) for _ in range(3)]
+            clear = rng.random() < 0.02
+            read = _key(int(rng.integers(0, NKEYS)))
+
+            def body(tr, plan=plan, clear=clear, read=read):
+                seen = tr.get(read)
+                for op, k, n in plan:
+                    key = _key(k)
+                    if op <= 2:
+                        tr.set(key, bytes([k % 251]) * n)
+                    elif op == 3:
+                        tr.add(b"ctr" + key[-2:], struct.pack("<q", n))
+                    elif op == 4:
+                        tr.byte_max(key, bytes([n % 256]) * 4)
+                    else:
+                        tr.set_versionstamped_key(
+                            b"vs" + b"\x00" * 10 + struct.pack("<I", 2),
+                            b"%d" % k)
+                if clear:
+                    lo = plan[0][1]
+                    tr.clear_range(_key(lo), _key(lo + 5))
+                return seen
+
+            out.append(db.run(body))
+        out.append(len(c.rebalance()))
+    out += [shard_map(c), [rows(s) for s in c.storages],
+            db.run(lambda tr: tr.get_range(b"", b"\xff", limit=50,
+                                           reverse=True))]
+    c.close()
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("route", ["sync", "fleet", "thread"])
+def test_mixed_atomic_versionstamp_rounds_match_jax(route, seed):
+    want = _mixed_rounds(JAX, route, seed)
+    got = _mixed_rounds(PORT, route, seed)
+    assert got == want
+    assert len(got[-3][0]) > 3  # the map split into several shards
+    assert any(k.startswith(b"vs") for k, _ in got[-2][0])

@@ -1,12 +1,15 @@
 """The two packages' names for the cluster-level parity tests of
 replication, the ratekeeper and the system keys
 (tests/test_torch_datadistribution.py, test_torch_ratekeeper.py,
-test_torch_systemkeys.py): each test writes its script once against a
+test_torch_systemkeys.py), of regions, change feeds and the layers
+(test_torch_regions.py, test_torch_changefeed.py,
+test_torch_layers.py): each test writes its script once against a
 ``Side`` and runs it on the JAX package and on the port (its cluster on
 ``device="cpu"``), then compares what the two returned, at tolerance 0.
 """
 
 import functools
+import importlib
 
 import numpy as np
 
@@ -17,6 +20,11 @@ from foundationdb_tpu.core.errors import FDBError as JError
 from foundationdb_tpu.core.keys import KeySelector as JSelector
 from foundationdb_tpu.core.mutations import Mutation as JMutation
 from foundationdb_tpu.core.mutations import Op as JOp
+from foundationdb_tpu.layers import subspace as jsubspace
+from foundationdb_tpu.layers import tenant as jtenant
+from foundationdb_tpu.layers import tuple as jtuple
+from foundationdb_tpu.server import coordination as jcoordination
+from foundationdb_tpu.server import region as jregion
 from foundationdb_tpu.server import grv as jgrv
 from foundationdb_tpu.server import tlog as jtlog
 from foundationdb_tpu.server.cluster import Cluster as JCluster
@@ -35,6 +43,11 @@ from foundationdb_tpu_torch.core.errors import FDBError as TError
 from foundationdb_tpu_torch.core.keys import KeySelector as TSelector
 from foundationdb_tpu_torch.core.mutations import Mutation as TMutation
 from foundationdb_tpu_torch.core.mutations import Op as TOp
+from foundationdb_tpu_torch.layers import subspace as tsubspace
+from foundationdb_tpu_torch.layers import tenant as ttenant
+from foundationdb_tpu_torch.layers import tuple as ttuple
+from foundationdb_tpu_torch.server import coordination as tcoordination
+from foundationdb_tpu_torch.server import region as tregion
 from foundationdb_tpu_torch.server import grv as tgrv
 from foundationdb_tpu_torch.server import tlog as ttlog
 from foundationdb_tpu_torch.server.cluster import Cluster as TCluster
@@ -45,6 +58,12 @@ from foundationdb_tpu_torch.server.datadistribution import ShardMap as TShardMap
 from foundationdb_tpu_torch.server.ratekeeper import Ratekeeper as TRatekeeper
 from foundationdb_tpu_torch.server.sequencer import Sequencer as TSequencer
 from foundationdb_tpu_torch.server.storage import StorageServer as TStorage
+
+
+# the layers packages export a ``directory`` object under the submodule's
+# name: take the modules themselves
+jdirectory = importlib.import_module("foundationdb_tpu.layers.directory")
+tdirectory = importlib.import_module("foundationdb_tpu_torch.layers.directory")
 
 
 class Side:
@@ -58,13 +77,17 @@ JAX = Side("jax", cluster=JCluster, request=JRequest, error=JError,
            tlog=jtlog, ratekeeper=JRatekeeper, sequencer=JSequencer,
            storage=JStorage, shard_map=JShardMap, dd=JDataDistributor,
            systemdata=jsystemdata, deterministic=jdeterministic,
+           region=jregion, coordination=jcoordination, tuple=jtuple,
+           subspace=jsubspace, directory=jdirectory, tenant=jtenant,
            state=lambda c: [np.asarray(f) for f in c.resolvers[0].state])
 PORT = Side("port", cluster=functools.partial(TCluster, device="cpu"),
             request=TRequest, error=TError, selector=TSelector,
             mutation=TMutation, op=TOp, grv=tgrv, tlog=ttlog,
             ratekeeper=TRatekeeper, sequencer=TSequencer, storage=TStorage,
             shard_map=TShardMap, dd=TDataDistributor, systemdata=tsystemdata,
-            deterministic=tdeterministic,
+            deterministic=tdeterministic, region=tregion,
+            coordination=tcoordination, tuple=ttuple, subspace=tsubspace,
+            directory=tdirectory, tenant=ttenant,
             state=lambda c: list(state_to_numpy(c.resolvers[0].state)))
 SIDES = (JAX, PORT)
 
