@@ -120,8 +120,8 @@ Phases:
      n_resolvers=3) and through the Python host sets ("cpu", 3) on a
      NATIVE_PRELOAD history: equal outcomes and rows, committed txns/s
      for both, the sub-resolve pool's overlap (sub-resolve ms over the
-     pool's wall ms); then the native fleet alone on CLUSTER_PRELOAD
-     rows (BASELINE config 5's 1M): its rate and overlap; no kernel
+     pool's wall ms); then the native fleet alone on NATIVE_FULL_PRELOAD
+     rows (of BASELINE config 5's 1M): its rate and overlap; no kernel
      launch;
  14. double replication, the ratekeeper and system keys, its launch and
      graph counts zeroed first: FoundationDB's ``double`` mode
@@ -181,10 +181,41 @@ Phases:
      tenant only, a restart restoring the mode, the quota and the region
      row; (g) a card and a CPU cluster given the phase's script at
      REGION_TWIN_PRELOAD rows: outcomes, rows per storage, the feed, the
-     region status and the 12 state fields equal.
+     region status and the 12 state fields equal;
+ 16. observability, its launch and graph counts zeroed first, on phase
+     14's deployment (``double`` replication on 3 storages and 3 logs)
+     as a thread pipeline whose latency prober, history collector and
+     consistency scanner run on their daemon threads, tracing at
+     OBS_TRACING_RATE: (a) OBS_PRELOAD rows of 1 KB and the map settled
+     at OBS_SHARD_BYTES a shard,
+     every step precompiled, then OBS_TXNS range-heavy db.run
+     transactions on 64 threads and an OCC pair: the verdict healthy,
+     probes with a commit band, at least 3 history windows, a whole scan
+     round with no inconsistency, hot ranges in all three dimensions,
+     spans emitted, the device profile's fused_accept route count equal
+     to the live batches its dispatches served and to fused_accept's
+     launches over the drive less the backlog scans' pads (the script
+     tallies each dispatch's route and slots), every fallback cause 0,
+     its compiles equal to the graph captures, the roles' latency bands
+     and the profile's walls a dispatch; (b) a transaction-system
+     recovery and OBS_RECOVERY_TXNS more: committed, started, the
+     profile's dispatches and the probes never go back, card memory
+     within 5%; (c) a row written on one replica past the commit path:
+     the scanner confirms it, the verdict turns degraded with
+     data_inconsistent, consistency_check() lists it (both clean
+     before); (d) on a sync cluster, OBS_SMOKE_PAIRS interleaved pairs
+     of 12-batch range-heavy commit_batch runs with every module on and
+     with every module's switch off (tracing at 0): the medians and
+     their ratio, printed, not gated; then a pipelined group's
+     dispatch under set_sync_debug_mode("error");
+     (e) a card and a CPU cluster given the phase's script on a sync
+     pipeline at OBS_TWIN_PRELOAD rows under a clock that moves only
+     where the script ticks it: the status documents equal apart from
+     each resolver's device and graphs and the process-wide trace
+     counters. The phase's seconds and the script's are printed.
 
 Every Resolver step runs as a CUDA graph replay (ops/conflict.StaticStep).
-Each of phases 4, 5, 8, 9, 10, 12, 14 and 15 zeroes the graph counts with the
+Each of phases 4, 5, 8, 9, 10, 12, 14, 15 and 16 zeroes the graph counts with the
 launch counts and checks after its drive that it captured, that every
 dispatch was a replay, and that no resolver step ran eagerly on the
 card (a wrapper counts calls of the eager steps on card tensors outside
@@ -196,6 +227,7 @@ non-zero before printing any result. The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -1233,7 +1265,9 @@ def phase_partitioned(streams):
 PIPE_PRELOAD = 1_000_000  # BASELINE config 2's key count, 1 KB rows
 PIPE_PRELOAD_ROWS = 100  # rows per blind-set preload transaction
 PIPE_CLIENTS = 64  # client threads (BASELINE config 3: 64 clients)
-PIPE_TXNS = 20_032  # per client stream: 313 transactions a thread
+# per client stream: 78 transactions a thread (20,032 until phase 16
+# came: this cut and phase 13's native preload pay for its time)
+PIPE_TXNS = 4_992
 FLEET_PROXIES = 3
 FLEET_INCREMENTS = 200  # read-modify-write increments per thread
 FLEET_COUNTERS = 16
@@ -1241,9 +1275,15 @@ PIPE_REPLAY_REQUESTS = 128  # 8 chunks of 16: two pipelined groups of 4
 PIPE_SMALL_CAP = 16  # requests per chunk in the pipelined range stream
 # the cap-16 stream's depth: under transaction repair its hot-range
 # conflicts resubmit without a backoff and the stream ran 220 s at
-# PIPE_TXNS on an H100 (PERF.md §6); a quarter keeps the run near 7 minutes
+# 20,032 transactions on an H100 (PERF.md §6); a quarter of those keeps the
+# run near 7 minutes
 PIPE_SMALL_CAP_TXNS = 5_056  # 79 transactions a thread
 CLIENT_DEADLINE_S = 400  # a client stream that outlasts this has hung
+# phases 9-15 measure their thread pipelines without the prober, the
+# history collector and the scanner, as before those existed; phase 16
+# runs them
+QUIET = dict(health_probe_enabled=False, history_enabled=False,
+             consistency_scan_enabled=False)
 
 
 def run_clients(n, body):
@@ -1361,7 +1401,7 @@ def phase_pipeline():
 
     reset_counts()
     report = {}
-    c = Cluster(commit_pipeline="thread")
+    c = Cluster(commit_pipeline="thread", **QUIET)
     db = c.database()
     bp = c.commit_proxy
     log(f"[pipeline] Cluster(commit_pipeline='thread') on {c.device}: depth "
@@ -1517,7 +1557,8 @@ def phase_fleet():
     read-modify-write increments on 16 counters."""
     from foundationdb_tpu_torch.server.cluster import Cluster
 
-    c = Cluster(commit_pipeline="thread", n_commit_proxies=FLEET_PROXIES)
+    c = Cluster(commit_pipeline="thread", n_commit_proxies=FLEET_PROXIES,
+                **QUIET)
     db = c.database()
     keys = [b"counter%02d" % i for i in range(FLEET_COUNTERS)]
     retries = [0] * PIPE_CLIENTS
@@ -1609,7 +1650,7 @@ def phase_pipeline_replay():
     from foundationdb_tpu_torch.server.cluster import Cluster
 
     def drive(device):
-        c = Cluster(device=device, commit_pipeline="thread",
+        c = Cluster(device=device, commit_pipeline="thread", **QUIET,
                     commit_batch_max=16, commit_pipeline_depth=2,
                     max_read_transaction_life_versions=12_000)
         try:
@@ -1782,7 +1823,12 @@ RECOVERY_COUNTERS = 16
 RECOVERY_KILLS = ("commit_proxy", "sequencer", "commit_proxy")
 NATIVE_PRELOAD = 16_384  # phase 13's native-against-Python check: the
 # Python host sets' checks grow with the history (3.3 s a batch at a
-# 100,000-row preload); the native sets alone then run on CLUSTER_PRELOAD
+# 100,000-row preload); the native sets alone then run on
+# NATIVE_FULL_PRELOAD rows
+# config 5's 1M rows cut tenfold, as phases 10b and 14-16 hold: the 1M
+# preload through the host fleet took 77-99 s, which phase 16's time
+# is paid from (PERF.md section 6, PR 12)
+NATIVE_FULL_PRELOAD = 100_000
 
 
 def durable_cluster(d, **kw):
@@ -1952,7 +1998,7 @@ def phase_txn_recovery():
     from foundationdb_tpu_torch.txn.transaction import Transaction
 
     reset_counts()
-    c = Cluster(commit_pipeline="thread")
+    c = Cluster(commit_pipeline="thread", **QUIET)
     db = c.database()
     keys = [b"counter%02d" % i for i in range(RECOVERY_COUNTERS)]
     total = RECOVERY_CLIENTS * RECOVERY_INCREMENTS
@@ -2159,7 +2205,7 @@ def phase_native(stream):
     """Phase 13: the range-heavy stream through three host resolvers on
     the proxy's sub-resolve pool, native (C++) and Python sets, on a
     NATIVE_PRELOAD history: equal outcomes and rows; then the native
-    sets alone on CLUSTER_PRELOAD rows; no kernel launch in either."""
+    sets alone on NATIVE_FULL_PRELOAD rows; no kernel launch in either."""
     from foundationdb_tpu_torch.ops import _kernels
     from foundationdb_tpu_torch.ops import conflict as ck
 
@@ -2176,7 +2222,7 @@ def phase_native(stream):
         "native and Python host resolvers left different rows"
     log(f"[native] outcomes and {len(seen['cpu'][1])} rows equal")
     report["native_full"], _, left = native_fleet(
-        "native", CLUSTER_PRELOAD, stream, value)
+        "native", NATIVE_FULL_PRELOAD, stream, value)
     report["native_full"]["rows_left"] = len(left)
     launches = dict(_kernels.launches)
     assert not any(launches.values()), launches
@@ -2413,7 +2459,8 @@ def rk_run(target_tps, tagged=4, quota=1.0):
 
     from foundationdb_tpu_torch.txn.transaction import Transaction
 
-    c = repl_cluster(commit_pipeline="thread", target_tps=target_tps)
+    c = repl_cluster(commit_pipeline="thread", target_tps=target_tps,
+                     **QUIET)
     c.set_tag_quota("quota", quota)
     db = c.database()
     stop = threading.Event()
@@ -3040,7 +3087,7 @@ def tenant_arm(d):
 
     kw = dict(wal_path=os.path.join(d, "wal"),
               coordination_dir=os.path.join(d, "coordinators"))
-    c = region_cluster(mode="async", commit_pipeline="thread", **kw)
+    c = region_cluster(mode="async", commit_pipeline="thread", **QUIET, **kw)
     db = c.database()
     names = [b"tenant%02d" % i for i in range(TENANTS)]
     for name in names:
@@ -3210,6 +3257,525 @@ def phase_regions(stream, rh_rate):
     return report, launches
 
 
+OBS_PRELOAD = 100_000  # config 2's 1M rows cut tenfold, as in phase 14
+OBS_TXNS = 6_400  # (a): range-heavy db.run transactions, 100 a thread
+OBS_RECOVERY_TXNS = 1_280  # (b): after the recovery, 20 a thread
+OBS_TRACING_RATE = 0.01
+# the shard size (a): FoundationDB's shards hold hundreds of MB; at DD's
+# 250,000 B default phase 14's 100 MB split into 512 shards, which a
+# scan round walks a batch each, every batch waiting on its cursor's
+# commit. At 4 MB the map holds tens of shards
+OBS_SHARD_BYTES = 4_000_000
+# (a)'s scan: a batch of up to this many keys every ~1.5 intervals, not
+# paced by bytes, so a whole round over the 100,000 rows ends inside the
+# drive
+OBS_SCAN_BATCH_KEYS = 2_048
+OBS_SCAN_INTERVAL_S = 0.002
+OBS_HISTORY_CADENCE_S = 0.5
+OBS_SCAN_DEADLINE_S = 60.0  # (c): the planted row confirmed within this
+OBS_SMOKE_PRELOAD = 16_384  # (d)'s sync cluster: the ratio needs no more
+OBS_SMOKE_BATCHES = 12
+OBS_SMOKE_PAIRS = 5
+OBS_TWIN_PRELOAD = 2048
+OBS_MEMORY_SLACK = 0.05
+OBS_MODULES = ("metrics", "heatmap", "deviceprofile", "health", "timeseries",
+               "consistencyscan")
+
+
+def obs_knobs():
+    return dict(tracing_sample_rate=OBS_TRACING_RATE,
+                consistency_scan_batch_keys=OBS_SCAN_BATCH_KEYS,
+                consistency_scan_interval_s=OBS_SCAN_INTERVAL_S,
+                scan_rate_bytes_per_s=0.0,
+                history_cadence_s=OBS_HISTORY_CADENCE_S)
+
+
+def obs_modules():
+    """The kill switch of each observability module."""
+    import importlib
+
+    mods = {"metrics": "utils.metrics", "heatmap": "utils.heatmap",
+            "deviceprofile": "utils.deviceprofile",
+            "health": "server.health", "timeseries": "utils.timeseries",
+            "consistencyscan": "server.consistencyscan"}
+    return [importlib.import_module("foundationdb_tpu_torch." + mods[n])
+            for n in OBS_MODULES]
+
+
+class RouteTally:
+    """One resolver's two dispatch sites (the single step and the
+    backlog scan) wrapped so that each dispatch's route, live batches
+    and batch slots (pads included) are tallied; a dispatch holds
+    ``lock`` from its kernels' launch to its profile record, so a
+    snapshot under it sees none half counted. ``close`` unwraps."""
+
+    def __init__(self, r):
+        import threading
+
+        self.r, self.lock = r, threading.Lock()
+        self.live, self.slots, self.backlogs = {}, {}, 0
+        step, scan = r._profiled_step, r._scan
+
+        def add(use_fast, live, slots):
+            route = r._kernel_route(use_fast)
+            self.live[route] = self.live.get(route, 0) + live
+            self.slots[route] = self.slots.get(route, 0) + slots
+            self.backlogs += slots > 1
+
+        def profiled_step(use_fast, batch, n, *a, **kw):
+            with self.lock:
+                out = step(use_fast, batch, n, *a, **kw)
+                add(use_fast, 1, 1)
+            return out
+
+        def scan_(use_fast, stacked, n_batches, *a, **kw):
+            with self.lock:
+                out = scan(use_fast, stacked, n_batches, *a, **kw)
+                add(use_fast, n_batches, stacked.rv.shape[0])
+            return out
+
+        r._profiled_step, r._scan = profiled_step, scan_
+
+    def snapshot(self):
+        return dict(live=dict(self.live), slots=dict(self.slots),
+                    backlogs=self.backlogs)
+
+    def close(self):
+        del self.r._profiled_step, self.r._scan
+
+
+def obs_counts(c, tally=None):
+    """The counters the phase holds across its arms, read under the
+    commit mutex (which every single-batch dispatch takes) and the
+    tally's lock (which every dispatch of its resolver takes) so that no
+    dispatch lands between them: the workload counters, the probes, the
+    device profile's aggregate, the launch and graph counts, the
+    tally's."""
+    from foundationdb_tpu_torch.ops import _kernels
+    from foundationdb_tpu_torch.ops import conflict as ck
+
+    with c._commit_target()._commit_mu, (
+            tally.lock if tally else contextlib.nullcontext()):
+        st = c.status()["cluster"]
+        return dict(status=st, launches=dict(_kernels.launches),
+                    graphs=dict(ck.graph_counts),
+                    profile=st["device"]["aggregate"],
+                    tally=tally.snapshot() if tally else None,
+                    counters={k: v["counter"] for k, v in
+                              st["workload"]["transactions"].items()})
+
+
+def obs_drive(db, txns, seed):
+    """``txns`` range-heavy transactions (config 5's shapes: an 8-key
+    scan and a 4-key clear, Zipfian over config 2's 1M keys, of which
+    the preload holds the first OBS_PRELOAD, as phases 14 and 15 drive
+    them) on PIPE_CLIENTS threads; returns the wall seconds."""
+    from foundationdb_tpu_torch import workloads
+
+    per = txns // PIPE_CLIENTS
+    cdf = workloads.zipfian_cdf(workloads.NKEYS, workloads.THETA)
+    samplers = [workloads.zipfian_sampler(
+        workloads.NKEYS, workloads.THETA, np.random.default_rng(seed + i),
+        cdf) for i in range(PIPE_CLIENTS)]
+
+    def client(i):
+        for _ in range(per):
+            a, b = (int(x) for x in samplers[i](2))
+
+            def txn(tr, a=a, b=b):
+                tr.get_range(workloads.user_key(a), workloads.user_key(a + 8))
+                tr.clear_range(workloads.user_key(b),
+                               workloads.user_key(b + 4))
+
+            db.run(txn)
+
+    return run_clients(PIPE_CLIENTS, client)
+
+
+def occ_pair(db):
+    """A read-modify-write that loses to a concurrent writer (1020),
+    then commits on its retry: a conflict the heatmap charges."""
+    from foundationdb_tpu_torch.core.errors import FDBError
+
+    t1 = db.create_transaction()
+    t1.get(b"obs/ctr")
+    db.run(lambda tr: tr.set(b"obs/ctr", b"other"))
+    t1.set(b"obs/ctr", b"mine")
+    try:
+        t1.commit()
+    except FDBError as e:
+        assert e.code == 1020, e.code
+        return 1020
+    raise AssertionError("the OCC pair committed both writers")
+
+
+def obs_drive_checks(a, b, wall):
+    """(a)'s checks over the drive window [a, b]."""
+    st = b["status"]
+    health = st["health"]
+    assert health["verdict"] == "healthy", (health["reasons"],
+                                            health["ratekeeper"],
+                                            b["counters"])
+    probe = health["probe"]
+    assert probe["probes"] > a["status"]["health"]["probe"]["probes"], probe
+    assert probe["commit"]["count"] > 0, probe
+    hist = st["history"]
+    assert hist["windows"] >= 3, hist["windows"]
+    scan = st["consistency_scan"]
+    assert scan["round"] > a["status"]["consistency_scan"]["round"], scan
+    assert scan["inconsistencies"] == 0, scan
+    for dim in ("conflict", "read", "write"):
+        assert st["workload"]["hot_ranges"][dim], f"no {dim} heat"
+    assert st["trace"]["spans_emitted"] > a["status"]["trace"][
+        "spans_emitted"], st["trace"]
+    p0, p1 = a["profile"], b["profile"]
+    routes = (p1["kernel_routes"].get("fused_accept", 0)
+              - p0["kernel_routes"].get("fused_accept", 0))
+    launches = b["launches"]["fused_accept"] - a["launches"]["fused_accept"]
+    # a profile route counts a live batch, a launch every slot of a
+    # replay: they differ by the pads of the backlog scans
+    t0, t1 = a["tally"], b["tally"]
+    live = (t1["live"].get("fused_accept", 0)
+            - t0["live"].get("fused_accept", 0))
+    slots = (t1["slots"].get("fused_accept", 0)
+             - t0["slots"].get("fused_accept", 0))
+    pads = slots - live
+    backlogs = t1["backlogs"] - t0["backlogs"]
+    assert routes > 0 and routes == live, (routes, live)
+    assert launches == slots == routes + pads, (launches, slots, routes, pads)
+    assert all(v == 0 for v in p1["fallback_causes"].values()), \
+        p1["fallback_causes"]
+    assert p1["recompiles"] == b["graphs"]["captures"], \
+        (p1["recompiles"], b["graphs"])
+    assert b["graphs"]["captures"] == a["graphs"]["captures"], \
+        "the drive captured a step"
+    assert b["graphs"]["replays"] == b["graphs"]["dispatches"]
+    txns = b["counters"]["committed"] - a["counters"]["committed"]
+    log(f"[observability drive] {OBS_TXNS} range-heavy txns on "
+        f"{PIPE_CLIENTS} threads in {wall:.3f} s: {txns} committed "
+        f"({txns / wall:.1f}/s, probe and scan commits included); verdict "
+        f"{health['verdict']}; probes {probe['probes']} (commit p99 "
+        f"{probe['commit']['p99_ms']} ms); {hist['windows']} history "
+        f"windows; scan round {scan['round']} ({scan['keys_scanned']} keys, "
+        f"{scan['bytes_scanned']} B, last round {scan['last_round_ms']} ms); "
+        f"hot ranges {[len(st['workload']['hot_ranges'][d]) for d in ('conflict', 'read', 'write')]}; "
+        f"spans {st['trace']['spans_emitted']}; fused_accept routes "
+        f"{routes} == launches {launches} less {pads} pads of "
+        f"{backlogs} backlog scans; compiles {p1['recompiles']} == "
+        f"captures; fallback causes all 0")
+    # where a batch's time goes in this deployment, by the roles' bands
+    # (cumulative since the cluster started) and the profile's walls
+    ru = st["metrics"]["rollups"]
+    n_disp = max(1, p1["dispatches"] - p0["dispatches"])
+    split = dict(
+        commit_e2e_p50_ms=ru["commit_latency_p50_ms"],
+        commit_e2e_p99_ms=ru["commit_latency_p99_ms"],
+        grv_p99_ms=ru["grv_latency_p99_ms"],
+        tlog_push_p99_ms=ru["tlog_push_p99_ms"],
+        storage_apply_p99_ms=ru["storage_apply_p99_ms"],
+        storage_apply_p50_ms=[
+            s["metrics"]["latency_ms"]["storage_apply"]["p50_ms"]
+            for s in st["processes"]["storage_servers"]],
+        dispatch_ms_per_dispatch=(p1["dispatch_wall_ms"]
+                                  - p0["dispatch_wall_ms"]) / n_disp,
+        verdict_wait_ms_per_dispatch=(p1["verdict_reduce_wall_ms"]
+                                      - p0["verdict_reduce_wall_ms"]) / n_disp)
+    log(f"[observability split] submit->settle p50 "
+        f"{split['commit_e2e_p50_ms']} / p99 {split['commit_e2e_p99_ms']} "
+        f"ms; grv p99 {split['grv_p99_ms']}; tlog push p99 "
+        f"{split['tlog_push_p99_ms']}; storage apply p50 "
+        f"{split['storage_apply_p50_ms']} / p99 "
+        f"{split['storage_apply_p99_ms']} ms; resolver dispatch "
+        f"{split['dispatch_ms_per_dispatch']:.4f} and statuses' wait "
+        f"{split['verdict_wait_ms_per_dispatch']:.4f} ms a dispatch")
+    return dict(txns=OBS_TXNS, wall_s=wall, committed=txns,
+                committed_per_s=txns / wall, probes=probe["probes"],
+                probe_commit_p99_ms=probe["commit"]["p99_ms"],
+                windows=hist["windows"], scan_rounds=scan["round"],
+                scan_last_round_ms=scan["last_round_ms"],
+                spans_emitted=st["trace"]["spans_emitted"],
+                fused_accept_routes=routes, fused_accept_launches=launches,
+                fused_accept_pads=pads, backlog_scans=backlogs,
+                compiles=p1["recompiles"],
+                dispatch_wall_ms=p1["dispatch_wall_ms"],
+                verdict_reduce_wall_ms=p1["verdict_reduce_wall_ms"],
+                transfer_bytes=p1["transfer_bytes"],
+                pad_waste_pct=p1["pad_waste_pct"],
+                hottest_stage=st["metrics"]["rollups"]["hottest_stage"],
+                stage_totals_s=st["metrics"]["rollups"][
+                    "hottest_stage_totals_s"],
+                split=split)
+
+
+def obs_recovery(c, db, before):
+    """(b): a transaction-system recovery, then more traffic; nothing
+    goes backwards and card memory stays within OBS_MEMORY_SLACK."""
+    mem0 = card_bytes()
+    t0 = time.perf_counter()
+    c.sequencer.kill()
+    events = c.detect_and_recruit()
+    rec_s = time.perf_counter() - t0
+    assert events == [("txn-system", 0)], events
+    obs_drive(db, OBS_RECOVERY_TXNS, SEED + 700)
+    after = obs_counts(c)
+    mem1 = card_bytes()
+    for k in ("committed", "started", "conflicted"):
+        assert after["counters"][k] >= before["counters"][k], (k, before,
+                                                                after)
+    assert after["counters"]["committed"] > before["counters"]["committed"]
+    assert after["profile"]["dispatches"] > before["profile"]["dispatches"]
+    probes = [x["status"]["health"]["probe"]["probes"]
+              for x in (before, after)]
+    assert probes[1] >= probes[0], probes
+    assert abs(mem1 - mem0) <= OBS_MEMORY_SLACK * mem0, (mem0, mem1)
+    rec = after["status"]["health"]["recovery"]
+    log(f"[observability recovery] detect_and_recruit {rec_s * 1e3:.3f} ms "
+        f"(timeline {rec['last_recovery_ms']} ms, generation "
+        f"{after['status']['generation']}); counters {before['counters']} -> "
+        f"{after['counters']}, dispatches {before['profile']['dispatches']} "
+        f"-> {after['profile']['dispatches']}, probes {probes[0]} -> "
+        f"{probes[1]}; card memory {mem0} -> {mem1} B")
+    return dict(recovery_ms=rec["last_recovery_ms"], wall_ms=rec_s * 1e3,
+                before=before["counters"], after=after["counters"],
+                card_bytes=[mem0, mem1])
+
+
+def obs_plant(c, db):
+    """(c): one replica takes a write no commit made. Before it the check
+    and the scan are clean; after it the scanner confirms it, the verdict
+    turns degraded with data_inconsistent and consistency_check() lists
+    it."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.core.mutations import Mutation, Op
+
+    assert c.consistency_check() == []
+    assert c.consistency_scan_status()["inconsistencies"] == 0
+    key = workloads.user_key(OBS_PRELOAD // 2)
+    sid = c.dd.map.team_for(key)[0]
+    s = c.storages[sid]
+    # under the commit mutex: no apply of the pipeline interleaves
+    with c._commit_target()._commit_mu:
+        s.apply(s.version + 1, [Mutation(Op.SET, key, b"planted")])
+    db.run(lambda tr: tr.set(b"obs/after-plant", b"1"))  # moves the version
+    t0 = time.perf_counter()
+    while c.consistency_scan_status()["inconsistencies"] == 0:
+        assert time.perf_counter() - t0 < OBS_SCAN_DEADLINE_S, \
+            "the scanner never confirmed the planted row"
+        time.sleep(0.05)
+    confirm_s = time.perf_counter() - t0
+    health = c.health_status()
+    problems = c.consistency_check()
+    assert health["verdict"] == "degraded", health["verdict"]
+    assert "data_inconsistent" in health["reasons"], health["reasons"]
+    assert problems and any(repr(key)[2:-1] in p for p in problems), problems
+    log(f"[observability plant] {key!r} on storage {sid}: the scanner "
+        f"confirmed it after {confirm_s:.3f} s; verdict {health['verdict']} "
+        f"{health['reasons']}; consistency_check: {len(problems)} problem(s)")
+    return dict(confirm_s=confirm_s, reasons=health["reasons"],
+                problems=len(problems))
+
+
+def obs_overhead():
+    """(d): the metrics_smoke protocol on a sync cluster: OBS_SMOKE_PAIRS
+    interleaved pairs of OBS_SMOKE_BATCHES-batch range-heavy commit_batch
+    runs, one arm with every module switched off and tracing at 0, the
+    other with all on and tracing at OBS_TRACING_RATE; the medians and
+    their ratio (printed, not gated). Then one pipelined group's
+    dispatch under set_sync_debug_mode("error")."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    c = Cluster(**obs_knobs())
+    preload(c, OBS_SMOKE_PRELOAD)
+    stream = workloads.range_heavy(OBS_SMOKE_BATCHES + 6, seed=SEED + 16)
+    mods = obs_modules()
+
+    def run(off=()):
+        """One run with the modules named in ``off`` (and tracing, if
+        named) switched off: committed txns/s."""
+        for name, m in zip(OBS_MODULES, mods):
+            m.set_enabled(name not in off)
+        c.set_tracing(sample_rate=0.0 if "tracing" in off
+                      else OBS_TRACING_RATE)
+        reqs = [workloads.commit_requests(
+            txns, cv, c.sequencer.committed_version, c.knobs.key_limbs,
+            b"o" * 100) for txns, cv, _ in stream[:OBS_SMOKE_BATCHES]]
+        n = sum(len(r) for r in reqs)
+        t0 = time.perf_counter()
+        ok = sum(sum(isinstance(v, int)
+                     for v in c.commit_proxy.commit_batch(r)) for r in reqs)
+        assert 0 < ok <= n, (ok, n)
+        return ok / (time.perf_counter() - t0)
+
+    runs = {True: [], False: []}
+    try:
+        for _ in range(OBS_SMOKE_PAIRS):
+            runs[False].append(run(off=OBS_MODULES + ("tracing",)))
+            runs[True].append(run())
+    finally:
+        for m in mods:
+            m.set_enabled(True)
+    on, off = float(np.median(runs[True])), float(np.median(runs[False]))
+    log(f"[observability overhead] {OBS_SMOKE_PAIRS} pairs of "
+        f"{OBS_SMOKE_BATCHES}-batch range-heavy commit_batch runs: median "
+        f"{on:.1f} committed txns/s with every module on (tracing "
+        f"{OBS_TRACING_RATE}), {off:.1f} with all off; on/off {on / off:.4f}")
+    # one pipelined group's dispatch adds no host sync: the capture sites
+    # (the profile, the route, the spans) are all host-side
+    cp = c._commit_target()
+    group = [workloads.commit_requests(
+        txns, cv, c.sequencer.committed_version, c.knobs.key_limbs, b"s")
+        for txns, cv, _ in stream[OBS_SMOKE_BATCHES:OBS_SMOKE_BATCHES + 3]]
+    cp.commit_batches_finish(cp.commit_batches_begin(group))  # warm
+    group = [workloads.commit_requests(
+        txns, cv, c.sequencer.committed_version, c.knobs.key_limbs, b"s")
+        for txns, cv, _ in stream[OBS_SMOKE_BATCHES + 3:]]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pg = cp.commit_batches_begin(group)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pg.results_list is None and pg.handle is not None, pg.error
+    cp.commit_batches_finish(pg)
+    log("[observability overhead] a pipelined group's dispatch under "
+        "set_sync_debug_mode('error'): no host sync")
+    c.close()
+    return dict(on_txns_per_s=on, off_txns_per_s=off, ratio=on / off,
+                runs_on=runs[True], runs_off=runs[False])
+
+
+def obs_twin(device, stream):
+    """(e): the phase's script on a sync cluster at OBS_TWIN_PRELOAD rows
+    under a clock that moves only where the script ticks it: the status
+    documents after it."""
+    from foundationdb_tpu_torch.core import deterministic
+
+    clock = [1000.0]
+    deterministic.seed(SEED)
+    deterministic.set_clock(lambda: clock[0])
+    try:
+        c = repl_cluster(device, accept_kernel="on", **obs_knobs())
+        c.dd.max_shard_bytes = 64_000
+        for reqs in workloads_preload(c, OBS_TWIN_PRELOAD):
+            _outcomes(c.commit_proxy.commit_batch(reqs))
+        settle_map(c)
+        commit_walls(c, stream[:2], b"t")
+        db = c.database()
+        occ_pair(db)
+        docs = []
+        for _ in range(6):
+            clock[0] += 0.5
+            c.prober.maybe_probe()
+            c.scanner.maybe_scan()
+            c.history.maybe_collect()
+        docs.append(c.status()["cluster"])
+        c.sequencer.kill()
+        c.detect_and_recruit()
+        commit_walls(c, stream[2:3], b"t")
+        for _ in range(4):
+            clock[0] += 0.5
+            c.prober.maybe_probe()
+            c.scanner.maybe_scan()
+            c.history.maybe_collect()
+        docs.append(c.status()["cluster"])
+        c.close()
+        return docs
+    finally:
+        deterministic.unseed()
+        deterministic.set_clock(time.time)
+
+
+def workloads_preload(c, n):
+    from foundationdb_tpu_torch import workloads
+
+    return workloads.preload_requests(n, c.knobs.key_limbs, batch=256,
+                                      seed=SEED)
+
+
+def twin_doc(doc):
+    """A status document less what is the device's own: each resolver's
+    device and graphs (a CPU step captures none), and the process-wide
+    trace counters (the card's twin ran after the rest of this
+    process's phases)."""
+    doc = json.loads(json.dumps(doc))
+    for r in doc["processes"]["resolvers"]:
+        del r["device"], r["graphs"]
+    for k in ("suppressed_events", "suppressed_by_type", "spans_sampled",
+              "spans_emitted"):
+        del doc["trace"][k]
+    return doc
+
+
+def phase_observability():
+    """Phase 16 on the card; its launch and graph counts are zeroed at
+    its start and read before the CPU twin."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.ops import _kernels
+
+    t_phase = time.perf_counter()
+    report = dict(knobs=obs_knobs())
+    log(f"[observability] scan batch {OBS_SCAN_BATCH_KEYS} keys every "
+        f"~{OBS_SCAN_INTERVAL_S * 1.5 * 1e3:.1f} ms, unpaced; history "
+        f"cadence {OBS_HISTORY_CADENCE_S} s; tracing {OBS_TRACING_RATE}")
+    from foundationdb_tpu_torch.server import consistencyscan
+
+    reset_counts()
+    # the scan starts once the map has settled: a round walking shards
+    # while they split and move only re-reads them
+    consistencyscan.set_enabled(False)
+    try:
+        c = repl_cluster(commit_pipeline="thread", **obs_knobs())
+        c.dd.max_shard_bytes = OBS_SHARD_BYTES
+        db = c.database()
+        t0 = time.perf_counter()
+        preload(c, OBS_PRELOAD)
+        rounds = settle_map(c)
+        report["preload_s"] = time.perf_counter() - t0
+    finally:
+        consistencyscan.set_enabled(True)
+    # every step captured before the drive, as a server at start-up;
+    # under the commit mutex, which every single-batch dispatch takes
+    with c._commit_target()._commit_mu:
+        keys = c.resolvers[0].precompile()
+    # the full variant from here on (a range write enters history)
+    db.run(lambda tr: tr.clear_range(b"obs/", b"obs0"))
+    log(f"[observability] {OBS_PRELOAD} rows and {len(rounds)} rebalance "
+        f"rounds ({len(c.dd.map)} shards) in {report['preload_s']:.3f} s; "
+        f"{len(keys)} steps precompiled")
+    tally = RouteTally(c.resolvers[0])
+    a = obs_counts(c, tally)
+    wall = obs_drive(db, OBS_TXNS, SEED + 600)
+    occ_pair(db)
+    b = obs_counts(c, tally)
+    tally.close()
+    report["drive"] = obs_drive_checks(a, b, wall)
+    report["recovery"] = obs_recovery(c, db, b)
+    report["plant"] = obs_plant(c, db)
+    c.close()
+    del c, db
+    gc.collect()
+    launches = dict(_kernels.launches)
+    report["graphs"] = graph_report("observability")
+    log(f"[observability] launches {launches}")
+    report["overhead"] = obs_overhead()
+    stream = workloads.range_heavy(3, txns=256, seed=SEED, nkeys=4096)
+    gpu = obs_twin(None, stream)
+    cpu = obs_twin("cpu", stream)
+    for i, (g, p) in enumerate(zip(gpu, cpu)):
+        g, p = twin_doc(g), twin_doc(p)
+        assert g == p, ("observability twin status differs", i,
+                        [k for k in g if g[k] != p.get(k)])
+    log(f"[observability replay] {OBS_TWIN_PRELOAD} rows, a conflict, a "
+        f"recovery, probes, scans and history windows on a step clock: the "
+        f"card's status document == the CPU's ({len(gpu[-1])} keys, apart "
+        f"from the resolvers' device and graphs)")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[observability] phase 16 took {report['seconds']:.3f} s")
+    report["launches"] = launches
+    return report, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3277,6 +3843,9 @@ def main():
     gc.collect()
     region_stream = workloads.range_heavy(region_stream_batches(), seed=SEED)
     region_report, region_launches = phase_regions(region_stream, rh)
+    del region_stream
+    gc.collect()
+    obs_report, obs_launches = phase_observability()
 
     kernels = []
     for name, src, replaces in (
@@ -3297,7 +3866,8 @@ def main():
                    "recovery": recovery_launches[name],
                    "native": native_report["launches"][name],
                    "replication": repl_launches[name],
-                   "regions": region_launches[name]}
+                   "regions": region_launches[name],
+                   "observability": obs_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -3313,10 +3883,13 @@ def main():
                    pipeline=pipeline_report_, sharded=sharded_report,
                    recovery=recovery_report, native=native_report,
                    replication=repl_report, regions=region_report,
+                   observability=obs_report,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
+    log(f"[total] chip_smoke.py took {summary['seconds']:.3f} s, phase 16 "
+        f"{obs_report['seconds']:.3f} s of it")
     paths = {"fused_accept": ("main", "cluster", "pipeline", "recovery",
-                              "replication", "regions"),
+                              "replication", "regions", "observability"),
              "ring_hits": ("ring_route",),
              "accept_sweep": ("main", "ring_route",
                               "sharded_and_partitioned", "regions")}

@@ -16,12 +16,13 @@ from foundationdb_tpu_torch.core import flatpack
 class CommitRequest:
     __slots__ = ("read_version", "mutations", "_read_conflict_ranges",
                  "_write_conflict_ranges", "report_conflicting_keys",
-                 "lock_aware", "idempotency_id", "flat_conflicts", "tags")
+                 "lock_aware", "idempotency_id", "flat_conflicts",
+                 "span_context", "tags")
 
     def __init__(self, read_version, mutations, read_conflict_ranges,
                  write_conflict_ranges, report_conflicting_keys=False,
                  lock_aware=False, idempotency_id=None,
-                 flat_conflicts=None, tags=()):
+                 flat_conflicts=None, span_context=None, tags=()):
         # None: a read-free txn; the proxy assigns its read version
         self.read_version = read_version
         self.mutations = mutations
@@ -34,6 +35,9 @@ class CommitRequest:
         # commit and dedupes on, so a retry after 1021 cannot apply twice
         self.idempotency_id = idempotency_id
         self.flat_conflicts = flat_conflicts
+        # a sampled transaction's (trace_id, span_id, sampled): the
+        # proxy's and the resolver's spans parent to it (utils/span.py)
+        self.span_context = span_context
         # the client's set_tag() labels (ref: TransactionTagRef)
         self.tags = tuple(tags) if tags else ()
 

@@ -15,13 +15,14 @@ lag.
 """
 
 import random
-import threading
 import time
+
+from foundationdb_tpu_torch.utils import lockdep
 
 
 class _Streams:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("DeterminismRegistry._lock")
         self._streams = {}
         self._seed = None  # None: OS entropy
         self.clock = time.time

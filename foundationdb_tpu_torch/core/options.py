@@ -69,12 +69,78 @@ class Knobs:
     # to the cold restart (fresh GRV, backoff): the livelock bound
     txn_repair_max_rounds: int = 4
 
+    # --- distributed tracing (utils/span.py) ---
+    # fraction of transactions that carry a sampled trace (0: tracing
+    # off; Cluster.set_tracing(enabled=True) turns it to 0.01). The
+    # draws ride the seeded "span-sample" stream
+    tracing_sample_rate: float = 0.0
+    # a commit window that outlives this bound emits a promoted
+    # ``commit.window`` span even when none of its txns was sampled
+    tracing_slow_commit_ms: float = 200.0
+
+    # --- workload attribution (utils/heatmap.py) ---
+    # conflict heat charged where the proxy rejects a txn, read and
+    # write heat sampled at the storage servers
+    workload_sampling: bool = True
+    # each heatmap coalesces adjacent ranges to at most this many buckets
+    heatmap_max_buckets: int = 64
+    # decay half-life on the injected clock: old heat fades
+    heatmap_half_life_s: float = 30.0
+    # one sampled storage access in this many on average (draws from
+    # the "key-sample" stream); the charge weight scales by the stride
+    storage_sample_every: int = 16
+
+    # --- cluster doctor (server/health.py) ---
+    # the latency prober's GRV → read → commit probe transactions; a
+    # thread-mode cluster runs it on a daemon thread, other pipelines
+    # call maybe_probe() themselves
+    health_probe_enabled: bool = True
+    health_probe_interval_s: float = 1.0
+    # doctor thresholds: probe p99 (the flight recorder's SLO dump),
+    # storage durability lag (the storage_lag degraded reason)
+    doctor_probe_p99_ms: float = 1000.0
+    doctor_lag_versions: int = 5_000_000
+
+    # --- metrics history and flight recorder (utils/timeseries.py) ---
+    # one window per cadence samples every registry, heatmap, device
+    # profile, the ratekeeper and the verdict into bounded rings; a
+    # thread-mode cluster collects on a daemon thread, other pipelines
+    # call maybe_collect()
+    history_enabled: bool = True
+    history_cadence_s: float = 1.0
+    history_windows: int = 64  # per-metric ring depth
+    history_heat_top: int = 8  # hot-range rows kept per dimension
+    # the flight recorder dumps on a verdict change, a recovery or a
+    # probe-SLO breach: the last flight_windows windows and the trace
+    # tail, in memory and (flight_dir set) as sorted-key JSON files
+    flight_windows: int = 16
+    flight_trace_tail: int = 64
+    flight_max_dumps: int = 8
+    flight_dir: str = ""
+    # a probe p99 rising over this many windows by this much in all
+    # degrades the verdict (probe_trend)
+    doctor_trend_windows: int = 3
+    doctor_trend_min_rise_pct: float = 5.0
+
+    # --- continuous consistency scan (server/consistencyscan.py) ---
+    # the replica auditor walks the shard map in bounded batches at
+    # pinned versions; a thread-mode cluster scans on a daemon thread,
+    # other pipelines call maybe_scan()
+    consistency_scan_enabled: bool = True
+    consistency_scan_interval_s: float = 0.25
+    consistency_scan_batch_keys: int = 256
+    # the next batch waits until the last one's bytes drained at this
+    # rate (0: unpaced)
+    scan_rate_bytes_per_s: float = 2_000_000.0
+
     # --- multi-region replication (server/region.py) ---
     # the satellite streamer drains the primary log at most once per
     # interval (jittered off the "region-stream" deterministic stream);
     # thread-mode clusters drive it from a daemon loop, others call
     # maybe_stream() or stream_now()
     region_stream_interval_s: float = 0.05
+    # replication lag (versions) before the doctor's ``region_lag``
+    doctor_region_lag_versions: int = 2_000_000
 
     # --- per-tag auto-throttling (server/ratekeeper.py) ---
     # admission share above which a tag is throttled even without

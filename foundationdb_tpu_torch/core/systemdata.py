@@ -29,6 +29,10 @@ DB_LOCKED = b"\xff/dbLocked"
 IDMP_PREFIX = b"\xff\x02/idmp/"
 IDMP_END = b"\xff\x02/idmp0"
 
+# a metacluster member's registration row (ref: layers/metacluster.py
+# REGISTRATION_KEY): JSON with its role and name; absent on a
+# standalone cluster
+METACLUSTER_REGISTRATION = b"\xff/metacluster/registration"
 
 def idmp_key(idempotency_id):
     return IDMP_PREFIX + idempotency_id

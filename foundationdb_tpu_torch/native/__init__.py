@@ -30,13 +30,14 @@ import threading
 import numpy as np
 
 from foundationdb_tpu_torch.core.status import COMMITTED, CONFLICT, TOO_OLD
+from foundationdb_tpu_torch.utils import lockdep
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(HERE), "build")
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 EXT_SUFFIX = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
 
-_lock = threading.Lock()
+_lock = lockdep.lock("native._lock")
 _lib = None
 _packer_mod = None
 

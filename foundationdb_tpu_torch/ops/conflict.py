@@ -851,6 +851,9 @@ class StepCache:
     def __init__(self):
         self._steps = {}
         self.captures = {}
+        # called with the key at each new capture (the owning resolver's
+        # device profile counts them as compiles)
+        self.on_capture = None
 
     def run(self, key, batch, make_step):
         """``make_step()`` builds the StaticStep of ``key`` on a miss.
@@ -868,6 +871,8 @@ class StepCache:
         if step is None:
             step = self._steps[sig] = make_step()
             self.captures[key] = self.captures.get(key, 0) + 1
+            if self.on_capture is not None:
+                self.on_capture(key)
         return step
 
     def stats(self):

@@ -30,6 +30,12 @@ the lanes run the plain torch step, with greedy acceptance by
 ``sweep_accept`` on a card. The steps are compiled as the single
 resolver's are (keys (variant, B), and (variant, k, B) for the "range"
 router's k txn slices).
+
+The device profile records the "range" router's entries per lane at
+each split (``lane_entries``, ``lane_skew_pct``). The reference's "hash"
+mode times each lane's shard apart; here the lanes are one tensor
+axis of one step, with no per-lane wall to read, so that mode records
+none.
 """
 
 import numpy as np
@@ -48,6 +54,7 @@ from foundationdb_tpu_torch.resolver.resolver import (
     fast_params_of,
     params_from_knobs,
 )
+from foundationdb_tpu_torch.utils import deviceprofile
 
 SHARDING_MODES = ("range", "hash")
 
@@ -106,12 +113,15 @@ class MeshResolver(Resolver):
             self._state = self._kernel.state
             self._kernel.state = None  # the history lives here
         self._scan_pad_buckets = PAD_BUCKETS
+        self.adopt_profile(self.profile)  # the packers' staging hooks
 
     def _split_counted(self, stacked):
         """Route a stacked numpy ResolveBatch through the ShardRouter,
         counting the entries each lane took and the chunk factor."""
         sb, k, lane_counts = self._router.split(stacked)
         self.lane_entries += lane_counts
+        if deviceprofile.enabled():
+            self.profile.record_lane_counts(lane_counts.tolist())
         self.split_chunks[k] = self.split_chunks.get(k, 0) + 1
         return sb, k
 

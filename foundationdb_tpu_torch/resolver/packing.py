@@ -334,6 +334,8 @@ class BatchPacker:
             np.zeros((1, params.key_width), np.uint32))[0]
         self.flat_reuse_hits = 0
         self.flat_reuse_misses = 0
+        # the owning resolver's device profile counts staging reuse
+        self.profile = None
 
     # ── flat columnar lane (core/flatpack.py FlatTxnBatch) ──
     def flat_fits(self, flat):
@@ -361,6 +363,8 @@ class BatchPacker:
         bufs = self._staging.get(B)
         if bufs is None:
             self.flat_reuse_misses += 1
+            if self.profile is not None:
+                self.profile.record_staging(hit=False)
             T, W = p.txns, p.key_width
             u32, i32, b8 = np.uint32, np.int32, np.bool_
             PR, PW, RR, RW = (p.point_reads, p.point_writes, p.range_reads,
@@ -392,6 +396,8 @@ class BatchPacker:
             self._staging[B] = bufs
             return bufs
         self.flat_reuse_hits += 1
+        if self.profile is not None:
+            self.profile.record_staging(hit=True)
         for name, a in bufs.items():
             if name in ("pr_hash", "pw_hash"):
                 a.fill(zh)

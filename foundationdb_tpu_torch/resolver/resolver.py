@@ -28,9 +28,32 @@ packer: the same semantics by another route, counted in
 ``flat_fallbacks``.
 
 A kernel that fails to build or launch raises: there is no fallback.
+
+Observability: the role's metrics registry (``resolve_batches``,
+``resolve_txns``, backlog and flat-fallback counters; a respawned
+resolver continues it), a ``resolver.scan`` span under the proxy's
+ambient trace context, and the device profile (utils/deviceprofile.py),
+which the cluster owns and hands each incarnation (``adopt_profile``).
+Its capture sites are all on the host, around the step's enqueue and
+the statuses' read, and add no host sync: each dispatch's padding and
+entry occupancy, the bytes of the packed tensors copied to the device,
+the enqueue wall (``dispatch_wall_ms``) and the wait for the statuses
+(``verdict_reduce_wall_ms``), each capture of a compiled step as a
+compile (keyed as the StepCache keys it), the structured fallback
+causes, and the step body that served each live batch, by route:
+
+- ``fused_accept``: the full variant with the accept kernel
+  (ops/accept.py; the reference's ``pallas_scan``);
+- ``ring_hits``: the full variant with the ring kernel (ops/ring.py; the
+  reference's ``pallas_ring``, which the reference's backlog scans
+  strip and the port's keep);
+- ``plain``: the torch step (the fast variant, the lanes, or the full
+  variant with both kernels off), whose greedy acceptance on a card is
+  ``accept_sweep`` (the reference's ``jit``).
+
+The port has no kernel fallback, so ``pallas_to_jit`` stays 0.
 """
 
-import threading
 import time
 
 import numpy as np
@@ -45,6 +68,9 @@ from foundationdb_tpu_torch.ops import conflict as ck
 from foundationdb_tpu_torch.ops.accept import MAX_TXNS
 from foundationdb_tpu_torch.resolver.packing import BatchPacker
 from foundationdb_tpu_torch.resolver.skiplist import CpuConflictSet
+from foundationdb_tpu_torch.utils import deviceprofile, lockdep
+from foundationdb_tpu_torch.utils import metrics as metrics_mod
+from foundationdb_tpu_torch.utils import span as span_mod
 
 __all__ = ["COMMITTED", "CONFLICT", "TOO_OLD", "Resolver", "ResolverDown",
            "ResolveHandle", "params_from_knobs", "fast_params_of"]
@@ -131,6 +157,35 @@ def _device_of(device):
     return dev
 
 
+def _entry_counts(txns):
+    """Live conflict entries of a TxnRequest list, by side."""
+    ent = {"pr": 0, "pw": 0, "rr": 0, "rw": 0}
+    for t in txns:
+        ent["pr"] += len(t.point_reads)
+        ent["pw"] += len(t.point_writes)
+        ent["rr"] += len(t.range_reads)
+        ent["rw"] += len(t.range_writes)
+    return ent
+
+
+def _flat_entry_counts(flats):
+    return {"pr": sum(int(f.prc.sum()) for f in flats),
+            "pw": sum(int(f.pwc.sum()) for f in flats),
+            "rr": sum(int(f.rrc.sum()) for f in flats),
+            "rw": sum(int(f.rwc.sum()) for f in flats)}
+
+
+def _entry_slots(params, B):
+    n = B * params.txns
+    return {"pr": n * params.point_reads, "pw": n * params.point_writes,
+            "rr": n * params.range_reads, "rw": n * params.range_writes}
+
+
+def _nbytes(batch):
+    """Bytes of a packed numpy batch (what is copied to the device)."""
+    return sum(int(a.nbytes) for a in batch)
+
+
 def _kernel_knob(knobs, name, on_cuda):
     value = getattr(knobs, name)
     if value not in KERNEL_KNOB_VALUES:
@@ -193,6 +248,7 @@ class Resolver:
                 self.cset.resolve([], 0, base_version)
         else:
             raise ValueError(f"unknown resolver_backend {self.backend!r}")
+        self.adopt_profile(self.profile)  # the packers' staging hooks
 
     def _init_role(self, knobs, backend, base_version, history):
         self.knobs = knobs
@@ -201,19 +257,71 @@ class Resolver:
         self.alive = True
         # held around each compiled-step dispatch and the hand-over of
         # the history to a replacement (respawn)
-        self._mu = threading.Lock()
-        self.counters = {"resolve_batches": 0, "resolve_txns": 0,
-                         "backlog_dispatches": 0, "backlog_depth": 0,
-                         "flat_fallbacks": 0, "respawns": 0}
+        self._mu = lockdep.lock("Resolver._mu")
+        self._init_metrics()
+        # the device profile; the cluster hands its own (adopt_profile)
+        self.profile = deviceprofile.DeviceProfile("resolver")
         # the device history and the compiled steps by (variant, B) —
         # (variant, k, B) on the "range" lanes — and batch signature;
         # ``history`` is a predecessor's pair, zeroed (respawn)
         self._state, self._steps = history or (None, ck.StepCache())
+        self._steps.on_capture = self._note_capture
         # cumulative wall seconds of resolve_many's dispatch (the batch
         # copy and the scan call; a host backend's eager resolve): the
         # batcher subtracts it from its stage-A+B timer so host packing
         # and dispatch report as separate stages
         self.dispatch_wall_s = 0.0
+
+    def _init_metrics(self, registry=None):
+        """Build the role registry, or continue ``registry`` (a respawn
+        hands over its predecessor's, folding this one's in)."""
+        if registry is not None and registry is not getattr(
+                self, "metrics", None):
+            registry.absorb(self.metrics)
+        self.metrics = (registry if registry is not None
+                        else metrics_mod.MetricsRegistry("resolver"))
+        self._m_batches = self.metrics.counter("resolve_batches")
+        self._m_txns = self.metrics.counter("resolve_txns")
+        self._m_backlogs = self.metrics.counter("backlog_dispatches")
+        self._m_backlog_depth = self.metrics.gauge("backlog_depth")
+        self._m_flat_fallbacks = self.metrics.counter("flat_fallbacks")
+        # the reference's kernel-fallback counter: the port has no
+        # fallback, so it stays 0
+        self._m_pallas_fallbacks = self.metrics.counter("pallas_fallbacks")
+        self._m_respawns = self.metrics.counter("respawns")
+
+    @property
+    def counters(self):
+        """The registry's counters and the backlog-depth gauge."""
+        snap = self.metrics.snapshot()
+        return dict(snap["counters"],
+                    backlog_depth=snap["gauges"]["backlog_depth"])
+
+    def adopt_profile(self, profile):
+        """Record into the cluster's DeviceProfile from now on, folding
+        in what this instance recorded, so the device history survives
+        respawns, recoveries and resizes."""
+        if profile is not self.profile:
+            profile.absorb(self.profile)
+            self.profile = profile
+        for packer in (getattr(self, "packer", None),
+                       getattr(self, "_fast_packer", None)):
+            if packer is not None:
+                packer.profile = profile
+        return profile
+
+    def _note_capture(self, key):
+        if deviceprofile.enabled():
+            self.profile.record_compile(key)
+
+    def _kernel_route(self, use_fast):
+        """The step body that serves a dispatch of this variant (the
+        profile's route names, see the module docstring)."""
+        if not use_fast and self.params.use_accept_kernel:
+            return "fused_accept"
+        if not use_fast and self.params.use_ring_kernel:
+            return "ring_hits"
+        return "plain"
 
     @property
     def wants_point_split(self):
@@ -245,13 +353,15 @@ class Resolver:
         self._state = None
 
     def status(self):
-        """This role's status payload."""
+        """This role's status payload (``device`` and ``graphs`` are the
+        port's own)."""
+        self.metrics.gauge("lanes").set(getattr(self, "n_lanes", 1))
         return {
             "alive": self.alive,
             "backend": self.backend,
             "device": str(self.device) if self.device is not None else None,
             "lanes": getattr(self, "n_lanes", 1),
-            "metrics": dict(self.counters),
+            "metrics": self.metrics.snapshot(),
             "graphs": self._steps.stats(),
         }
 
@@ -270,8 +380,9 @@ class Resolver:
         instances), and no dead instance keeps a graph pool. This
         instance is left dead and holding neither."""
         new = self._recruit(base_version, self._hand_over())
-        new.counters = dict(self.counters)
-        new.counters["respawns"] += 1
+        new._init_metrics(self.metrics)
+        new.adopt_profile(self.profile)
+        new._m_respawns.inc()
         return new
 
     def _recruit(self, base_version, history):
@@ -300,23 +411,69 @@ class Resolver:
                 return b
         return self._scan_pad_buckets[-1]
 
-    def _count(self, nbatches, ntxns):
-        self.counters["resolve_batches"] += nbatches
-        self.counters["resolve_txns"] += ntxns
-
     def resolve(self, txns, commit_version, new_window_start):
         """txns: list[TxnRequest] or a FlatTxnBatch, in arrival order →
         list of statuses."""
         if not self.alive:
             raise ResolverDown()
-        self._count(1, len(txns))
-        if isinstance(txns, FlatTxnBatch):
-            return self._resolve_flat(txns, commit_version, new_window_start)
-        return self._resolve_txns(txns, commit_version, new_window_start)
+        self._m_batches.inc()
+        self._m_txns.inc(len(txns))
+        # the host-side scan span under the proxy's ambient context
+        ssp = span_mod.from_context("resolver.scan", span_mod.current(),
+                                    txns=len(txns))
+        try:
+            if isinstance(txns, FlatTxnBatch):
+                return self._resolve_flat(txns, commit_version,
+                                          new_window_start)
+            return self._resolve_txns(txns, commit_version, new_window_start)
+        finally:
+            ssp.finish()
+
+    def _host_resolve(self, n, resolve):
+        """A host set's resolve, profiled: slots equal live txns."""
+        prof = deviceprofile.enabled()
+        pt0 = deviceprofile.now() if prof else 0.0
+        out = resolve()
+        if prof:
+            self.profile.record_dispatch(
+                bucket=1, live_batches=1, live_txns=n, txn_slots=n,
+                wall_s=deviceprofile.now() - pt0)
+        return out
+
+    def _profiled_step(self, use_fast, batch, n, ent=None):
+        """One packed batch through the compiled single step, profiled:
+        the enqueue's wall and the copied bytes (the dispatch), then the
+        route once the step is enqueued. Returns ``read()``."""
+        prof = deviceprofile.enabled()
+        pt0 = deviceprofile.now() if prof else 0.0
+        read = self._run_step(use_fast, batch)
+        if prof:
+            pp = self._fast_params if use_fast else self.params
+            self.profile.record_dispatch(
+                bucket=1, live_batches=1, live_txns=n, txn_slots=pp.txns,
+                entries_live=ent,
+                entry_slots=_entry_slots(pp, 1) if ent else None,
+                transfer_bytes=_nbytes(batch),
+                wall_s=deviceprofile.now() - pt0)
+        self.profile.record_kernel_route(self._kernel_route(use_fast))
+        return self._timed_read(read)
+
+    def _timed_read(self, read):
+        """``read`` whose wait for the statuses is the profile's verdict
+        reduce wall."""
+        def timed():
+            prof = deviceprofile.enabled()
+            rt0 = deviceprofile.now() if prof else 0.0
+            arr = read()
+            if prof:
+                self.profile.record_verdict_reduce(deviceprofile.now() - rt0)
+            return arr
+        return timed
 
     def _resolve_txns(self, txns, commit_version, new_window_start):
         if self.backend != "cuda":
-            return self.cset.resolve(txns, commit_version, new_window_start)
+            return self._host_resolve(len(txns), lambda: self.cset.resolve(
+                txns, commit_version, new_window_start))
         self._maybe_rebase(commit_version)
         # a read version below base_version is too old by construction:
         # reject on the host rather than clamp its uint32 offset to 0
@@ -334,7 +491,8 @@ class Resolver:
             chunk = live[c : c + self.params.txns]
             batch = packer.pack([t for _, t in chunk], self.base_version,
                                 commit_version, new_window_start)
-            reads.append((chunk, self._run_step(use_fast, batch)))
+            reads.append((chunk, self._profiled_step(use_fast, batch,
+                                                     len(chunk))))
         for chunk, read in reads:  # every chunk dispatched before a wait
             for (i, _), s in zip(chunk, read()[: len(chunk)].tolist()):
                 statuses[i] = s
@@ -345,21 +503,25 @@ class Resolver:
         from the blobs into the staging ring. A batch the flat lane
         cannot serve decodes to TxnRequests and takes the legacy route."""
         if self.backend == "native":
-            return self.cset.resolve_flat(flat, commit_version,
-                                          new_window_start)
+            return self._host_resolve(len(flat), lambda: self.cset.resolve_flat(
+                flat, commit_version, new_window_start))
         if self.backend == "cpu":
-            return self.cset.resolve(flat.to_txn_requests(), commit_version,
-                                     new_window_start)
+            return self._host_resolve(len(flat), lambda: self.cset.resolve(
+                flat.to_txn_requests(), commit_version, new_window_start))
         self._maybe_rebase(commit_version)
-        if self._flat_refused(flat):
+        cause = self._flat_fallback_cause(flat)
+        if cause is not None:
             # counted again as a batch of its own, as the reference counts
-            self.counters["flat_fallbacks"] += 1
+            self._m_flat_fallbacks.inc()
+            self.profile.record_fallback(cause)
             return self.resolve(flat.to_txn_requests(), commit_version,
                                 new_window_start)
         use_fast = self._pick_fast_flat([flat])
         batch = self._packer(use_fast).pack_flat(
             flat, self.base_version, commit_version, new_window_start)
-        return self._run_step(use_fast, batch)()[: len(flat)].tolist()
+        read = self._profiled_step(use_fast, batch, len(flat),
+                                   ent=_flat_entry_counts([flat]))
+        return read()[: len(flat)].tolist()
 
     def _packer(self, use_fast):
         return self._fast_packer if use_fast else self.packer
@@ -418,6 +580,22 @@ class Resolver:
         return bool(len(flat) and int(flat.rv.min()) < self.base_version
                     or not self.packer.flat_fits(flat))
 
+    def _flat_fallback_cause(self, flat):
+        """Why a flat batch takes the legacy lane (the profile's
+        fallback causes), or None when the flat lane serves it."""
+        if len(flat) and int(flat.rv.min()) < self.base_version:
+            return "too_old_rv"
+        if self.packer.flat_fits(flat):
+            return None
+        p = self.params
+        if (len(flat) > p.txns
+                or flat.prc.max(initial=0) > p.point_reads
+                or flat.pwc.max(initial=0) > p.point_writes
+                or flat.rrc.max(initial=0) > p.range_reads
+                or flat.rwc.max(initial=0) > p.range_writes):
+            return "over_capacity"
+        return "flat_to_legacy"  # another limb width
+
     def _pick_fast_flat(self, flats):
         """_pick_fast's columnar twin, on count maxima. Lane-overflowing
         batches were routed to the legacy lane before, so only range
@@ -463,8 +641,22 @@ class Resolver:
         enqueued and the host sync waits for ``wait()``.
         """
         if len(batches) > 1:
-            self.counters["backlog_dispatches"] += 1
-            self.counters["backlog_depth"] = len(batches)
+            self._m_backlogs.inc()
+            self._m_backlog_depth.set(len(batches))
+        ssp = span_mod.from_context("resolver.scan", span_mod.current())
+        if ssp is not span_mod.NULL:
+            # one scan span for the whole backlog; the ambient context
+            # is cleared so an eager route's resolve() calls add no
+            # nested ones
+            ssp.attr(batches=len(batches),
+                     txns=sum(len(t) for t, _, _ in batches))
+            prior = span_mod.set_current(None)
+            try:
+                handle = self._dispatch_many(batches)
+            finally:
+                span_mod.set_current(prior)
+                ssp.finish()
+            return handle if lazy else handle.wait()
         handle = self._dispatch_many(batches)
         return handle if lazy else handle.wait()
 
@@ -485,7 +677,9 @@ class Resolver:
         if not self.alive:
             raise ResolverDown()
         self._maybe_rebase(batches[-1][1])
-        self._count(len(batches), sum(len(t) for t, _, _ in batches))
+        # the scans bypass resolve(): count their volume here
+        self._m_batches.inc(len(batches))
+        self._m_txns.inc(sum(len(t) for t, _, _ in batches))
         flats_present = any(isinstance(t, FlatTxnBatch) for t, _, _ in batches)
         if flats_present:
             if all(isinstance(t, FlatTxnBatch) for t, _, _ in batches):
@@ -494,7 +688,13 @@ class Resolver:
                     return handle
                 # counted only here, as the reference counts: a mixed
                 # backlog is no refusal of the flat lane
-                self.counters["flat_fallbacks"] += 1
+                self._m_flat_fallbacks.inc()
+                self.profile.record_fallback(next(
+                    (c for c in (self._flat_fallback_cause(t)
+                                 for t, _, _ in batches) if c),
+                    "flat_to_legacy"))
+            else:
+                self.profile.record_fallback("flat_to_legacy")
             # a flat batch the lane cannot serve, or flat and legacy
             # batches in one backlog (one scan threads one history):
             # the whole backlog decodes, as dispatch work
@@ -533,7 +733,8 @@ class Resolver:
             pad = packer.pack_empty(self.base_version, last_cv, last_ws)
             packed.extend([pad] * (B - len(packed)))
         stacked = ck.ResolveBatch(*(np.stack(f) for f in zip(*packed)))
-        read = self._scan(use_fast, stacked)
+        read = self._scan(use_fast, stacked, len(per_batch), len(all_live),
+                          _entry_counts(all_live))
 
         def materialize():
             arr = read()  # the one host sync for the backlog
@@ -558,7 +759,8 @@ class Resolver:
         stacked = self._packer(use_fast).pack_flat_group(
             flats, [(cv, ws) for _, cv, ws in batches], self.base_version,
             B=self._pad_bucket(len(flats)))
-        read = self._scan(use_fast, stacked)
+        read = self._scan(use_fast, stacked, len(flats),
+                          sum(len(f) for f in flats), _flat_entry_counts(flats))
 
         def materialize():
             arr = read()  # the one host sync for the backlog
@@ -566,18 +768,32 @@ class Resolver:
 
         return ResolveHandle(materialize=materialize)
 
-    def _scan(self, use_fast, stacked):
+    def _scan(self, use_fast, stacked, n_batches, n_txns, ent):
         """Enqueue a stacked backlog's compiled scan, with no host sync:
         the batch copy and the replay go on the stream, and the statuses
         are copied out behind them (convert.host_reader). Returns
         ``read()``, which gives the statuses [B, T] as numpy on any
         thread: they are this dispatch's own copy, which no later
         dispatch writes, and on a card ``read`` waits only for the event
-        recorded behind that copy on the dispatching thread's stream."""
+        recorded behind that copy on the dispatching thread's stream.
+        Profiled as one dispatch of ``n_batches`` live batches."""
+        prof = deviceprofile.enabled()
+        pt0 = deviceprofile.now() if prof else 0.0
         t0 = time.perf_counter()
         read = self._run_scan(use_fast, stacked)
         self.dispatch_wall_s += time.perf_counter() - t0
-        return read
+        self.profile.record_kernel_route(self._kernel_route(use_fast),
+                                         n=n_batches)
+        if prof:
+            B = stacked.rv.shape[0]
+            pp = self._fast_params if use_fast else self.params
+            self.profile.record_dispatch(
+                bucket=B, live_batches=n_batches, live_txns=n_txns,
+                txn_slots=B * pp.txns, entries_live=ent,
+                entry_slots=_entry_slots(pp, B),
+                transfer_bytes=_nbytes(stacked),
+                wall_s=deviceprofile.now() - pt0)
+        return self._timed_read(read)
 
     def _run_scan(self, use_fast, stacked):
         """A stacked numpy backlog [B, ...] through the compiled scan of

@@ -27,11 +27,14 @@ Two drive modes:
   ``commit()`` flushes at once, every pending submission riding along in
   the same batch. Manual mode always runs depth 1.
 
-The port's own copy of the JAX package's ``server/batcher.py``, without
-its metrics registry, spans, trace events and lock-order checking: the
-submit→settle latency (``commit_e2e``) and the stage timers are plain
-samples (utils/trace.py), and the last failure is kept in
-``last_batch_error``.
+The wrapper shares the inner proxy's metrics registry: each settled
+batch window records its submit→settle span into the ``commit_e2e``
+latency band (the inner proxy then records none), and the stage timers
+into ``stage_<name>`` bands. A traced group emits ``stage.*`` spans
+built from the same stamps, and a window that outlives
+``tracing_slow_commit_ms`` a promoted ``commit.window`` span
+(utils/span.py). The last failure is kept in ``last_batch_error`` and
+logged as a trace event.
 """
 
 import threading
@@ -39,9 +42,19 @@ import time
 from collections import deque
 
 from foundationdb_tpu_torch.core.errors import FDBError
-from foundationdb_tpu_torch.utils.trace import LatencySample, StageStats
+from foundationdb_tpu_torch.utils import lockdep
+from foundationdb_tpu_torch.utils import metrics as metrics_mod
+from foundationdb_tpu_torch.utils import span as span_mod
+from foundationdb_tpu_torch.utils.trace import SEV_ERROR, StageStats, TraceEvent
 
 _UNSET = object()
+
+
+def _log_batch_error(phase, e):
+    """A failed batch's root cause in the trace (its futures answer
+    1021 or the error itself)."""
+    TraceEvent("CommitBatchError", severity=SEV_ERROR).detail(
+        phase=phase, etype=type(e).__name__, error=str(e)[:200]).log()
 
 
 class CommitFuture:
@@ -57,7 +70,7 @@ class CommitFuture:
     def __init__(self, proxy=None):
         self._result = _UNSET
         self._proxy = proxy
-        self.born = None  # monotonic stamp of a batch window's first submit
+        self.born = None  # clock stamp of a batch window's first submit
 
     def done(self):
         return self._result is not _UNSET
@@ -124,11 +137,12 @@ class BatchingCommitProxy:
                            else knobs.commit_batch_interval_s)
         self.flush_after = flush_after  # manual mode: steps before a flush
         self.mode = mode
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("BatchingCommitProxy._lock")
         self._pending = []  # [(request, future)]
         self._first_pending_step = None
-        self._wake = threading.Condition(self._lock)
-        self._done_cond = threading.Condition()  # batch-completion waiters
+        self._wake = lockdep.condition("BatchingCommitProxy._lock", self._lock)
+        # batch-completion waiters
+        self._done_cond = lockdep.condition("BatchingCommitProxy._done_cond")
         self._closed = False
         # stranded-batch watchdog bound: two commit deadlines plus grace
         self.watchdog_s = 2 * knobs.rpc_deadline_commit_s + self.WATCHDOG_GRACE_S
@@ -147,12 +161,23 @@ class BatchingCommitProxy:
         # backlog groups in flight. Manual mode is always serial.
         depth = knobs.commit_pipeline_depth
         self.pipeline_depth = max(1, int(depth)) if mode == "thread" else 1
-        # submit→settle seconds per settled batch window: the latency the
-        # "< 2 ms added p99" target is read from
-        self.commit_e2e = LatencySample()
-        self.stages = StageStats()
+        # the inner proxy's registry: one "commit_proxy" document holds
+        # its counters and this wrapper's bands. This wrapper sees the
+        # whole submit→settle window, queue wait included, so it records
+        # commit_e2e and the inner proxy records none
+        self.metrics = inner.metrics
+        inner.spans_owned_externally = True
+        self._m_e2e = self.metrics.latency("commit_e2e")
+        self._m_settled_batches = self.metrics.counter("batches_settled")
+        # the same spans since the last reset_stats (stage_summary's
+        # p50 / p99 of a measurement); the band above is cluster history.
+        # Its reservoir holds a whole measurement's windows, so those
+        # percentiles are exact, not the band's 512-entry sample
+        self._e2e_window = self._new_e2e_window()
+        self.stages = StageStats(registry=self.metrics)
         self._inflight = deque()  # [(chunks, _PipelinedGroup)] FIFO
-        self._inflight_cv = threading.Condition()
+        self._inflight_cv = lockdep.condition(
+            "BatchingCommitProxy._inflight_cv")
         self._occ_level = 0
         self._occ_t = time.perf_counter()
         self._occ_busy = 0.0  # seconds with >= 1 group in flight
@@ -177,7 +202,7 @@ class BatchingCommitProxy:
             if not self._pending:
                 # stamp the first submit of each batch window only: the
                 # oldest, whose span _record_span takes
-                fut.born = time.monotonic()
+                fut.born = metrics_mod.now()
             self._pending.append((request, fut))
             self._wake.notify()
         return fut
@@ -270,6 +295,7 @@ class BatchingCommitProxy:
                     try:
                         eligible = self.inner.pipeline_eligible(reqs)
                     except Exception as e:
+                        _log_batch_error("eligibility", e)
                         self._fail_chunks(group, e)
                         continue
                     if eligible:
@@ -280,6 +306,7 @@ class BatchingCommitProxy:
                         except Exception as e:
                             # begin died outside its own guards: the
                             # futures still resolve
+                            _log_batch_error("pipeline_begin", e)
                             self._fail_chunks(group, e)
                         continue
                 # serial route: in-flight groups settle first, or this
@@ -288,6 +315,7 @@ class BatchingCommitProxy:
                 try:
                     results_list = self.inner.commit_batches(reqs)
                 except Exception as e:
+                    _log_batch_error("backlog", e)
                     self._fail_chunks(group, e)
                     continue
                 self._settle_group(group, results_list)
@@ -300,6 +328,7 @@ class BatchingCommitProxy:
                     # never propagate: every future must resolve, and the
                     # remaining chunks still get their turn; the chunk
                     # may or may not be durable — 1021
+                    _log_batch_error("batch", e)
                     self._fail_chunks([chunk], e)
                     continue
                 self._settle_group([chunk], [results])
@@ -344,6 +373,7 @@ class BatchingCommitProxy:
         staging reuse rate."""
         inner = self.inner
         flat, legacy = inner.pack_flat_batches, inner.pack_legacy_batches
+        e2e = self._e2e_window.bands_ms()
         out = {
             "stage_pack_ms": round(self.stages.mean_ms("pack"), 3),
             "stage_dispatch_ms": round(self.stages.mean_ms("dispatch"), 3),
@@ -352,8 +382,8 @@ class BatchingCommitProxy:
             "pipelined_groups": self.stages.count("apply"),
             "pipeline_depth": self.pipeline_depth,
             "pipeline_depth_effective": self.pipeline_depth_effective,
-            "commit_e2e_p50_ms": round(self.commit_e2e.percentile_ms(50), 3),
-            "commit_e2e_p99_ms": round(self.commit_e2e.percentile_ms(99), 3),
+            "commit_e2e_p50_ms": e2e["p50_ms"],
+            "commit_e2e_p99_ms": e2e["p99_ms"],
             "pack_path": ("flat" if flat and not legacy else
                           "mixed" if flat else "legacy"),
             "pack_flat_batches": flat,
@@ -373,14 +403,22 @@ class BatchingCommitProxy:
                                   if hits + misses else 0.0)
         return out
 
+    E2E_WINDOW_RESERVOIR = 100_000
+
+    @classmethod
+    def _new_e2e_window(cls):
+        return metrics_mod.LatencySample(
+            "commit_e2e", reservoir=cls.E2E_WINDOW_RESERVOIR)
+
     def reset_stats(self):
-        """Zero the batch counters, stage timers, latency sample and
-        occupancy (between phases of a measurement)."""
+        """Zero the batch counters, stage means, the window's latency
+        sample and occupancy (between phases of a measurement); the
+        registry's bands keep the cluster's history."""
         with self._done_cond:
             self.batches_committed = self.txns_batched = 0
             self.max_batch_seen = 0
         self.stages.reset()
-        self.commit_e2e.reset()
+        self._e2e_window = self._new_e2e_window()
         with self._inflight_cv:
             self._occ_busy = self._occ_area = 0.0
             self._occ_t = time.perf_counter()
@@ -393,10 +431,12 @@ class BatchingCommitProxy:
             while (len(self._inflight) >= self.pipeline_depth
                    and self._apply_thread.is_alive()):
                 self._inflight_cv.wait(timeout=1.0)
+        t0s = span_mod.now()  # the stage spans' stamp
         d0 = self.inner.resolver.dispatch_wall_s
         t0 = time.perf_counter()
         pgroup = self.inner.commit_batches_begin(reqs)
         pack_s = time.perf_counter() - t0
+        gctx = pgroup.trace_ctx  # scanned once inside begin
         # hand the group over before any other fallible call: once
         # queued, stage C settles its futures even if this thread dies
         with self._inflight_cv:
@@ -408,6 +448,13 @@ class BatchingCommitProxy:
         dispatch_s = max(0.0, self.inner.resolver.dispatch_wall_s - d0)
         self.stages.add("pack", max(0.0, pack_s - dispatch_s))
         self.stages.add("dispatch", dispatch_s)
+        if gctx is not None:
+            # spans of the same split: pack is begin's host share, the
+            # dispatch carved off its tail
+            t1s = span_mod.now()
+            cut = max(t0s, t1s - dispatch_s)
+            span_mod.emit_span("stage.pack", gctx, begin=t0s, end=cut)
+            span_mod.emit_span("stage.dispatch", gctx, begin=cut, end=t1s)
 
     def drain_pipeline(self):
         """Block until every in-flight group has settled (the ordering
@@ -429,6 +476,9 @@ class BatchingCommitProxy:
             try:
                 self._finish_group(group_chunks, pgroup)
             except Exception as e:  # last resort: keep the worker up
+                TraceEvent("CommitApplyWorkerError", severity=SEV_ERROR
+                           ).detail(etype=type(e).__name__,
+                                    error=str(e)[:200]).log()
                 self.last_batch_error = e
                 self._fail_chunks(group_chunks, e)
             finally:
@@ -440,6 +490,8 @@ class BatchingCommitProxy:
     def _finish_group(self, group_chunks, pgroup):
         """Stage C for one group: finish at the proxy, settle futures in
         order, feed the AIMD backlog and the stage timers."""
+        gctx = pgroup.trace_ctx
+        t0s = span_mod.now() if gctx is not None else 0.0
         try:
             results_list = self.inner.commit_batches_finish(pgroup)
         except Exception as e:
@@ -451,6 +503,14 @@ class BatchingCommitProxy:
             self.last_batch_error = pgroup.error
         self.stages.add("resolve", pgroup.resolve_s)
         self.stages.add("apply", pgroup.apply_s)
+        if gctx is not None:
+            # resolve (the host sync) from the front of the call, apply
+            # (log push, storage apply) carved off its tail
+            t1s = span_mod.now()
+            span_mod.emit_span("stage.resolve", gctx, begin=t0s,
+                               end=min(t1s, t0s + pgroup.resolve_s))
+            span_mod.emit_span("stage.apply", gctx,
+                               begin=max(t0s, t1s - pgroup.apply_s), end=t1s)
         self._settle_group(group_chunks, results_list)
 
     def _settle(self, chunk, results):
@@ -468,10 +528,23 @@ class BatchingCommitProxy:
     def _record_span(self, chunk):
         """One commit_e2e record per settled batch window: from the
         window's oldest submit (the stamped head future) to now. Every
-        txn of the window replies together, so this is its worst case."""
+        txn of the window replies together, so this is its worst case.
+        The same stamps promote a window that outlived
+        ``tracing_slow_commit_ms`` to a ``commit.window`` span while
+        tracing is on."""
+        if not metrics_mod.enabled():
+            return
         born = chunk[0][1].born if chunk else None
         if born is not None:
-            self.commit_e2e.record(max(0.0, time.monotonic() - born))
+            end = metrics_mod.now()
+            dur = max(0.0, end - born)
+            self._m_e2e.record(dur)
+            self._e2e_window.record(dur)
+            knobs = self.inner.knobs
+            if (knobs.tracing_sample_rate > 0.0
+                    and dur * 1e3 >= knobs.tracing_slow_commit_ms):
+                span_mod.slow_window_span(born, end, txns=len(chunk))
+        self._m_settled_batches.inc()
 
     def _fail_chunks(self, chunks, e):
         self.last_batch_error = e
@@ -500,6 +573,7 @@ class BatchingCommitProxy:
                 try:
                     self._run_batch(pending)
                 except Exception as e:  # last resort: keep the thread up
+                    _log_batch_error("batcher_loop", e)
                     self.last_batch_error = e
 
     def fail_pending(self, error):

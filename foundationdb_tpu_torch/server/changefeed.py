@@ -17,12 +17,11 @@ Reading below a feed's popped/trimmed frontier raises
 old read version is — it left the retained window.
 """
 
-import threading
-
 from collections import deque
 
 from foundationdb_tpu_torch.core.errors import err
 from foundationdb_tpu_torch.core.mutations import Op
+from foundationdb_tpu_torch.utils import lockdep
 
 
 class _Feed:
@@ -43,7 +42,7 @@ class ChangeFeedRegistry:
     def __init__(self, retention=10_000):
         self.retention = retention
         self._feeds = {}
-        self._mu = threading.Lock()
+        self._mu = lockdep.lock("ChangeFeedRegistry._mu")
 
     def __len__(self):
         return len(self._feeds)

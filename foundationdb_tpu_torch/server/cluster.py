@@ -68,15 +68,31 @@ commit proxies and resolvers and changes the regions through a
 transaction-system recovery. The cluster owns one change-feed registry
 (server/changefeed.py) that every commit proxy feeds.
 
-Not ported: the replica consistency check, the latency prober, the
-metrics history, device profiles, heatmaps and metric registries (the
-reference's recoveries and failovers also carry those).
+Observability (utils/, server/health.py, server/consistencyscan.py):
+the cluster owns every role's metrics registry (``_role_registry``),
+the workload heatmaps (``_role_heatmap``) and each resolver's device
+profile (``_role_profile``), and hands them to every incarnation, so no
+counter goes backwards across a recovery, a recruitment, a failover or
+a resize (a shrinking fleet folds its orphans into member 0). On them
+stand the latency prober (``prober``), the metrics history and flight
+recorder (``history``) and the consistency scanner (``scanner``, its
+cursor in ``\\xff/consistencyScan/``); a thread-mode cluster runs the
+three on daemon threads, other pipelines pump ``maybe_probe`` /
+``maybe_collect`` / ``maybe_scan``. ``status()`` is the reference's
+whole document, with ``health`` (the doctor's verdict and the recovery
+timeline), ``device``, ``history``, ``consistency_scan`` and ``trace``;
+``consistency_check()`` audits every replica once; ``set_tracing``
+changes the sample rate live.
+
+Not ported: special keys, the metacluster layer (the status section
+reads its registration row) and RPC (the health document's ``rpc``
+section is the empty view of a process without a failure monitor).
 """
 
 import contextlib
 import dataclasses
 import itertools
-import threading
+import json
 
 from foundationdb_tpu_torch.core import systemdata
 from foundationdb_tpu_torch.core.commit import CommitRequest
@@ -85,6 +101,8 @@ from foundationdb_tpu_torch.core.mutations import Mutation, Op
 from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
 from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 from foundationdb_tpu_torch.resolver.resolver import Resolver, _device_of
+from foundationdb_tpu_torch.server import consistencyscan as consistencyscan_mod
+from foundationdb_tpu_torch.server import health as health_mod
 from foundationdb_tpu_torch.server.changefeed import ChangeFeedRegistry
 from foundationdb_tpu_torch.server.coordination import (
     CoordinationQuorum,
@@ -96,7 +114,6 @@ from foundationdb_tpu_torch.server.datadistribution import (
     ShardMap,
 )
 from foundationdb_tpu_torch.server.grv import BatchingGrvProxy, GrvProxy
-from foundationdb_tpu_torch.server.health import RecoveryTimeline
 from foundationdb_tpu_torch.server.proxy import CommitProxy, VersionGate
 from foundationdb_tpu_torch.server.ratekeeper import Ratekeeper
 from foundationdb_tpu_torch.server.region import RegionConfig, RegionReplicator
@@ -104,7 +121,17 @@ from foundationdb_tpu_torch.server.router import StorageRouter
 from foundationdb_tpu_torch.server.sequencer import Sequencer
 from foundationdb_tpu_torch.server.storage import StorageServer
 from foundationdb_tpu_torch.server.tlog import TLog, TLogSystem
-from foundationdb_tpu_torch.utils.trace import SEV_WARN_ALWAYS, TraceEvent
+from foundationdb_tpu_torch.utils import deviceprofile
+from foundationdb_tpu_torch.utils import heatmap as heatmap_mod
+from foundationdb_tpu_torch.utils import lockdep
+from foundationdb_tpu_torch.utils import metrics as metrics_mod
+from foundationdb_tpu_torch.utils import span as span_mod
+from foundationdb_tpu_torch.utils import timeseries as timeseries_mod
+from foundationdb_tpu_torch.utils.trace import (
+    SEV_WARN_ALWAYS,
+    TraceEvent,
+    global_trace_log,
+)
 
 COMMIT_PIPELINES = ("sync", "thread", "manual")
 
@@ -149,6 +176,12 @@ class Cluster:
         self._commit_batch_max = commit_batch_max
         self._commit_flush_after = commit_flush_after
         self.n_commit_proxies = n_commit_proxies
+        # the cluster-owned observability stores, keyed (role, index) and
+        # handed to every incarnation of the role: metric registries,
+        # workload heatmaps, and the resolvers' device profiles
+        self._metrics_store = {}
+        self._heatmap_store = {}
+        self._device_store = {}
         self.ratekeeper = Ratekeeper(
             target_tps=target_tps if target_tps is not None else 1e9,
             clock=rk_clock, tag_busy_threshold=knobs.tag_throttle_busyness)
@@ -164,10 +197,16 @@ class Cluster:
             records = []
         # every storage replays the whole log: a non-owner holds shadow
         # rows of shards it does not own, which routing never reads and a
-        # relocation clears before it installs
-        self.storages = [StorageServer.recover(
-            eng, records, knobs.max_read_transaction_life_versions)
-            for eng in storage_engines]
+        # relocation clears before it installs. The heatmaps attach
+        # before the replay, which they sample as any apply
+        self.storages = [StorageServer(
+            window_versions=knobs.max_read_transaction_life_versions,
+            engine=eng) for eng in storage_engines]
+        for sid, s in enumerate(self.storages):
+            self._attach_heat(s, sid)
+            for version, mutations in records:
+                if version > s.version:
+                    s.apply(version, mutations)
         recovered = max(s.version for s in self.storages)
         self.recovered_records = len(records)
         # ── the coordinated state: read, then lock the generation ──
@@ -175,10 +214,12 @@ class Cluster:
         # coordinators, and a coordinator count; neither is ported)
         self.coordination = CoordinationQuorum.local(3, coordination_dir)
         self.generation = self._win_generation(recovered)
-        self.recovery_timeline = RecoveryTimeline()
         self.recruitments = 0  # roles the failure monitor replaced
         # serializes transaction-system recoveries
-        self._recovery_mu = threading.Lock()
+        self._recovery_mu = lockdep.lock("Cluster._recovery_mu")
+        # a simulation's hook: each recovery phase mark calls it, so a
+        # simulated recovery consumes simulated time (None: real time)
+        self.clock_advance = None
         # fsync=True: every push reaches the disk before its commit acks
         if n_tlogs > 1:
             self.tlog = TLogSystem(n_tlogs, wal_path=wal_path, fsync=fsync)
@@ -188,6 +229,7 @@ class Cluster:
         self.sequencer = Sequencer(start_version=recovered)
         self.resolvers = self._make_resolvers(n_resolvers, recovered, device)
         self.device = self.resolvers[0].device
+        self._attach_device_profiles()
         # ── placement: the shard map persisted in \xff/keyServers/ is
         # restored (ref: recovery reading keyServers), else every shard
         # starts on the first ``replication`` storages ──
@@ -200,12 +242,21 @@ class Cluster:
         self.router = StorageRouter(self.storages, self.dd.map,
                                     itertools.count())
         self.change_feeds = ChangeFeedRegistry()
+        # the doctor (server/health.py), the metrics history and flight
+        # recorder (utils/timeseries.py) and the replica auditor
+        # (server/consistencyscan.py), all on the stores above
+        self.recovery_timeline = health_mod.RecoveryTimeline()
+        self.prober = health_mod.LatencyProber(self)
+        self.history = timeseries_mod.HistoryCollector(self)
+        self.scanner = consistencyscan_mod.ConsistencyScanner(self)
         # the region replicator (None until a config attaches); the
         # frontend reads it
         self.regions = None
         self.commit_proxy, self.grv_proxy = self._build_txn_frontend()
         if records:
             self._restore_tenant_config()
+            # the scan resumes where the old incarnation left it
+            self.scanner.restore_cursor()
         # the argument wins; else a recovered \xff/conf/regions row
         # re-attaches (re-seeding the satellite; only a new config
         # writes the row)
@@ -216,6 +267,15 @@ class Cluster:
         if region_cfg is not None:
             self._attach_regions(RegionConfig.parse(region_cfg),
                                  persist=regions is not None)
+        # daemon loops only in thread mode: other pipelines pump
+        # maybe_probe / maybe_collect / maybe_scan on their own schedule
+        if commit_pipeline == "thread":
+            if knobs.health_probe_enabled:
+                self.prober.start()
+            if knobs.history_enabled:
+                self.history.start()
+            if knobs.consistency_scan_enabled:
+                self.scanner.start()
 
     def _make_resolvers(self, lanes, base_version, device):
         """The resolvers for ``lanes`` lanes at ``base_version``: one
@@ -293,18 +353,91 @@ class Cluster:
                 continue
         raise CoordinatorDown("could not win a recovery generation")
 
-    def _make_commit_proxy(self, resolve_gate=None, log_gate=None):
-        return CommitProxy(self.sequencer, self.resolvers, self.tlog,
-                           self.storages, self.knobs, self.ratekeeper,
-                           dd=self.dd, change_feeds=self.change_feeds,
-                           regions=self.regions, resolve_gate=resolve_gate,
-                           log_gate=log_gate)
+    # ── the cluster-owned observability stores ──
+    def _role_registry(self, role, i=0):
+        """The (role, index) metrics registry, made at first use and
+        handed to every later incarnation of that role."""
+        key = (role, i)
+        reg = self._metrics_store.get(key)
+        if reg is None:
+            reg = self._metrics_store[key] = metrics_mod.MetricsRegistry(
+                role, index=i)
+        return reg
+
+    def _role_registries(self, role):
+        return [reg for (r, _), reg in sorted(self._metrics_store.items())
+                if r == role]
+
+    def _role_heatmap(self, role, i=0, decode=None):
+        """The (role, index) heatmap, as ``_role_registry``."""
+        key = (role, i)
+        hm = self._heatmap_store.get(key)
+        if hm is None:
+            hm = self._heatmap_store[key] = heatmap_mod.KeyRangeHeatmap(
+                f"{role}:{i}", max_buckets=self.knobs.heatmap_max_buckets,
+                half_life_s=self.knobs.heatmap_half_life_s, decode=decode)
+        return hm
+
+    def _role_heatmaps(self, role):
+        return [hm for (r, _), hm in sorted(self._heatmap_store.items())
+                if r == role]
+
+    def _attach_heat(self, storage, sid):
+        """Storage ``sid``'s sampling into the cluster's read and write
+        heatmaps (a recruit gets the same ones)."""
+        if self.knobs.workload_sampling:
+            storage.attach_heatmaps(self._role_heatmap("storage_read", sid),
+                                    self._role_heatmap("storage_write", sid),
+                                    self.knobs.storage_sample_every)
+
+    def _role_profile(self, i=0):
+        """Resolver ``i``'s device profile, as ``_role_registry``."""
+        key = ("resolver", i)
+        prof = self._device_store.get(key)
+        if prof is None:
+            prof = self._device_store[key] = deviceprofile.DeviceProfile(
+                "resolver", index=i)
+        return prof
+
+    def _attach_device_profiles(self):
+        """Hand every resolver its profile (at start, after every
+        recovery and resize). A shrinking fleet folds the orphaned
+        indices' profiles into member 0 first: no count goes back."""
+        n = max(1, len(self.resolvers))
+        for (role, i) in list(self._device_store):
+            if i >= n:
+                self._role_profile(0).absorb(self._device_store.pop((role, i)))
+        for i, r in enumerate(self.resolvers):
+            r.adopt_profile(self._role_profile(i))
+
+    def _make_commit_proxy(self, resolve_gate=None, log_gate=None, index=0):
+        return CommitProxy(
+            self.sequencer, self.resolvers, self.tlog, self.storages,
+            self.knobs, self.ratekeeper, dd=self.dd,
+            change_feeds=self.change_feeds, regions=self.regions,
+            resolve_gate=resolve_gate, log_gate=log_gate,
+            metrics=self._role_registry("commit_proxy", index),
+            heatmap=(self._role_heatmap("commit_proxy", index,
+                                        decode=heatmap_mod.entry_key)
+                     if self.knobs.workload_sampling else None),
+            fanout_profile=self._role_profile(0))
 
     def _build_txn_frontend(self):
         """One commit proxy and GRV proxy, or a fleet of
         ``n_commit_proxies`` of each with chained versions and one shared
         pair of version gates starting at the committed version. Used at
-        start and by every transaction-system recovery."""
+        start and by every transaction-system recovery. A shrinking fleet
+        folds the orphaned members' registries and conflict heat into
+        member 0, so cluster totals never go backwards."""
+        n = max(1, self.n_commit_proxies)
+        for (role, i) in list(self._metrics_store):
+            if role in ("commit_proxy", "grv_proxy") and i >= n:
+                self._role_registry(role, 0).absorb(
+                    self._metrics_store.pop((role, i)))
+        for (role, i) in list(self._heatmap_store):
+            if role == "commit_proxy" and i >= n:
+                self._role_heatmap(role, 0, decode=heatmap_mod.entry_key
+                                   ).absorb(self._heatmap_store.pop((role, i)))
         if self.n_commit_proxies <= 1:
             return self._wire_pipeline(self._make_commit_proxy())
         from foundationdb_tpu_torch.server.fleet import GrvFleet, ProxyFleet
@@ -314,15 +447,15 @@ class Cluster:
         resolve_gate = VersionGate(start, timeout=t)
         log_gate = VersionGate(start, timeout=t)
         inners, members, grvs = [], [], []
-        for _ in range(self.n_commit_proxies):
-            inner = self._make_commit_proxy(resolve_gate, log_gate)
-            wrapped, grv = self._wire_pipeline(inner)
+        for i in range(self.n_commit_proxies):
+            inner = self._make_commit_proxy(resolve_gate, log_gate, index=i)
+            wrapped, grv = self._wire_pipeline(inner, index=i)
             inners.append(inner)
             members.append(wrapped)
             grvs.append(grv)
         return ProxyFleet(members, inners), GrvFleet(grvs)
 
-    def _wire_pipeline(self, inner):
+    def _wire_pipeline(self, inner, index=0):
         """Wrap a bare CommitProxy and a fresh GrvProxy in the configured
         pipeline: "thread" batches GRVs too (ref: GrvProxyServer's
         transaction-start batching)."""
@@ -336,7 +469,8 @@ class Cluster:
                 inner, max_batch=self._commit_batch_max,
                 flush_after=self._commit_flush_after,
                 mode=self.commit_pipeline)
-        grv = GrvProxy(self.sequencer, self.ratekeeper)
+        grv = GrvProxy(self.sequencer, self.ratekeeper,
+                       metrics=self._role_registry("grv_proxy", index))
         if self.commit_pipeline == "thread":
             grv = BatchingGrvProxy(grv,
                                    interval_s=self.knobs.grv_batch_interval_s)
@@ -394,6 +528,7 @@ class Cluster:
                         return events
                     events.append(("region-failover", 0))
                     self.recruitments += 1
+                    TraceEvent("RolesRecruited").detail(events=events).log()
                     return events
         if not self.sequencer.alive or not self._commit_target().alive:
             # a transaction-system recovery: new generation, fresh
@@ -415,7 +550,9 @@ class Cluster:
             if not s.alive:
                 self._recruit_storage(sid)
                 events.append(("storage", sid))
-        self.recruitments += len(events)
+        if events:
+            self.recruitments += len(events)
+            TraceEvent("RolesRecruited").detail(events=events).log()
         return events
 
     def _recover_txn_system(self, new_resolver_lanes=None,
@@ -431,7 +568,7 @@ class Cluster:
         that many lanes here, after the quiesce, and releases the old
         ones' history and compiled steps; otherwise each resolver is
         respawned, handing its own over."""
-        rec = self.recovery_timeline.begin(trigger)
+        rec = self.recovery_timeline.begin(trigger, self.clock_advance)
         old_proxy = self.commit_proxy
         old_inners = self._inner_proxies()
         # quiesce: mark both roles dead first (later batches answer 1021
@@ -462,6 +599,9 @@ class Cluster:
             for r in old:
                 r.kill()
                 r.release()
+        # every incarnation, respawned or rebuilt, takes its profile
+        # (a shrink folds the orphans first)
+        self._attach_device_profiles()
         # the lock and the tenant mode are cluster state, not proxy
         # state: they survive
         lock_uid = old_inners[0].lock_uid
@@ -483,6 +623,9 @@ class Cluster:
             old_grv.close()
         rec.phase("accept")
         rec.finish(gen, recovered)
+        TraceEvent("TxnSystemRecovered").detail(
+            generation=gen, version=recovered, trigger=trigger,
+            recovery_ms=rec.record["total_ms"]).log()
 
     def _region_failover(self):
         """Promote the remote region after the loss of the whole primary
@@ -497,7 +640,8 @@ class Cluster:
         their predecessors' history and compiled steps. The caller holds
         ``_recovery_mu``."""
         reg = self.regions
-        rec = self.recovery_timeline.begin("region_failover")
+        rec = self.recovery_timeline.begin("region_failover",
+                                           self.clock_advance)
         old_proxy = self.commit_proxy
         old_inners = self._inner_proxies()
         old_grv = self.grv_proxy
@@ -518,6 +662,7 @@ class Cluster:
         self.sequencer = Sequencer(start_version=frontier)
         for i, r in enumerate(self.resolvers):
             self.resolvers[i] = r.respawn(frontier)
+        self._attach_device_profiles()
         rec.phase("recruit")
         # the primary's engines are lost with the region: the new fleet
         # starts empty and swaps in place (DD, the router and the
@@ -548,6 +693,9 @@ class Cluster:
         rec.phase("accept")
         rec.finish(gen, frontier)
         reg.note_failover(rec.record["total_ms"])
+        TraceEvent("TxnSystemRecovered").detail(
+            generation=gen, version=frontier, trigger="region_failover",
+            recovery_ms=rec.record["total_ms"]).log()
 
     def _tlog_replicas(self):
         return (self.tlog.logs if isinstance(self.tlog, TLogSystem)
@@ -572,15 +720,19 @@ class Cluster:
     def _replay_storage(self, sid, engine, records, region):
         """Install storage ``sid``'s replacement: ``engine`` (None: a
         fresh memory engine) replaying ``records``, keeping what ``sid``
-        owns under the shard map, its counters carried over and its
-        placement tag ``region``. The proxies, DD and the router share
-        the list it is swapped into."""
+        owns under the shard map, with its predecessor's registry and
+        the cluster's heatmaps and its placement tag ``region``. The
+        proxies, DD and the router share the list it is swapped into."""
         smap = self.dd.map if self.replication < len(self.storages) else None
-        new = StorageServer.recover(
-            engine, records, self.knobs.max_read_transaction_life_versions,
-            owns=(None if smap is None
-                  else lambda m: self._storage_owns(smap, sid, m)))
-        new.counters = self.storages[sid].counters
+        new = StorageServer(
+            window_versions=self.knobs.max_read_transaction_life_versions,
+            engine=engine)
+        new.adopt_metrics(self.storages[sid].metrics)
+        self._attach_heat(new, sid)
+        for version, muts in records:
+            if version > new.version:
+                new.apply(version, muts if smap is None else
+                          [m for m in muts if self._storage_owns(smap, sid, m)])
         new.region = region
         self.storages[sid] = new
 
@@ -876,29 +1028,269 @@ class Cluster:
 
         return Database(self)
 
+    # ── tracing and the consistency check ──
+    TRACING_DEFAULT_RATE = 0.01  # set_tracing(enabled=True) without a rate
+
+    def tracing_config(self):
+        k = self.knobs
+        return {"enabled": k.tracing_sample_rate > 0,
+                "sample_rate": k.tracing_sample_rate,
+                "slow_commit_ms": k.tracing_slow_commit_ms}
+
+    def set_tracing(self, sample_rate=None, enabled=None):
+        """Change the tracing sample rate live: the cluster's knobs are
+        swapped for a copy with the new rate (DEFAULT_KNOBS is never
+        mutated); new transactions and the live proxies take it at
+        once."""
+        k = self.knobs
+        if enabled is not None:
+            if enabled:
+                sample_rate = (k.tracing_sample_rate
+                               if k.tracing_sample_rate > 0
+                               else self.TRACING_DEFAULT_RATE)
+            else:
+                sample_rate = 0.0
+        if sample_rate is None:
+            return self.tracing_config()
+        rate = float(sample_rate)
+        if not 0.0 <= rate <= 1.0:
+            raise err("invalid_option_value")
+        self.knobs = dataclasses.replace(k, tracing_sample_rate=rate)
+        for p in self._inner_proxies():
+            p.knobs = self.knobs
+        TraceEvent("TracingConfigured").detail(sample_rate=rate).log()
+        return self.tracing_config()
+
+    def consistency_check(self, max_keys_per_shard=None):
+        """Every replica of every shard compared at one version (ref:
+        the ConsistencyCheck workload); returns the problems, [] when
+        consistent."""
+        from foundationdb_tpu_torch.server.consistency import (
+            consistency_check,
+        )
+
+        return consistency_check(self, max_keys_per_shard)
+
+    # ── the status document ──
+    def _metacluster_status(self):
+        """This cluster's metacluster membership from its registration
+        row, "standalone" without one, "unknown" when no storage can be
+        read."""
+        s0 = next((s for s in self.storages if s.alive), None)
+        if s0 is None:
+            return {"cluster_type": "unknown"}
+        try:
+            row = s0.get(systemdata.METACLUSTER_REGISTRATION, s0.version)
+        except FDBError:
+            # a kill raced past the alive check: status never raises
+            return {"cluster_type": "unknown"}
+        if row is None:
+            return {"cluster_type": "standalone"}
+        meta = json.loads(row)
+        return {"cluster_type": f"metacluster_{meta['role']}",
+                "name": meta.get("name")}
+
+    def _sum_counter(self, role, name):
+        return sum(reg.counter(name).value
+                   for reg in self._role_registries(role))
+
+    def metrics_status(self):
+        """The status document's metrics section (ref: Status.actor.cpp
+        folding every role's stats): latency rollups merged across the
+        fleets and the commit pipeline's hottest stage."""
+        commit_regs = self._role_registries("commit_proxy")
+        commit = metrics_mod.merged_bands_ms(
+            [r.get_latency("commit_e2e") for r in commit_regs])
+        grv = metrics_mod.merged_bands_ms(
+            [r.get_latency("grv_grant")
+             for r in self._role_registries("grv_proxy")])
+        push = metrics_mod.merged_bands_ms(
+            [log.metrics.get_latency("tlog_push")
+             for log in self._tlog_replicas()])
+        apply_ = metrics_mod.merged_bands_ms(
+            [s.metrics.get_latency("storage_apply") for s in self.storages])
+        rbatch = metrics_mod.merged_bands_ms(
+            [s.metrics.get_latency("read_batch") for s in self.storages])
+        rkeys = metrics_mod.merged_bands_ms(
+            [s.metrics.get_latency("read_batch_keys") for s in self.storages])
+        read_batches = sum(s.metrics.counter("read_batches").value
+                           for s in self.storages)
+        batched_reads = sum(s.metrics.counter("batched_reads").value
+                            for s in self.storages)
+        # the stage with the most wall time across the fleet
+        stage_totals = {}
+        for reg in commit_regs:
+            for stage in ("pack", "dispatch", "resolve", "apply"):
+                band = reg.get_latency(f"stage_{stage}")
+                if band is not None and band.count:
+                    stage_totals[stage] = (stage_totals.get(stage, 0.0)
+                                           + band.total_seconds())
+        hottest = (max(stage_totals, key=stage_totals.get)
+                   if stage_totals else None)
+        rollups = {
+            "commit_latency_p50_ms": commit["p50_ms"],
+            "commit_latency_p99_ms": commit["p99_ms"],
+            "commit_latency_max_ms": commit["max_ms"],
+            "commit_spans": commit["count"],
+            "grv_latency_p99_ms": grv["p99_ms"],
+            "tlog_push_p99_ms": push["p99_ms"],
+            "storage_apply_p99_ms": apply_["p99_ms"],
+            "read_batch_p99_ms": rbatch["p99_ms"],
+            "read_batch_size_p50": round(rkeys["p50_ms"], 1),
+            "read_batch_size_p99": round(rkeys["p99_ms"], 1),
+            "read_batches": read_batches,
+            "batched_reads": batched_reads,
+            "read_batch_coalesce_rate": round(
+                batched_reads / max(read_batches, 1), 2),
+            "hottest_stage": hottest,
+            "hottest_stage_totals_s": {
+                k: round(v, 6) for k, v in stage_totals.items()},
+        }
+        for name in ("repair_attempts", "repair_commits", "repair_fallbacks",
+                     "sched_reordered", "sched_deferred"):
+            rollups[name] = self._sum_counter("commit_proxy", name)
+        return {"rollups": rollups, "commit_latency_bands": commit,
+                "grv_latency_bands": grv}
+
+    def _tag_rollup(self):
+        """Each tag's outcomes summed across the fleets (the registries'
+        ``tag_{outcome}_{tag}`` counters), its busyness and its live
+        admission limit."""
+        out = {}
+        scans = (("commit_proxy", "tag_committed_", "committed"),
+                 ("commit_proxy", "tag_conflicted_", "conflicted"),
+                 ("commit_proxy", "tag_too_old_", "too_old"),
+                 ("grv_proxy", "tag_started_", "started"))
+        snaps = {role: [r.snapshot()["counters"]
+                        for r in self._role_registries(role)]
+                 for role in ("commit_proxy", "grv_proxy")}
+        for role, prefix, field in scans:
+            for counters in snaps[role]:
+                for name, v in counters.items():
+                    if name.startswith(prefix):
+                        row = out.setdefault(name[len(prefix):], {})
+                        row[field] = row.get(field, 0) + v
+        for tag, busy in self.ratekeeper.tag_busyness.items():
+            out.setdefault(tag, {})["busyness"] = busy
+        for tag, tps in self.ratekeeper.throttled_tags().items():
+            out.setdefault(tag, {})["limit_tps"] = round(tps, 2)
+        return {t: out[t] for t in sorted(out)}
+
+    def hot_ranges_status(self, top=None):
+        """The workload-attribution document: the fleet-merged conflict,
+        read and write hot ranges (``top`` keeps the N hottest of each)
+        and the per-tag rollup."""
+        k = self.knobs
+        bounds = dict(max_buckets=k.heatmap_max_buckets,
+                      half_life_s=k.heatmap_half_life_s)
+        dims = {
+            "conflict": heatmap_mod.merged(
+                self._role_heatmaps("commit_proxy"), name="conflict",
+                decode=heatmap_mod.entry_key, **bounds),
+            "read": heatmap_mod.merged(
+                self._role_heatmaps("storage_read"), name="read", **bounds),
+            "write": heatmap_mod.merged(
+                self._role_heatmaps("storage_write"), name="write", **bounds),
+        }
+        return {
+            "sampling": bool(k.workload_sampling) and heatmap_mod.enabled(),
+            "hot_ranges": {name: hm.snapshot(top=top)
+                           for name, hm in dims.items()},
+            "totals": {name: {"heat": round(hm.total_heat(), 4),
+                              "charges": hm.charges}
+                       for name, hm in dims.items()},
+            "tags": self._tag_rollup(),
+        }
+
+    def device_profile_status(self):
+        """The device-path profile document: each resolver's profile and
+        their aggregate, from the cluster's store (it survives
+        recoveries and resizes)."""
+        profs = [p for _, p in sorted(self._device_store.items())]
+        return {"enabled": deviceprofile.enabled(),
+                "resolvers": [p.snapshot() for p in profs],
+                "aggregate": deviceprofile.merged_snapshot(profs)}
+
+    def health_status(self):
+        """The doctor's document (verdict, reasons, probes, the recovery
+        timeline, lag and saturation); a pure read."""
+        return health_mod.build_health(self)
+
+    def history_status(self):
+        """The metrics-history document and the flight recorder's
+        summary; a pure read (no window is cut here)."""
+        return self.history.status()
+
+    def flight_status(self):
+        """The flight recorder's summary and its newest artifact (None
+        until a verdict change, a recovery or a probe-SLO breach)."""
+        return {**self.history.recorder.summary(),
+                "artifact": self.history.recorder.latest()}
+
+    def consistency_scan_status(self):
+        """The consistency scan's round, progress, volume and confirmed
+        inconsistencies; a pure read."""
+        return self.scanner.status()
+
+    def set_consistency_scan(self, on):
+        """Turn the scanner's module switch; the document stays
+        readable, and is returned."""
+        consistencyscan_mod.set_enabled(bool(on))
+        return self.consistency_scan_status()
+
+    def _trace_status(self):
+        """The trace sink's per-type suppression and the tracing config
+        and span gauges (process-wide)."""
+        log = global_trace_log()
+        return {"suppressed_events": log.suppressed_events,
+                "suppressed_by_type": dict(log.suppressed_by_type),
+                "tracing": self.tracing_config(),
+                "spans_sampled": span_mod.spans_sampled(),
+                "spans_emitted": span_mod.spans_emitted()}
+
+    def _resolver_process(self, i, r):
+        return {"id": i, "alive": r.alive,
+                "backend": self.knobs.resolver_backend,
+                "lanes": getattr(r, "n_lanes", 1),
+                # "range" / "hash": a lane fleet; "local": one lane or
+                # host resolvers
+                "sharding": getattr(r, "sharding", "local"),
+                "metrics": r.metrics.snapshot(),
+                "device": str(r.device) if r.device is not None else None,
+                "graphs": r._steps.stats()}
+
     def status(self):
-        """A reduced status document: availability, the committed-txn
-        counter, the generation and recoveries, the commit pipeline and
-        each role's status."""
-        cp = self.commit_proxy
-        inners = self._inner_proxies()
+        """The status document (ref: fdbcli status json, Status.actor.cpp):
+        the reference's keys at every level. The workload counters sum
+        the cluster-held registries, so they survive recoveries. The
+        port adds ``device`` and ``graphs`` to each resolver process."""
         rk = self.ratekeeper
+        live_storages = sum(1 for s in self.storages if s.alive)
+        tlog_info = {"count": 1, "live": 1, "quorum": 1, "replicated": False}
+        if isinstance(self.tlog, TLogSystem):
+            tlog_info = {"count": self.tlog.n, "live": self.tlog.live_count,
+                         "quorum": self.tlog.quorum, "replicated": True}
+        degraded = (live_storages < len(self.storages)
+                    or tlog_info["live"] < tlog_info["count"]
+                    or any(not r.alive for r in self.resolvers))
+        hot = self.hot_ranges_status()
         return {"cluster": {
-            "database_available": all(
-                (self.sequencer.alive, self._commit_target().alive,
-                 self.tlog.alive, any(s.alive for s in self.storages),
-                 *(r.alive for r in self.resolvers))),
             "generation": self.generation,
+            "coordinators": len(self.coordination.coordinators),
             "data": {"shards": len(self.dd.map),
                      "team_bytes": self.dd.team_bytes(),
                      "replication_factor": self.replication,
                      # a relocation copies, then flips the map, within
                      # one rebalance call: no move is ever in flight
                      "moving_data": False},
+            "database_available": live_storages > 0,
             "database_lock_state": _lock_state(self.lock_uid()),
             "regions": (self.regions.status() if self.regions is not None
                         else {"configured": False}),
+            "metacluster": self._metacluster_status(),
             "change_feeds": len(self.change_feeds),
+            "degraded": degraded,
+            "recruitments": self.recruitments,
             "qos": {
                 "transactions_per_second_limit": rk.target_tps,
                 "batch_transactions_per_second_limit": (
@@ -906,25 +1298,54 @@ class Cluster:
                 "throttled_count": rk.throttled_count,
                 "throttled_tags": rk.throttled_tags(),
                 "tag_throttled_count": rk.tag_throttled_count},
-            "recovery": self.recovery_timeline.snapshot(),
-            # lanes, not host objects: a 3-lane fleet counts 3
-            "resolvers": self.resolver_lanes(),
-            "workload": {"transactions": {
-                "committed": {"counter": cp.commit_count},
-                "conflicted": {"counter": cp.conflict_count}}},
+            "workload": {
+                "transactions": {
+                    "committed": {"counter": self._sum_counter(
+                        "commit_proxy", "txn_committed")},
+                    "conflicted": {"counter": (
+                        self._sum_counter("commit_proxy",
+                                          "abort_not_committed")
+                        + self._sum_counter("commit_proxy",
+                                            "abort_transaction_too_old"))},
+                    "started": {"counter": self._sum_counter(
+                        "grv_proxy", "grv_grants")}},
+                "hot_ranges": hot["hot_ranges"],
+                "hot_range_totals": hot["totals"],
+                "tags": hot["tags"]},
+            "metrics": self.metrics_status(),
+            "health": self.health_status(),
+            "device": self.device_profile_status(),
+            "history": self.history_status(),
+            "consistency_scan": self.consistency_scan_status(),
+            "trace": self._trace_status(),
+            "latest_version": self.sequencer.committed_version,
+            "oldest_readable_version": self.storage.oldest_version,
             "commit_pipeline": self.commit_pipeline,
             "processes": {
-                "commit_proxy": dict(inners[0].status(),
-                                     count=self.n_commit_proxies,
-                                     members=[p.status() for p in inners]),
-                "grv_proxy": self.grv_proxy.status(),
-                "resolvers": [r.status() for r in self.resolvers],
-                "log": self.tlog.status(),
-                "storage": self.storage.status(),
-                "storage_servers": [dict(s.status(), id=i)
-                                    for i, s in enumerate(self.storages)],
+                "sequencer": {"alive": self.sequencer.alive},
+                "commit_proxy": {
+                    "alive": self._commit_target().alive,
+                    "count": self.n_commit_proxies,
+                    "members": [p.status() for p in self._inner_proxies()]},
+                "grv_proxies": [{"id": reg.index, "metrics": reg.snapshot()}
+                                for reg in self._role_registries("grv_proxy")],
+                "resolvers": [
+                    self._resolver_process(i, r)
+                    for i, r in enumerate(self.resolvers)],
+                "storage_servers": [
+                    {"id": i, "alive": s.alive,
+                     "durable_version": s.durable_version,
+                     "oldest_version": s.oldest_version,
+                     "versioned_engine": s.versioned_engine,
+                     "metrics": s.status()["metrics"]}
+                    for i, s in enumerate(self.storages)],
+                "logs": {**tlog_info,
+                         "replicas": [log.status()
+                                      for log in self._tlog_replicas()]},
                 "ratekeeper": rk.status(),
             },
+            "resolvers": self.resolver_lanes(),
+            "resolver_backend": self.knobs.resolver_backend,
             "storage_servers": len(self.storages),
         }}
 
@@ -932,7 +1353,11 @@ class Cluster:
         """Stop the batcher and GRV threads (committing what is pending),
         release the resolvers' device history, then close the storage
         engine and the log files; later commits answer 1020 (the
-        resolver is down). The region streamer stops first."""
+        resolver is down). The prober, the history collector, the scanner
+        and the region streamer stop first."""
+        self.scanner.stop()
+        self.prober.stop()
+        self.history.stop()
         if self.regions is not None:
             self.regions.close()
         for frontend in (self.grv_proxy, self.commit_proxy):

@@ -23,8 +23,8 @@ on the generation), and only then recruit the new transaction system.
 
 import json
 import os
-import threading
 
+from foundationdb_tpu_torch.utils import lockdep
 from foundationdb_tpu_torch.utils.backoff import Backoff
 
 
@@ -54,7 +54,7 @@ class Coordinator:
     """
 
     def __init__(self, path=None):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("Coordinator._lock")
         self.path = path
         self.alive = True
         self.promised = 0  # highest ballot promised (Paxos phase 1)

@@ -12,22 +12,43 @@ granted from ONE committed-version read. Under throttling a request is
 delayed in its queue until the token bucket refills, not bounced; only
 a request older than ``max_wait_s`` is rejected (retryable). A tagged
 request meets its tag gate on entry, before it queues.
+
+The role's metrics registry (the cluster hands every incarnation the
+same one) counts grants, 1037s, 1213s and each tag's started txns, and
+holds the batching loop's ``grv_grant`` queue-wait band; a traced
+request's grant is a ``grv.grant`` span.
 """
 
 import threading
 import time
 
 from foundationdb_tpu_torch.core.errors import err
+from foundationdb_tpu_torch.utils import lockdep
+from foundationdb_tpu_torch.utils import metrics as metrics_mod
+from foundationdb_tpu_torch.utils import span as span_mod
 from foundationdb_tpu_torch.utils.backoff import Backoff
 
 
 class GrvProxy:
-    def __init__(self, sequencer, ratekeeper=None):
+    def __init__(self, sequencer, ratekeeper=None, metrics=None):
         self.sequencer = sequencer
         self.ratekeeper = ratekeeper
         self.grv_count = 0
-        self.throttled = 0  # 1037s for the budget
-        self.tag_throttled = 0  # 1213s for a tag
+        self.metrics = (metrics if metrics is not None
+                        else metrics_mod.MetricsRegistry("grv_proxy"))
+        self._m_grants = self.metrics.counter("grv_grants")
+        self._m_throttled = self.metrics.counter("grv_throttled")
+        self._m_tag_throttled = self.metrics.counter("grv_tag_throttled")
+        self._m_tag_started = {}  # tag -> counter, made at first use
+
+    def _note_tag_started(self, tags):
+        """Each tag's started txns (the tag rollup's denominator)."""
+        for t in tags:
+            c = self._m_tag_started.get(t)
+            if c is None:
+                c = self._m_tag_started[t] = self.metrics.counter(
+                    "tag_started_" + t)
+            c.inc()
 
     def get_read_version(self, priority="default", tags=()):
         """The latest committed version, if the ratekeeper admits the
@@ -40,17 +61,25 @@ class GrvProxy:
             if not ok:
                 # which gate closed: a tag's quota (1213) or the budget
                 if reason == "tag":
-                    self.tag_throttled += 1
+                    self._m_tag_throttled.inc()
                     raise err("tag_throttled")
-                self.throttled += 1
+                self._m_throttled.inc()
                 raise err("process_behind")
         self.grv_count += 1
-        return self.sequencer.committed_version
+        self._m_grants.inc()
+        if tags:
+            self._note_tag_started(tags)
+        v = self.sequencer.committed_version
+        # a traced request's grant is a server-side hop
+        ctx = span_mod.current()
+        if ctx is not None:
+            span_mod.emit_span("grv.grant", ctx, version=v,
+                               priority=priority)
+        return v
 
     def status(self):
-        return {"alive": self.sequencer.alive, "grv_grants": self.grv_count,
-                "grv_throttled": self.throttled,
-                "grv_tag_throttled": self.tag_throttled}
+        return {"alive": self.sequencer.alive,
+                "metrics": self.metrics.snapshot()}
 
 
 class BatchingGrvProxy:
@@ -64,8 +93,8 @@ class BatchingGrvProxy:
         self.inner = inner
         self.interval_s = interval_s
         self.max_wait_s = max_wait_s
-        self._lock = threading.Lock()
-        self._wake = threading.Condition(self._lock)
+        self._lock = lockdep.lock("BatchingGrvProxy._lock")
+        self._wake = lockdep.condition("BatchingGrvProxy._lock", self._lock)
         # two queues so batch-priority traffic cannot head-of-line-block
         # default traffic (ref: per-priority GRV queues)
         self._queues = {"default": [], "batch": []}
@@ -75,6 +104,11 @@ class BatchingGrvProxy:
         self.fast_grants = 0  # granted inline, no queue ahead
         self.delayed_count = 0  # requests that waited >= 1 extra round
         self.max_round = 0  # largest single-round grant
+        # the queue-wait band: queued requests record their wait at the
+        # grant; the fast path is only counted (its wait is ~0)
+        self._m_wait = inner.metrics.latency("grv_grant")
+        self._m_fast = inner.metrics.counter("grv_fast_grants")
+        self._m_queue_depth = inner.metrics.gauge("grv_queue_depth")
         self._thread = None
         if start_thread:
             self._thread = threading.Thread(
@@ -98,7 +132,12 @@ class BatchingGrvProxy:
             # throttled tag must not hold the shared FIFO ahead of other
             # traffic; the global budget is charged by the grant round
             raise err("tag_throttled")
+        if tags:
+            # the fast path and the grant loop are tag-blind: count the
+            # start here, where the tags are in hand
+            self.inner._note_tag_started(tags)
         qkey = "batch" if priority == "batch" else "default"
+        fast_v = None
         with self._lock:
             if (not self._closed and self._pending == 0
                     and (rk is None or rk.admit(priority))):
@@ -107,8 +146,19 @@ class BatchingGrvProxy:
                 # fresh arrival never takes a refilled token from an
                 # older request a grant round holds)
                 self.inner.grv_count += 1
+                self.inner._m_grants.inc()
                 self.fast_grants += 1
-                return self.inner.sequencer.committed_version
+                self._m_fast.inc()
+                fast_v = self.inner.sequencer.committed_version
+        if fast_v is not None:
+            ctx = span_mod.current()  # emitted outside the grant lock
+            if ctx is not None:
+                span_mod.emit_span("grv.grant", ctx, version=fast_v,
+                                   priority=priority)
+            return fast_v
+        # a queued request's span opens at the enqueue: its length is
+        # the queue wait the band measures
+        gsp = span_mod.from_context("grv.grant", span_mod.current())
         fut = self._make_future(priority)
         with self._lock:
             if self._closed:
@@ -119,6 +169,7 @@ class BatchingGrvProxy:
         fut["event"].wait()
         if fut["error"] is not None:
             raise fut["error"]
+        gsp.finish(version=fut["value"], priority=priority, queued=1)
         return fut["value"]
 
     def _grant_loop(self):
@@ -188,6 +239,7 @@ class BatchingGrvProxy:
         for qkey in ("default", "batch"):
             queue = work[qkey]
             n_granted = 0
+            t_grant = time.monotonic() if now is None else now
             for fut in queue:
                 # one admit per denial: a denied head holds its queue
                 if rk is not None and not rk.admit(fut["priority"]):
@@ -196,6 +248,7 @@ class BatchingGrvProxy:
                     version = self.inner.sequencer.committed_version
                     self.batches_granted += 1
                 fut["value"] = version
+                self._m_wait.record(max(0.0, t_grant - fut["born"]))
                 fut["event"].set()
                 n_granted += 1
                 granted_any = True
@@ -223,6 +276,9 @@ class BatchingGrvProxy:
             self.inner.grv_count += round_granted
             self._pending -= resolved
             self.max_round = max(self.max_round, round_granted)
+            depth = self._pending
+        self.inner._m_grants.inc(round_granted)
+        self._m_queue_depth.set(depth)
         return granted_any
 
     def status(self):

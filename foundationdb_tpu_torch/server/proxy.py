@@ -41,11 +41,18 @@ After the log has a batch: with a sync satellite (server/region.py) the
 batch reaches the remote region's log before any storage applies it or
 any client sees its ack; the change feeds (server/changefeed.py) get its
 mutations after the storage apply and before the version is readable.
-Not ported: metrics and spans; where the reference tests for one of
-them, the port takes the branch it takes when absent.
+Observability (utils/): the proxy's metrics registry, which the
+cluster owns and hands each incarnation, counts committed txns, batches
+and every abort by error class (``abort_<name>``), each tag's outcomes
+(``tag_<outcome>_<tag>``), repairs and scheduler decisions, and holds
+the ``commit_e2e`` latency band (a batching wrapper records it instead,
+with the queue wait). A rejected txn charges the cluster's conflict
+heatmap at its first read keys. A batch with a sampled member emits a
+``proxy.batch`` span around its ordered tail, under which the log push
+and the storage applies nest; the resolver's scan span nests under the
+first sampled member's context.
 """
 
-import threading
 import time
 
 from foundationdb_tpu_torch.core import flatpack, systemdata
@@ -62,6 +69,11 @@ from foundationdb_tpu_torch.resolver.skiplist import TxnRequest
 from foundationdb_tpu_torch.server import scheduler
 from foundationdb_tpu_torch.server.sequencer import SequencerDown
 from foundationdb_tpu_torch.server.tlog import TLogDown
+from foundationdb_tpu_torch.utils import deviceprofile
+from foundationdb_tpu_torch.utils import heatmap as heatmap_mod
+from foundationdb_tpu_torch.utils import lockdep
+from foundationdb_tpu_torch.utils import metrics as metrics_mod
+from foundationdb_tpu_torch.utils import span as span_mod
 from foundationdb_tpu_torch.utils.trace import SEV_ERROR, TraceEvent
 
 _STAMPED = (Op.SET_VERSIONSTAMPED_KEY, Op.SET_VERSIONSTAMPED_VALUE)
@@ -89,7 +101,7 @@ class VersionGate:
     def __init__(self, start, timeout=60.0):
         self._v = start
         self.timeout = timeout
-        self._cond = threading.Condition()
+        self._cond = lockdep.condition("VersionGate._cond")
 
     def enter(self, prev, timeout=None):
         with self._cond:
@@ -116,7 +128,7 @@ class _PipelinedGroup:
 
     __slots__ = ("request_batches", "metas", "handle", "first_prev",
                  "last_cv", "granted", "results_list", "error",
-                 "resolve_s", "apply_s", "plans")
+                 "resolve_s", "apply_s", "plans", "trace_ctx")
 
     def __init__(self, request_batches):
         self.request_batches = request_batches
@@ -131,6 +143,9 @@ class _PipelinedGroup:
         self.error = None
         self.resolve_s = 0.0
         self.apply_s = 0.0
+        # the group's first sampled span context, scanned once in begin
+        # (the batcher's stage spans reuse it)
+        self.trace_ctx = None
 
 
 class CommitProxy:
@@ -140,8 +155,27 @@ class CommitProxy:
 
     def __init__(self, sequencer, resolvers, tlog, storages, knobs,
                  ratekeeper=None, dd=None, change_feeds=None, regions=None,
-                 resolve_gate=None, log_gate=None):
+                 resolve_gate=None, log_gate=None, metrics=None,
+                 heatmap=None, fanout_profile=None):
         self.alive = True
+        # the role's registry: the cluster hands every incarnation the
+        # same one, so no counter goes backwards across a recovery
+        self.metrics = (metrics if metrics is not None
+                        else metrics_mod.MetricsRegistry("commit_proxy"))
+        self._m_committed = self.metrics.counter("txn_committed")
+        self._m_batches = self.metrics.counter("commit_batches")
+        self._abort_counters = {}
+        self._tag_counters = {}
+        # the cluster's conflict heatmap (None: workload sampling off)
+        self.conflict_heat = heatmap
+        # the host fan-out's lane counts land in the cluster's resolver-0
+        # device profile
+        self._fanout_profile = fanout_profile
+        # commit_e2e is recorded here unless a batching wrapper claims it
+        self.spans_owned_externally = False
+        self._m_e2e = self.metrics.latency("commit_e2e")
+        self._m_sched_reordered = self.metrics.counter("sched_reordered")
+        self._m_sched_deferred = self.metrics.counter("sched_deferred")
         self.sequencer = sequencer
         # the cluster's own list: a recruit replacing an entry is seen here
         self.resolvers = resolvers
@@ -161,7 +195,6 @@ class CommitProxy:
         # the cluster's RegionReplicator, or None; the cluster swaps it
         # when regions are configured or removed
         self.regions = regions
-        self.idmp_dedupe_hits = 0
         # fleet ordering (None when this proxy is the whole fleet)
         self.resolve_gate = resolve_gate
         self.log_gate = log_gate
@@ -176,10 +209,7 @@ class CommitProxy:
         self.sched_deferred_total = 0
         # client threads may drive the proxy directly: the pipeline's
         # state (resolver history, log order, storage) changes serially
-        self._commit_mu = threading.RLock()
-        # transaction-repair outcomes its clients report (txn/repair.py)
-        self.repair_counts = dict.fromkeys(REPAIR_COUNTERS, 0)
-        self._repair_mu = threading.Lock()
+        self._commit_mu = lockdep.rlock("CommitProxy._commit_mu")
         self._batches_since_pump = 0
         self.pump_interval = 64  # batches between durability pumps
         self._pool = None  # sub-resolve threads, made at first fan-out
@@ -192,17 +222,75 @@ class CommitProxy:
         return self.resolvers[0]
 
     def note_repair(self, name, n=1):
-        with self._repair_mu:
-            self.repair_counts[name] += n
+        """Count a transaction-repair outcome its client reports
+        (txn/repair.py)."""
+        if n > 0:
+            self.metrics.counter(name).inc(n)
+
+    @property
+    def repair_counts(self):
+        counters = self.metrics.snapshot()["counters"]
+        return {name: counters.get(name, 0) for name in REPAIR_COUNTERS}
+
+    def _note_abort(self, name, n=1):
+        """One counter per error class of the txns this proxy failed
+        (ref: the per-reason txn counters of status json)."""
+        if n <= 0 or not metrics_mod.enabled():
+            return
+        c = self._abort_counters.get(name)
+        if c is None:
+            c = self._abort_counters[name] = self.metrics.counter(
+                f"abort_{name}")
+        c.inc(n)
+
+    def _note_tags(self, outcome, tags):
+        """Per-tag outcomes: ``tag_{outcome}_{tag}`` counters (ref: the
+        per-tag counters TagThrottle reads)."""
+        if not tags or not metrics_mod.enabled():
+            return
+        for t in tags:
+            key = (outcome, t)
+            c = self._tag_counters.get(key)
+            if c is None:
+                c = self._tag_counters[key] = self.metrics.counter(
+                    f"tag_{outcome}_{t}")
+            c.inc()
+
+    def _conflict_heat(self, req, out):
+        """Append one rejected txn's conflict heat to ``out`` as (entry,
+        weight) pairs. A flat request's charged keys are its raw limb
+        entries sliced out of the blobs (order-isomorphic to the keys,
+        nothing decoded); a legacy one encodes its first keys. The
+        abort's unit weight is split across the charged entries, so the
+        total heat counts aborts."""
+        entries = []
+        f = req.flat_conflicts
+        if f is not None:
+            w = flatpack.entry_width(f.num_limbs)
+            blob = f.read_point_blob
+            for o in range(0, min(len(blob), 8 * w), w):
+                entries.append(blob[o: o + w])
+            rblob = f.read_range_blob  # pairs: each range's begin
+            for o in range(0, min(len(rblob), 16 * w), 2 * w):
+                entries.append(rblob[o: o + w])
+            if not entries:  # read-free: the write set instead
+                blob = f.write_point_blob
+                for o in range(0, min(len(blob), 8 * w), w):
+                    entries.append(blob[o: o + w])
+        else:
+            limbs = self.knobs.key_limbs
+            ranges = req.read_conflict_ranges or req.write_conflict_ranges
+            for begin, _end in ranges[:8]:
+                e = flatpack.encode_entry(begin, limbs)
+                if e is not None:  # over-capacity keys stay unsampled
+                    entries.append(e)
+        if entries:
+            wgt = 1.0 / len(entries)
+            out.extend((e, wgt) for e in entries)
 
     def status(self):
-        return {"alive": self.alive, "metrics": {
-            "txn_committed": self.commit_count,
-            "txn_conflicted": self.conflict_count,
-            "pack_flat_batches": self.pack_flat_batches,
-            "pack_legacy_batches": self.pack_legacy_batches,
-            "idmp_dedupe_hits": self.idmp_dedupe_hits,
-            **self.repair_counts}}
+        """This role's status payload: liveness and the registry."""
+        return {"alive": self.alive, "metrics": self.metrics.snapshot()}
 
     def update_resolver_ranges(self, fence=True):
         """Derive each host resolver's key range from the shard map,
@@ -270,18 +358,36 @@ class CommitProxy:
         if not requests:
             return []
         if not self.alive or not self.sequencer.alive:
+            self._note_abort("commit_unknown_result", len(requests))
             return _errors("commit_unknown_result", len(requests))
+        t0 = (None if self.spans_owned_externally
+              or not metrics_mod.enabled() else metrics_mod.now())
         try:
             with self._commit_mu:
                 return self._commit_batch_locked(requests)
         except GateTimeout:
             return self._gate_wedged(len(requests))
+        finally:
+            if t0 is not None:
+                self._note_e2e(t0, len(requests))
+
+    def _note_e2e(self, t0, n_txns):
+        """The commit_e2e band, and with tracing on a ``commit.window``
+        span for a window that outlived ``tracing_slow_commit_ms`` (the
+        batcher's _record_span for proxies without one)."""
+        end = metrics_mod.now()
+        dur = max(0.0, end - t0)
+        self._m_e2e.record(dur)
+        if (self.knobs.tracing_sample_rate > 0.0
+                and dur * 1e3 >= self.knobs.tracing_slow_commit_ms):
+            span_mod.slow_window_span(t0, end, txns=n_txns)
 
     def _gate_wedged(self, n):
         """A gate turn went unclaimed (a peer died between grant and
         advance): mark this proxy dead, so a recovery can build fresh
         gates, and answer 1021 — the batch's fate is unknown."""
         self.kill()
+        self._note_abort("commit_unknown_result", n)
         return _errors("commit_unknown_result", n)
 
     def _partition_rejects(self, requests, reject_fn):
@@ -296,6 +402,7 @@ class CommitProxy:
             if bad is None:
                 passing.append((i, r))
             else:
+                self._note_abort(bad)
                 results[i] = FDBError.from_name(bad)
         if len(passing) == len(requests):
             return None
@@ -369,7 +476,7 @@ class CommitProxy:
             if v is None:
                 passing.append((i, r))
             else:
-                self.idmp_dedupe_hits += 1
+                self.metrics.counter("idmp_dedupe_hits").inc()
                 results[i] = v  # the original commit's version: success
         if len(passing) == len(requests):
             return None
@@ -432,6 +539,7 @@ class CommitProxy:
             prev, cv = self.sequencer.next_commit_versions(1)[0]
         except SequencerDown:
             # the kill raced past the entry check: the same 1021
+            self._note_abort("commit_unknown_result", len(requests))
             return _errors("commit_unknown_result", len(requests))
         window = self._window(cv)
         requests, plan = self._maybe_schedule(requests)
@@ -442,12 +550,21 @@ class CommitProxy:
             # every successor waits on a turn no one will take
             self._skip_turns_quiet(prev, cv)
             raise
+        # the resolver's scan span nests under the first sampled
+        # member's commit span
+        rctx = span_mod.first_request_context(requests)
         try:
-            statuses = self._resolve_ordered(txns, cv, window, prev)
+            prior_ctx = span_mod.set_current(rctx) if rctx else None
+            try:
+                statuses = self._resolve_ordered(txns, cv, window, prev)
+            finally:
+                if rctx is not None:
+                    span_mod.set_current(prior_ctx)
         except ResolverDown:
             # resolution never ran: definitively not committed; the
             # granted version still consumes its log turn
             self._skip_turns_quiet(prev, cv)
+            self._note_abort("not_committed", len(requests))
             return _errors("not_committed", len(requests))
         except GateTimeout:
             raise
@@ -457,7 +574,8 @@ class CommitProxy:
             self._skip_turns_quiet(prev, cv)
             raise
         results = self._finalize_batch(requests, txns, statuses, cv, window,
-                                       prev)
+                                       prev, traced=rctx is not None,
+                                       plan=plan)
         return plan.restore(results) if plan is not None else results
 
     def _resolve_ordered(self, txns, cv, window, prev):
@@ -496,8 +614,19 @@ class CommitProxy:
         batch."""
         if (len(self.resolvers) != 1 or not self.alive
                 or not self.sequencer.alive):
-            # several host resolvers take the per-batch fan-out
+            # several host resolvers take the per-batch fan-out (each
+            # batch records its own commit_e2e)
             return [self.commit_batch(reqs) for reqs in request_batches]
+        t0 = (None if self.spans_owned_externally
+              or not metrics_mod.enabled() else metrics_mod.now())
+        try:
+            return self._commit_batches_outer(request_batches)
+        finally:
+            if t0 is not None:
+                # one record per backlog: its batches reply together
+                self._note_e2e(t0, sum(len(r) for r in request_batches))
+
+    def _commit_batches_outer(self, request_batches):
         try:
             with self._commit_mu:
                 if (self.lock_uid is not None
@@ -543,6 +672,8 @@ class CommitProxy:
             # proxy's batch lands inside the run, so one gate span covers it
             pairs = self.sequencer.next_commit_versions(len(request_batches))
         except SequencerDown:
+            self._note_abort("commit_unknown_result",
+                             sum(len(r) for r in request_batches))
             return [_errors("commit_unknown_result", len(reqs))
                     for reqs in request_batches]
         first_prev, last_cv = pairs[0][0], pairs[-1][1]
@@ -551,13 +682,22 @@ class CommitProxy:
         except BaseException:
             self._skip_turns_quiet(first_prev, last_cv)
             raise
+        gctx = span_mod.first_request_context(
+            r for reqs in request_batches for r in reqs)
         if self.resolve_gate is not None:
             self.resolve_gate.enter(first_prev)
         try:
-            statuses_list = self.resolver.resolve_many(
-                [(txns, cv, window) for _, txns, cv, window in metas])
+            prior_ctx = span_mod.set_current(gctx) if gctx else None
+            try:
+                statuses_list = self.resolver.resolve_many(
+                    [(txns, cv, window) for _, txns, cv, window in metas])
+            finally:
+                if gctx is not None:
+                    span_mod.set_current(prior_ctx)
         except ResolverDown:
             self._skip_turns_quiet(first_prev, last_cv)
+            self._note_abort("not_committed",
+                             sum(len(r) for r in request_batches))
             return [_errors("not_committed", len(reqs))
                     for reqs in request_batches]
         except BaseException:
@@ -571,7 +711,8 @@ class CommitProxy:
         if self.log_gate is not None:
             self.log_gate.enter(first_prev)
         try:
-            return self._finalize_group(metas, statuses_list, plans)
+            return self._finalize_group(metas, statuses_list, plans,
+                                        traced=gctx is not None)
         finally:
             if self.log_gate is not None:
                 self.log_gate.advance(last_cv)
@@ -586,11 +727,12 @@ class CommitProxy:
             metas.append((reqs, self._build_txns(reqs), cv, self._window(cv)))
         return metas, plans
 
-    def _finalize_group(self, metas, statuses_list, plans):
+    def _finalize_group(self, metas, statuses_list, plans, traced):
         out = []
         for (reqs, txns, cv, window), statuses, plan in zip(
                 metas, statuses_list, plans):
-            res = self._finalize_batch(reqs, txns, statuses, cv, window)
+            res = self._finalize_batch(reqs, txns, statuses, cv, window,
+                                       traced=traced, plan=plan)
             out.append(plan.restore(res) if plan is not None else res)
         return out
 
@@ -623,8 +765,10 @@ class CommitProxy:
         Begin runs on one thread in grant order; finish runs FIFO on one
         thread."""
         group = _PipelinedGroup(request_batches)
+        n_total = sum(len(reqs) for reqs in request_batches)
 
         def err_1021():
+            self._note_abort("commit_unknown_result", n_total)
             return [_errors("commit_unknown_result", len(reqs))
                     for reqs in request_batches]
 
@@ -641,13 +785,20 @@ class CommitProxy:
             group.error = e
             group.results_list = err_1021()
             return group
+        gctx = group.trace_ctx = span_mod.first_request_context(
+            r for reqs in request_batches for r in reqs)
         try:
             if self.resolve_gate is not None:
                 self.resolve_gate.enter(group.first_prev)
             try:
-                group.handle = self.resolver.resolve_many(
-                    [(txns, cv, window) for _, txns, cv, window in metas],
-                    lazy=True)
+                prior_ctx = span_mod.set_current(gctx) if gctx else None
+                try:
+                    group.handle = self.resolver.resolve_many(
+                        [(txns, cv, window)
+                         for _, txns, cv, window in metas], lazy=True)
+                finally:
+                    if gctx is not None:
+                        span_mod.set_current(prior_ctx)
             finally:
                 if self.resolve_gate is not None:
                     self.resolve_gate.advance(group.last_cv)
@@ -660,6 +811,7 @@ class CommitProxy:
             return group
         except ResolverDown:
             # definitively not committed; the log turn is still owed
+            self._note_abort("not_committed", n_total)
             group.results_list = [_errors("not_committed", len(reqs))
                                   for reqs in request_batches]
             return group
@@ -688,6 +840,8 @@ class CommitProxy:
             # of these versions is suspect, and both turns are owed
             self._skip_turns_quiet(group.first_prev, group.last_cv)
             group.error = e
+            self._note_abort("commit_unknown_result", sum(
+                len(reqs) for reqs in group.request_batches))
             return [_errors("commit_unknown_result", len(reqs))
                     for reqs in group.request_batches]
         group.resolve_s = time.perf_counter() - t0
@@ -696,6 +850,8 @@ class CommitProxy:
             if not self.alive or not self.sequencer.alive:
                 # killed mid-pipeline: nothing may reach the log
                 self._skip_turns_quiet(group.first_prev, group.last_cv)
+                self._note_abort("commit_unknown_result", sum(
+                    len(reqs) for reqs in group.request_batches))
                 return [_errors("commit_unknown_result", len(reqs))
                         for reqs in group.request_batches]
             try:
@@ -705,8 +861,9 @@ class CommitProxy:
                 return [self._gate_wedged(len(reqs))
                         for reqs in group.request_batches]
             try:
-                return self._finalize_group(group.metas, statuses_list,
-                                            group.plans)
+                return self._finalize_group(
+                    group.metas, statuses_list, group.plans,
+                    traced=group.trace_ctx is not None)
             finally:
                 if self.log_gate is not None:
                     self.log_gate.advance(group.last_cv)
@@ -729,6 +886,8 @@ class CommitProxy:
         self.sched_batches += 1
         self.sched_reordered_total += plan.reordered
         self.sched_deferred_total += plan.deferred
+        self._m_sched_reordered.inc(plan.reordered)
+        self._m_sched_deferred.inc(plan.deferred)
         return [requests[i] for i in plan.order], plan
 
     def _try_build_flat(self, requests):
@@ -798,18 +957,24 @@ class CommitProxy:
         return out
 
     def _finalize_batch(self, requests, txns, statuses, cv, window,
-                        prev=None):
+                        prev=None, traced=True, plan=None):
         """Everything after resolution: results, the id rows and their
         clean-up, the routing, then (ordered) DD accounting, the tlog push
         (1021 when it fails), storage apply, version reporting and the
         periodic durability pump. ``prev`` orders this batch behind the
         fleet's earlier grants at the log gate (None: the caller holds
         the order); the results are assembled outside the ordered
-        section."""
+        section. A batch with a sampled member gets a ``proxy.batch``
+        span (parented to the first, linking every one), ambient around
+        the ordered tail so the log push and storage apply spans nest
+        under it; ``traced`` False skips the scan for one."""
+        bsp = span_mod.batch_span(requests) if traced else span_mod.NULL
+        hm = self.conflict_heat
+        heat = [] if hm is not None and heatmap_mod.enabled() else None
         try:
             results = []
             batch_mutations = []
-            conflicts = 0
+            conflicts = too_old = 0
             for i, (req, st) in enumerate(zip(requests, statuses)):
                 if st == COMMITTED:
                     batch_mutations.extend(
@@ -824,10 +989,19 @@ class CommitProxy:
                             Op.SET, systemdata.idmp_key(req.idempotency_id),
                             systemdata.pack_version(cv)))
                     results.append(cv)
+                    if req.tags:
+                        self._note_tags("committed", req.tags)
                 elif st == TOO_OLD:
                     results.append(FDBError.from_name("transaction_too_old"))
                     conflicts += 1
+                    too_old += 1
+                    if req.tags:
+                        self._note_tags("too_old", req.tags)
                 else:
+                    if req.tags:
+                        self._note_tags("conflicted", req.tags)
+                    if heat is not None:
+                        self._conflict_heat(req, heat)
                     e = FDBError.from_name("not_committed")
                     if req.report_conflicting_keys:
                         e.conflicting_key_ranges = self._conflicting_ranges(
@@ -847,6 +1021,8 @@ class CommitProxy:
             routed = self._route(batch_mutations)
             tags = (dict(enumerate(routed)) if self.dd is not None
                     and self.dd.replication < len(self.storages) else None)
+            if heat:
+                hm.charge_many(heat)
         except BaseException:
             # the version's log turn must still be consumed
             if prev is not None:
@@ -855,20 +1031,41 @@ class CommitProxy:
         if prev is not None and self.log_gate is not None:
             self.log_gate.enter(prev)
         try:
-            return self._finalize_ordered(len(requests), results,
-                                          batch_mutations, conflicts,
-                                          routed, tags, cv, window)
+            if bsp is span_mod.NULL:
+                return self._finalize_ordered(len(requests), results,
+                                              batch_mutations, conflicts,
+                                              too_old, routed, tags, cv,
+                                              window)
+            prior_ctx = span_mod.set_current(bsp.context())
+            try:
+                return self._finalize_ordered(len(requests), results,
+                                              batch_mutations, conflicts,
+                                              too_old, routed, tags, cv,
+                                              window)
+            finally:
+                span_mod.set_current(prior_ctx)
+                if plan is not None:
+                    bsp.finish(version=cv, conflicts=conflicts,
+                               sched_reordered=plan.reordered,
+                               sched_deferred=plan.deferred)
+                else:
+                    bsp.finish(version=cv, conflicts=conflicts)
         finally:
             if prev is not None and self.log_gate is not None:
                 self.log_gate.advance(cv)
 
     def _finalize_ordered(self, n_requests, results, batch_mutations,
-                          conflicts, routed, tags, cv, window):
+                          conflicts, too_old, routed, tags, cv, window):
         """The version-ordered tail: counters, DD's byte samples, the
         tlog push, storage apply and reporting — everything that mutates
         shared state."""
         self.conflict_count += conflicts
         n_ok = len(results) - conflicts
+        self._m_batches.inc()
+        # the batch's errors by class: each rejection is a conflict or a
+        # too-old read version
+        self._note_abort("not_committed", conflicts - too_old)
+        self._note_abort("transaction_too_old", too_old)
         if self.dd is not None:
             for m in batch_mutations:
                 if m.key >= b"\xff":
@@ -884,10 +1081,12 @@ class CommitProxy:
         except TLogDown:
             # the would-be commits are in limbo: honest 1021; definite
             # rejections stand
+            self._note_abort("commit_unknown_result", n_ok)
             return [r if isinstance(r, FDBError)
                     else FDBError.from_name("commit_unknown_result")
                     for r in results]
         self.commit_count += n_ok
+        self._m_committed.inc(n_ok)  # counted once the log has them
         regions = self.regions
         if regions is not None and regions.config.satellite_mode == "sync":
             # the batch reaches the remote region's log before any client
@@ -962,6 +1161,14 @@ class CommitProxy:
                 )
                 for t in txns
             ])
+        if deviceprofile.enabled() and self._fanout_profile is not None:
+            # the fan-out's lane balance: conflict entries that survived
+            # each resolver's clip
+            self._fanout_profile.record_lane_counts([
+                sum(len(t.point_reads) + len(t.point_writes)
+                    + len(t.range_reads) + len(t.range_writes)
+                    for t in batch)
+                for batch in shard_batches])
         if self._pool is None:
             from concurrent.futures import ThreadPoolExecutor
 

@@ -15,13 +15,15 @@ same two-loop shape:
   a floor, and a high conflict ratio (wasted work under contention)
   trims it, recovering multiplicatively when health returns.
 
-The port keeps the reference's fields and arithmetic; its metrics
-registry is not ported, so the denial counters are plain integers and
-``status()`` builds the same counters and gauges from the live fields.
+The per-reason denial counters live in the role's metrics registry
+(utils/metrics.py), as the reference's do; ``status()`` sets the
+throttle gauges from the live fields when it is read.
 """
 
-import threading
 import time
+
+from foundationdb_tpu_torch.utils import lockdep
+from foundationdb_tpu_torch.utils import metrics as metrics_mod
 
 
 class Ratekeeper:
@@ -74,11 +76,13 @@ class Ratekeeper:
         # thread-mode clusters admit from many client threads while the
         # batcher thread feeds observe_commit/update: the token bucket's
         # read-modify-write must not interleave
-        self._mu = threading.Lock()
-        # per-reason denial counters (ref: the qos section Ratekeeper
-        # feeds in Status.actor.cpp)
-        self.admit_denied_tag = 0
-        self.admit_denied_budget = 0
+        self._mu = lockdep.lock("Ratekeeper._mu")
+        # the throttle gauges and per-reason denial counters of the
+        # status document (ref: the qos section Ratekeeper feeds in
+        # Status.actor.cpp); the gauges are set when status() reads them
+        self.metrics = metrics_mod.MetricsRegistry("ratekeeper")
+        self._m_denied_tag = self.metrics.counter("admit_denied_tag")
+        self._m_denied_budget = self.metrics.counter("admit_denied_budget")
 
     # ── GRV-edge enforcement (ref: GrvProxy transaction budgets) ──
     def admit(self, priority="default", tags=()):
@@ -172,7 +176,7 @@ class Ratekeeper:
             b[1] = now
             if b[0] < 1.0:
                 self.tag_throttled_count += 1
-                self.admit_denied_tag += 1
+                self._m_denied_tag.inc()
                 return False, []
             limited.append(b)
         return True, limited
@@ -191,7 +195,7 @@ class Ratekeeper:
             self._tokens -= need
             return True
         self.throttled_count += 1
-        self.admit_denied_budget += 1
+        self._m_denied_budget.inc()
         return False
 
     def _note_admit_locked(self, tags):
@@ -340,24 +344,32 @@ class Ratekeeper:
         self.max_tps = float(tps)
         self.target_tps = min(self.target_tps, self.max_tps)
 
-    def status(self):
-        """This role's status payload: the denial counters and the
-        throttle gauges, read from the live fields."""
+    def history_sample(self):
+        """Point-in-time admission gauges for the history collector
+        (utils/timeseries.py); unlike ``status()`` it sets no gauge."""
         with self._mu:
-            n_tags = len(set(self.tag_limits) | set(self.tag_quotas))
-            doc = {"alive": True, "metrics": {
-                "counters": {
-                    "admit_denied_tag": self.admit_denied_tag,
-                    "admit_denied_budget": self.admit_denied_budget},
-                "gauges": {
-                    "target_tps": self.target_tps,
-                    "max_tps": self.max_tps,
-                    "throttled": self.throttled_count,
-                    "tag_throttled": self.tag_throttled_count,
-                    "throttled_tags": n_tags,
-                    "saturation": round(
-                        1.0 - self.target_tps / max(self.max_tps, 1e-9),
-                        4)}}}
+            return {
+                "target_tps": round(self.target_tps, 2),
+                "saturation": round(
+                    1.0 - self.target_tps / max(self.max_tps, 1e-9), 4),
+                "throttled": self.throttled_count,
+                "tag_throttled": self.tag_throttled_count,
+            }
+
+    def status(self):
+        """This role's status payload: the throttle gauges, set from the
+        live fields here (admission pays nothing for them), and the
+        denial counters."""
+        m = self.metrics
+        m.gauge("target_tps").set(self.target_tps)
+        m.gauge("max_tps").set(self.max_tps)
+        m.gauge("throttled").set(self.throttled_count)
+        m.gauge("tag_throttled").set(self.tag_throttled_count)
+        m.gauge("throttled_tags").set(len(self.throttled_tags()))
+        m.gauge("saturation").set(
+            round(1.0 - self.target_tps / max(self.max_tps, 1e-9), 4))
+        doc = {"alive": True, "metrics": m.snapshot()}
+        with self._mu:
             if self.tag_busyness:
                 doc["tag_busyness"] = dict(self.tag_busyness)
         return doc

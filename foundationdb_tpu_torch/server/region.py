@@ -49,6 +49,7 @@ from foundationdb_tpu_torch.core import deterministic
 from foundationdb_tpu_torch.core.errors import err
 from foundationdb_tpu_torch.core.mutations import Mutation, Op
 from foundationdb_tpu_torch.server.tlog import TLog, TLogDown, TLogSystem
+from foundationdb_tpu_torch.utils import lockdep
 from foundationdb_tpu_torch.utils.backoff import Backoff
 from foundationdb_tpu_torch.utils.trace import (
     SEV_ERROR,
@@ -244,7 +245,7 @@ class RegionReplicator:
         # from the proxy's ordered finalize), the streamer (the caller's
         # schedule or the daemon loop below), and WAN fault injection —
         # one lock serializes the frontier
-        self._mu = threading.Lock()
+        self._mu = lockdep.lock("RegionReplicator._mu")
         # jittered cadence off the named deterministic stream: seeded
         # runs stream at the same times, real fleets de-align
         self._rng = deterministic.rng("region-stream")

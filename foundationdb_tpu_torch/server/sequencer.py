@@ -7,7 +7,7 @@ grant also names the version granted just before it (the reference's
 GetCommitVersionReply.prevVersion).
 """
 
-import threading
+from foundationdb_tpu_torch.utils import lockdep
 
 
 class SequencerDown(Exception):
@@ -19,7 +19,7 @@ class Sequencer:
         self.alive = True
         self._committed = start_version
         self._last_granted = start_version
-        self._mu = threading.Lock()
+        self._mu = lockdep.lock("Sequencer._mu")
 
     def kill(self):
         self.alive = False

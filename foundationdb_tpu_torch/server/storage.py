@@ -15,16 +15,27 @@ which the storage router (server/router.py) shares, so the partitioned
 tier's reads cannot diverge from one storage's. ``export_shard`` /
 ``ingest_shard`` are data distribution's copy of a shard with its MVCC
 history (ref: fetchKeys).
+
+Observability: the storage's metrics registry (an apply band, a served
+read band, volume counters; a recruit adopts its predecessor's) and,
+once the cluster attaches its heatmaps, countdown sampling of read and
+write keys (one sample in ``sample_every`` accesses on average, drawn
+from the "key-sample" stream; system keys are never charged). A traced
+batch's apply is a ``storage.apply`` span.
 """
 
 import itertools
-import threading
 from collections import deque
 
+from foundationdb_tpu_torch.core import deterministic
 from foundationdb_tpu_torch.core.errors import FDBError, err
 from foundationdb_tpu_torch.core.keys import KeySelector, key_successor
 from foundationdb_tpu_torch.core.mutations import ATOMIC_OPS, Op, apply_atomic
 from foundationdb_tpu_torch.server.kvstore import KeyValueStoreMemory
+from foundationdb_tpu_torch.utils import heatmap as heatmap_mod
+from foundationdb_tpu_torch.utils import lockdep
+from foundationdb_tpu_torch.utils import metrics as metrics_mod
+from foundationdb_tpu_torch.utils import span as span_mod
 from foundationdb_tpu_torch.utils.sorteddict import SortedDict
 
 _MISS = object()  # the overlay has no entry at or below the read version
@@ -119,7 +130,7 @@ class StorageServer(RangeReadInterface):
         self._overlay = SortedDict()
         self._dirty = deque()  # (version, key) in apply order, for flush
         # client threads read while the commit path applies
-        self._mu = threading.RLock()
+        self._mu = lockdep.rlock("StorageServer._mu")
         self.alive = True
         self.engine = engine if engine is not None else KeyValueStoreMemory()
         # a versioned engine (the Redwood role) keeps per-key version
@@ -132,25 +143,32 @@ class StorageServer(RangeReadInterface):
         self.version = self.durable_version  # latest applied
         self.window_versions = window_versions
         self._watches = {}  # key -> [Watch]
-        self.counters = {"mutations_applied": 0, "point_reads": 0,
-                         "range_reads": 0}
+        # the apply band and volume counters (ref: StorageMetrics); a
+        # recruit adopts this registry, so no counter goes backwards
+        self.metrics = metrics_mod.MetricsRegistry("storage")
+        self._bind_metrics()
+        # read and write key sampling into the cluster's heatmaps
+        # (attach_heatmaps; None: sampling off). A countdown: one
+        # decrement per access, a draw only when a sample fires
+        self._read_heat = None
+        self._write_heat = None
+        self._sample_every = 8
+        self._sample_w = 8.0
+        self._srng = None
+        self._read_cd = 1  # the first access is sampled
+        self._write_cd = 1
         # placement tag: the primary region's id when regions are
         # configured (recruitment carries it to the replacement)
         self.region = None
 
     @classmethod
-    def recover(cls, engine, log_records, window_versions=5_000_000,
-                owns=None):
+    def recover(cls, engine, log_records, window_versions=5_000_000):
         """Rebuild from a durable engine and the log records past its
-        durable version (ref: storage server recovery peeking the tlog).
-        ``owns(mutation)``, when given, keeps only the mutations this
-        storage owns under the shard map (a recruit of a partitioned
-        tier)."""
+        durable version (ref: storage server recovery peeking the
+        tlog)."""
         ss = cls(window_versions=window_versions, engine=engine)
         for version, mutations in log_records:
             if version > ss.durable_version:
-                if owns is not None:
-                    mutations = [m for m in mutations if owns(m)]
                 ss.apply(version, mutations)
         return ss
 
@@ -159,6 +177,9 @@ class StorageServer(RangeReadInterface):
         """Apply one batch's mutations at ``version`` (monotone)."""
         if version <= self.version:
             raise ValueError(f"apply out of order: {version} <= {self.version}")
+        asp = span_mod.from_context("storage.apply", span_mod.current(),
+                                    version=version)
+        t0 = metrics_mod.now()
         with self._mu:
             overlay = self._overlay
             dirty_append = self._dirty.append
@@ -183,7 +204,20 @@ class StorageServer(RangeReadInterface):
                 else:
                     raise ValueError(f"unresolved mutation {op} reached storage")
             self.version = version
-        self.counters["mutations_applied"] += len(mutations)
+        self._m_apply.record(max(0.0, metrics_mod.now() - t0))
+        self._m_mutations.inc(len(mutations))
+        if self._write_heat is not None and mutations:
+            # one countdown step per apply call; a key of the batch is
+            # drawn only when it fires
+            self._write_cd -= len(mutations)
+            if self._write_cd <= 0:
+                self._write_cd = self._srng.randrange(
+                    1, 2 * self._sample_every + 1)
+                if heatmap_mod.enabled():
+                    m = mutations[self._srng.randrange(len(mutations))]
+                    if m.key < b"\xff":  # user keys only, as reads
+                        self._write_heat.charge(m.key, self._sample_w)
+        asp.finish(mutations=len(mutations))
 
     def _apply_clear_range(self, begin, end, version):
         # tombstone every key the clear shadows: overlay keys in range and
@@ -296,7 +330,11 @@ class StorageServer(RangeReadInterface):
 
     def get(self, key, version):
         self._check_version(version)
-        self.counters["point_reads"] += 1
+        self._m_reads.inc()
+        if self._read_heat is not None:
+            self._read_cd -= 1
+            if self._read_cd <= 0:
+                self._sample_read(key)
         with self._mu:
             return self._lookup(key, version)
 
@@ -304,7 +342,9 @@ class StorageServer(RangeReadInterface):
         """Serve several reads under one lock crossing. ``ops`` are
         ``("g", key, rv)`` → value or None, ``("r", begin, end, rv,
         limit, reverse)`` → [(k, v)], ``("s", selector, rv)`` → key; an
-        FDBError fills its own slot, never the batch's."""
+        FDBError fills its own slot, never the batch's. Each read counts
+        and samples as its unbatched form does."""
+        t0 = metrics_mod.now()
         out = []
         with self._mu:
             for op in ops:
@@ -322,13 +362,24 @@ class StorageServer(RangeReadInterface):
                         raise err("client_invalid_operation")
                 except FDBError as e:
                     out.append(e)
+        self._m_read_batch.record(max(0.0, metrics_mod.now() - t0))
+        # reads per batch, recorded /1e3 so the band's ms read back as
+        # the raw batch size
+        self._m_read_batch_keys.record(len(ops) / 1e3)
+        self._m_read_batches.inc()
+        self._m_batched_reads.inc(len(ops))
         return out
 
     def _iter_live(self, begin, end, version, reverse=False):
         """Lazy merged (key, value) iteration of engine and overlay at
         ``version``: the overlay wins ties, and the engine cursor moves
         only as far as the caller consumes."""
-        self.counters["range_reads"] += 1
+        self._m_range_reads.inc()
+        if self._read_heat is not None:
+            # a range read charges its begin key
+            self._read_cd -= 1
+            if self._read_cd <= 0:
+                self._sample_read(begin)
         with self._mu:
             yield from self._iter_live_locked(begin, end, version, reverse)
 
@@ -435,8 +486,50 @@ class StorageServer(RangeReadInterface):
                 self._watches.setdefault(key, []).append(w)
             return w
 
+    # ───────────────────────────── metrics ─────────────────────────────
+    def _bind_metrics(self):
+        reg = self.metrics
+        self._m_apply = reg.latency("storage_apply")
+        self._m_mutations = reg.counter("mutations_applied")
+        self._m_reads = reg.counter("point_reads")
+        self._m_range_reads = reg.counter("range_reads")
+        self._m_read_batch = reg.latency("read_batch")
+        self._m_read_batch_keys = reg.latency("read_batch_keys")
+        self._m_read_batches = reg.counter("read_batches")
+        self._m_batched_reads = reg.counter("batched_reads")
+
+    def adopt_metrics(self, registry):
+        """A recruit continues its predecessor's registry, folding in
+        what this instance counted (its replay)."""
+        if registry is self.metrics:
+            return
+        registry.absorb(self.metrics)
+        self.metrics = registry
+        self._bind_metrics()
+
+    def attach_heatmaps(self, read_heat, write_heat, sample_every=8):
+        """Sample into the cluster's read and write heatmaps (a recruit
+        gets the same ones). The draws come from the "key-sample"
+        stream."""
+        self._read_heat = read_heat
+        self._write_heat = write_heat
+        self._sample_every = max(1, int(sample_every))
+        self._sample_w = float(self._sample_every)
+        self._srng = deterministic.rng("key-sample")
+
+    def _sample_read(self, key):
+        """The countdown fired: a randomized stride (mean about
+        sample_every) so periodic access cannot alias with it; the
+        weight scales with the stride. System keys stay out: the status
+        machinery reads them on every poll."""
+        self._read_cd = self._srng.randrange(1, 2 * self._sample_every + 1)
+        if key < b"\xff" and heatmap_mod.enabled():
+            self._read_heat.charge(key, self._sample_w)
+
     def status(self):
-        return {"alive": self.alive, "version": self.version,
-                "durable_version": self.durable_version,
-                "region": self.region,
-                "metrics": dict(self.counters)}
+        self.metrics.gauge("version").set(self.version)
+        self.metrics.gauge("durable_version").set(self.durable_version)
+        self.metrics.gauge("durability_lag_versions").set(
+            max(0, self.version - self.durable_version))
+        return {"alive": self.alive, "region": self.region,
+                "metrics": self.metrics.snapshot()}

@@ -23,8 +23,11 @@ import bisect
 import os
 import pickle
 import struct
-import threading
 import zlib
+
+from foundationdb_tpu_torch.utils import lockdep
+from foundationdb_tpu_torch.utils import metrics as metrics_mod
+from foundationdb_tpu_torch.utils import span as span_mod
 
 
 class TLogDown(Exception):
@@ -65,17 +68,21 @@ class TLog:
         self.wal_path = wal_path
         self.fsync = fsync
         self.alive = True
-        self.pushes = 0
-        self.mutations = 0
+        self.index = 0  # replica id (TLogSystem numbers its members)
         self._wal = open(wal_path, "ab") if wal_path else None
         self._pop_holds = {}  # name -> version: keep records > version
-        self._holds_mu = threading.Lock()
+        self._holds_mu = lockdep.lock("TLog._holds_mu")
         # placement tag: the cluster stamps its primary region's id, the
         # region replicator its satellite replicas' remote id (None: no
         # regions configured)
         self.region = None
         # peekers park here instead of polling last_version
-        self._data_cond = threading.Condition()
+        self._data_cond = lockdep.condition("TLog._data_cond")
+        # the push band and volume counters (ref: TLogMetrics)
+        self.metrics = metrics_mod.MetricsRegistry("tlog")
+        self._m_push = self.metrics.latency("tlog_push")
+        self._m_pushes = self.metrics.counter("pushes")
+        self._m_mutations = self.metrics.counter("mutations")
 
     def _wal_append(self, record):
         """A durable append (one framing for pushes and abort markers:
@@ -94,12 +101,19 @@ class TLog:
             raise TLogDown()
         if self._log and version <= self._log[-1][0]:
             raise ValueError("tlog push out of order")
+        # a traced batch (the proxy's ambient batch span) gets a push
+        # span per replica
+        psp = span_mod.from_context("tlog.push", span_mod.current(),
+                                    replica=self.index, version=version)
+        t0 = metrics_mod.now()
         self._log.append((version, mutations))
         if tags is not None:
             self._tags[version] = tags
         self._wal_append((version, mutations))
-        self.pushes += 1
-        self.mutations += len(mutations)
+        self._m_push.record(max(0.0, metrics_mod.now() - t0))
+        self._m_pushes.inc()
+        self._m_mutations.inc(len(mutations))
+        psp.finish(mutations=len(mutations))
         with self._data_cond:
             self._data_cond.notify_all()
 
@@ -173,10 +187,11 @@ class TLog:
         return self._log[-1][0] if self._log else self._first_version
 
     def status(self):
+        """This replica's status payload."""
+        self.metrics.gauge("retained_records").set(len(self._log))
+        self.metrics.gauge("last_version").set(self.last_version)
         return {"alive": self.alive, "region": self.region,
-                "retained_records": len(self._log),
-                "last_version": self.last_version, "pushes": self.pushes,
-                "mutations": self.mutations}
+                "metrics": self.metrics.snapshot()}
 
     def close(self):
         self.alive = False
@@ -216,7 +231,9 @@ class TLogSystem:
         self.logs = [TLog(wal_path=p, fsync=fsync)
                      for p in (self.replica_paths(wal_path, n) if wal_path
                                else [None] * n)]
-        self._data_cond = threading.Condition()
+        for i, log in enumerate(self.logs):
+            log.index = i  # the replica id on each push span
+        self._data_cond = lockdep.condition("TLogSystem._data_cond")
 
     @staticmethod
     def replica_paths(wal_path, n):
@@ -325,8 +342,8 @@ class TLogSystem:
         return max(log.last_version for log in self.logs if log.alive)
 
     def status(self):
-        return {"alive": self.alive, "replicas": [log.status()
-                                                   for log in self.logs]}
+        """Each replica's status payload."""
+        return [log.status() for log in self.logs]
 
     def close(self):
         for log in self.logs:

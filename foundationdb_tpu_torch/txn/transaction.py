@@ -27,14 +27,23 @@ an id drawn from core/deterministic.py's ``"idempotency-id"`` stream,
 kept across retries), with which a 1021 is answered by looking the id's
 row up instead of a blind retry. Tenants wrap a transaction in
 layers/tenant.py's ``TenantTransaction`` (keys under the tenant's
-prefix, the tenant's tag set). Not ported yet: special keys (the
-``\\xff\\xff`` views, which wait on the metrics, heatmap, history and
-consistency-scan modules) and tracing spans.
+prefix, the tenant's tag set).
+
+Tracing (utils/span.py): under ``tracing_sample_rate`` (or
+``options.set_trace()``) a transaction's root span draws from the
+seeded "span-sample" stream at its first traced operation; a sampled
+one emits ``txn.grv``, ``txn.read``, ``txn.read_range`` and
+``txn.commit`` children, and its commit request carries the commit
+span's context, under which the proxy's and resolver's spans nest. An
+unsampled transaction that aborts while tracing is on is promoted after
+the fact (``promote_lite``). Not ported yet: special keys (the
+``\\xff\\xff`` views).
 """
 
 import time
 
 from foundationdb_tpu_torch.core import deterministic, flatpack, systemdata
+from foundationdb_tpu_torch.utils import span as span_mod
 from foundationdb_tpu_torch.core.commit import CommitRequest
 from foundationdb_tpu_torch.core.errors import FDBError, err
 from foundationdb_tpu_torch.core.keys import (
@@ -120,6 +129,16 @@ class TransactionOptions:
         """Ref: PRIORITY_SYSTEM_IMMEDIATE — the GRV bypasses the
         ratekeeper."""
         self._tr._priority = "immediate"
+
+    def set_trace(self):
+        """Sample this transaction's trace whatever
+        ``tracing_sample_rate`` says (ref: the DEBUG_TRANSACTION_
+        IDENTIFIER / LOG_TRANSACTION option pair). Best set before the
+        first operation; a late force still promotes at commit."""
+        self._tr._trace_forced = True
+        if self._tr._span is span_mod.NULL:
+            # the root was made unsampled: rebuild it at the next use
+            self._tr._span = None
 
     def set_idempotency_id(self, idempotency_id):
         """Ref: IDEMPOTENCY_ID — a token of at most 255 bytes the proxy
@@ -210,6 +229,11 @@ class Transaction:
         self._repair_range_cache = None  # (b, e, limit, rev) -> tuple(rows)
         self._repair_ready = False  # op log replayed: commit, skip the body
         self._repair_assisted = False  # this attempt rode a repair
+        # tracing: the lazy root span (None until the first traced op,
+        # NULL when unsampled), the in-flight commit span, the force flag
+        self._span = None
+        self._commit_span = None
+        self._trace_forced = False
         self._options = None
         self._snapshot_view = None
 
@@ -225,11 +249,71 @@ class Transaction:
             self._snapshot_view = _Snapshot(self)
         return self._snapshot_view
 
+    # ─────────────────────────── tracing ──────────────────────────────
+    def _trace_span(self):
+        """The lazy root span: made at the first traced operation, so an
+        untraced transaction never draws from the sampling stream."""
+        sp = self._span
+        if sp is None:
+            sp = self._span = span_mod.transaction_span(
+                self._knobs.tracing_sample_rate, forced=self._trace_forced)
+        return sp
+
+    def _child_span(self, name):
+        """(span, its context) of a sampled root's child, or (None, None)."""
+        sp = self._span
+        if sp is None or not sp.sampled:
+            return None, None
+        child = sp.child(name)
+        return child, child.context()
+
+    def _trace_commit_done(self, error):
+        """Settle the trace: a sampled one finishes its commit span and
+        root; an unsampled one under an enabled rate is promoted only
+        when it failed (or was forced too late)."""
+        root = self._span
+        if root is None:
+            return
+        if root is span_mod.NULL:
+            if ((error is not None or self._trace_forced)
+                    and self._knobs.tracing_sample_rate > 0.0):
+                end = span_mod.now()
+                span_mod.promote_lite(
+                    end, end, commit_begin=end,
+                    error_code=None if error is None else error.code,
+                    retries=self._retries)
+            self._span = None
+            return
+        csp = self._commit_span
+        if csp is not None:
+            if error is not None:
+                csp.finish(status="error", error_code=error.code)
+            else:
+                csp.finish(status="committed",
+                           version=self._committed_version)
+            self._commit_span = None
+        root.finish(status="error" if error is not None else "committed",
+                    retries=self._retries)
+        self._span = None  # a reused handle restarts its trace
+
     # ─────────────────────────── versions ─────────────────────────────
     def get_read_version(self):
         if self._read_version is None:
-            self._read_version = self._cluster.grv_proxy.get_read_version(
-                priority=self._priority, tags=tuple(self._tags))
+            grv = self._cluster.grv_proxy
+            sp = self._trace_span()
+            if not sp.sampled:
+                self._read_version = grv.get_read_version(
+                    priority=self._priority, tags=tuple(self._tags))
+                return self._read_version
+            gsp = sp.child("txn.grv")
+            # the GRV proxy's grant span parents to this one
+            prior = span_mod.set_current(gsp.context())
+            try:
+                self._read_version = grv.get_read_version(
+                    priority=self._priority, tags=tuple(self._tags))
+            finally:
+                span_mod.set_current(prior)
+            gsp.finish(version=self._read_version)
         return self._read_version
 
     def set_read_version(self, version):
@@ -272,7 +356,11 @@ class Transaction:
             return FutureValue(writes.fold(fold_entry, val)
                                if writes is not None else val)
 
+        rsp, ctx = self._child_span("txn.read")
+
         def finalize(val, error):
+            if rsp is not None:
+                rsp.finish()
             if error is not None:
                 return None
             self._record_point_read(key, val, snapshot)
@@ -280,10 +368,13 @@ class Transaction:
                 self._add_read_conflict(key, key_successor(key))
             return writes.fold(fold_entry, val) if writes is not None else val
 
+        prior = span_mod.set_current(ctx)
         try:
             val, e = self._cluster.read_storage(key).get(key, rv), None
         except FDBError as exc:
             val, e = None, exc
+        finally:
+            span_mod.set_current(prior)
         fut = FutureValue(val, e, finalize)
         self._pending_reads.append(fut)
         return fut
@@ -404,16 +495,23 @@ class Transaction:
         if rcache is not None and sig in rcache:
             return FutureRange(record(list(rcache[sig])))
 
+        rsp, ctx = self._child_span("txn.read_range")
+
         def finalize(rows, error):
+            if rsp is not None:
+                rsp.finish()
             if error is not None:
                 return None
             return record(rows)
 
+        prior = span_mod.set_current(ctx)
         try:
             rows, exc = st.get_range(b, e, rv, limit=req_limit,
                                      reverse=req_reverse), None
         except FDBError as x:
             rows, exc = None, x
+        finally:
+            span_mod.set_current(prior)
         fut = FutureRange(rows, exc, finalize)
         self._pending_reads.append(fut)
         return fut
@@ -618,6 +716,14 @@ class Transaction:
         flat = None
         if self._knobs.commit_pack_path == "flat":
             flat = flatpack.encode_conflicts(rcr, wcr, self._knobs.key_limbs)
+        # the commit span: its context rides the request, and the
+        # proxy's batch and stage spans parent to it
+        sctx = None
+        sp = self._trace_span()
+        if sp is not span_mod.NULL:
+            csp = self._commit_span = sp.child(
+                "txn.commit", mutations=len(self._mutation_log))
+            sctx = csp.context()
         return CommitRequest(
             read_version=rv,
             mutations=list(self._mutation_log),
@@ -630,6 +736,7 @@ class Transaction:
             lock_aware=self._lock_aware,
             idempotency_id=idmp,
             flat_conflicts=flat,
+            span_context=sctx,
             tags=tuple(self._tags),
         )
 
@@ -679,6 +786,7 @@ class Transaction:
             # read-only: nothing to resolve
             self._state = "committed"
             self._activate_watches()
+            self._trace_commit_done(None)
             return
         # through a batching proxy this is submit-and-wait: concurrent
         # committers share a batch
@@ -701,6 +809,7 @@ class Transaction:
             # the same contract as commit()'s read-only path
             self._state = "committed"
             self._activate_watches()
+            self._trace_commit_done(None)
             fut = CommitFuture()
             fut.set(None)
             return fut
@@ -730,6 +839,7 @@ class Transaction:
             self._state = "error"
             self._conflicting_ranges = getattr(
                 result, "conflicting_key_ranges", None)
+            self._trace_commit_done(result)
             raise result
         if self._repair_assisted:
             # a repaired retry committed: the goodput repair exists for
@@ -737,6 +847,7 @@ class Transaction:
             self._repair_assisted = False
         self._committed_version = result
         self._versionstamp = Versionstamp.from_version(result).tr_version
+        self._trace_commit_done(None)
         self._state = "committed"
         self._activate_watches()
 
@@ -759,11 +870,11 @@ class Transaction:
         # same id rides every retry, or the dedupe has nothing to match
         keep = (self._retries, self._backoff, self._retry_limit,
                 self._max_retry_delay, self._idempotency_id,
-                self._auto_idempotency, self._tags)
+                self._auto_idempotency, self._trace_forced, self._tags)
         self._reset()
         (self._retries, self._backoff, self._retry_limit,
          self._max_retry_delay, self._idempotency_id,
-         self._auto_idempotency, self._tags) = keep
+         self._auto_idempotency, self._trace_forced, self._tags) = keep
 
     def reset(self):
         self._reset()

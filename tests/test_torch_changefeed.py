@@ -106,9 +106,10 @@ def _routes_script(side, route):
     kw = dict(TEST_KNOBS)
     if route == "thread":
         kw["commit_pipeline"] = "thread"
-        if side is JAX:
-            kw.update(health_probe_enabled=False, history_enabled=False,
-                      consistency_scan_enabled=False)
+        # the thread-mode daemons (prober, history, scan) commit and
+        # read on their own schedule: off on both sides
+        kw.update(health_probe_enabled=False, history_enabled=False,
+                  consistency_scan_enabled=False)
     elif route == "fleet":
         kw["n_commit_proxies"] = 3
     c = side.cluster(**kw)

@@ -411,9 +411,10 @@ def _mixed_rounds(side, route, seed, rounds=8, txns=40):
         kw["n_commit_proxies"] = 3
     elif route == "thread":
         kw["commit_pipeline"] = "thread"
-        if side is JAX:
-            kw.update(health_probe_enabled=False, history_enabled=False,
-                      consistency_scan_enabled=False)
+        # the thread-mode daemons (prober, history, scan) commit and
+        # read on their own schedule: off on both sides
+        kw.update(health_probe_enabled=False, history_enabled=False,
+                  consistency_scan_enabled=False)
     c = side.cluster(**dict(TEST_KNOBS, **kw))
     c.dd.max_shard_bytes = 2000
     c.dd.min_shard_bytes = 300

@@ -547,8 +547,12 @@ def test_sixty_four_chunk_backlog_settles_in_grant_order(cuda):
                  ("v", r) for r in out],
                 bp.stages.count("apply"), c.database().get_range(b"", b"\xff"))
 
+    # the prober, history and scan daemons commit on their own clock:
+    # off, so both clusters grant the same versions
     clusters = [Cluster(device=d, commit_pipeline="thread", commit_batch_max=1,
-                        **CLUSTER_KNOBS) for d in (None, "cpu")]
+                        health_probe_enabled=False, history_enabled=False,
+                        consistency_scan_enabled=False, **CLUSTER_KNOBS)
+                for d in (None, "cpu")]
     try:
         for c in clusters:
             for reqs in workloads.preload_requests(

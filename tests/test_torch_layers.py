@@ -307,9 +307,10 @@ def _tenant_mode_routes(side, route):
     kw = dict(TEST_KNOBS)
     if route == "thread":
         kw.update(commit_pipeline="thread", commit_batch_max=2)
-        if side is JAX:
-            kw.update(health_probe_enabled=False, history_enabled=False,
-                      consistency_scan_enabled=False)
+        # the thread-mode daemons (prober, history, scan) commit and
+        # read on their own schedule: off on both sides
+        kw.update(health_probe_enabled=False, history_enabled=False,
+                  consistency_scan_enabled=False)
     c = side.cluster(**kw)
     db = c.database()
     TM = side.tenant.TenantManagement

@@ -34,18 +34,19 @@ from tests.conftest import TEST_KNOBS
 
 torch.set_num_threads(1)
 
-# the JAX thread cluster's daemons (prober, history, scan) commit and
-# read on their own schedule; the port has none, so parity turns them off
-JAX_QUIET = dict(health_probe_enabled=False, history_enabled=False,
+# the thread clusters' daemons (prober, history, scan) commit and read on
+# their own schedule: parity turns them off on both sides
+QUIET = dict(health_probe_enabled=False, history_enabled=False,
                  consistency_scan_enabled=False)
 
 SIDES = {
-    "jax": dict(name="jax", cluster=lambda **kw: JCluster(**kw, **JAX_QUIET),
+    "jax": dict(name="jax", cluster=lambda **kw: JCluster(**kw, **QUIET),
                 kv=jkv,
                 error=JError,
                 state=lambda c: [np.asarray(f) for f in c.resolvers[0].state]),
     "port": dict(name="port",
-                 cluster=lambda **kw: TCluster(device="cpu", **kw), kv=tkv,
+                 cluster=lambda **kw: TCluster(device="cpu", **kw, **QUIET),
+                 kv=tkv,
                  error=TError,
                  state=lambda c: list(state_to_numpy(c.resolvers[0].state))),
 }
@@ -286,6 +287,6 @@ def test_recovery_keeps_the_cluster_resolver_steps():
         db.run(lambda tr: tr.get_range(b"a", b"z") and tr.set(b"c", b"3"))
         assert c.resolvers[0]._steps is steps
         assert set(steps.captures) == keys
-        assert c.status()["cluster"]["recovery"]["count"] == 1
+        assert c.status()["cluster"]["health"]["recovery"]["count"] == 1
     finally:
         c.close()

@@ -523,7 +523,9 @@ def test_thread_pipeline_streamer_matches_jax():
     want = _thread_script(JAX, health_probe_enabled=False,
                           history_enabled=False,
                           consistency_scan_enabled=False)
-    got = _thread_script(PORT)
+    got = _thread_script(PORT, health_probe_enabled=False,
+                         history_enabled=False,
+                         consistency_scan_enabled=False)
     assert got == want
     assert got[0] is True and got[1] == 0 and got[-1] is False
     assert len([m for m in got[2] if m[1].startswith(b"t")]) == 48

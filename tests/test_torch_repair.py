@@ -30,9 +30,9 @@ from tests.conftest import TEST_KNOBS
 torch.set_num_threads(1)
 
 COUNTERS = ("repair_attempts", "repair_commits", "repair_fallbacks")
-# the JAX thread cluster's probe, history and scan daemons commit or read
-# on their own; the port has none of them yet
-JAX_THREAD_KW = dict(health_probe_enabled=False, history_enabled=False,
+# the thread clusters' probe, history and scan daemons commit or read on
+# their own: off on both sides
+THREAD_KW = dict(health_probe_enabled=False, history_enabled=False,
                      consistency_scan_enabled=False)
 
 
@@ -50,12 +50,14 @@ class Side:
 def _jax_make(backend, **kw):
     be = "cpu" if backend == "host" else "tpu"
     if kw.get("commit_pipeline") == "thread":
-        kw.update(JAX_THREAD_KW)
+        kw.update(THREAD_KW)
     return JCluster(resolver_backend=be, **TEST_KNOBS, **kw)
 
 
 def _port_make(backend, **kw):
     be = "cpu" if backend == "host" else "cuda"
+    if kw.get("commit_pipeline") == "thread":
+        kw.update(THREAD_KW)
     return TCluster(device="cpu", resolver_backend=be, **TEST_KNOBS, **kw)
 
 

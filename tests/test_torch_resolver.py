@@ -185,13 +185,13 @@ def test_kill_respawn_and_status():
                     ([TxnRequest(read_version=5)], 7, 0)])
     st = r.status()
     assert st["alive"] and st["backend"] == "cuda" and st["device"] == "cpu"
-    assert st["metrics"]["resolve_batches"] == 3
-    assert st["metrics"]["backlog_dispatches"] == 1
+    assert st["metrics"]["counters"]["resolve_batches"] == 3
+    assert st["metrics"]["counters"]["backlog_dispatches"] == 1
     r.kill()
     with pytest.raises(ResolverDown):
         r.resolve([], 8, 0)
     new = r.respawn(base_version=8)
-    assert new.status()["metrics"]["respawns"] == 1
+    assert new.status()["metrics"]["counters"]["respawns"] == 1
     # the replacement fences read versions from before its start
     assert new.resolve([TxnRequest(read_version=7, point_reads=[b"a"]),
                         TxnRequest(read_version=8, point_reads=[b"a"])],
@@ -245,8 +245,10 @@ def test_port_imports_without_jax_or_the_jax_package():
     ``foundationdb_tpu`` blocked: the cluster, the commit pipeline
     (batcher, fleet, GRV batching, stage timers), data distribution, the
     storage router, the ratekeeper, the system keys, the client
-    transaction and the package's ``open`` by name, then every module of
-    the package."""
+    transaction, the observability modules (lock witness, metrics,
+    spans, heatmaps, device profile, history, the doctor, the consistency
+    scan and check) and the package's ``open`` by name, then every
+    module of the package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -265,6 +267,15 @@ def test_port_imports_without_jax_or_the_jax_package():
         "import foundationdb_tpu_torch.core.systemdata\n"
         "import foundationdb_tpu_torch.core.deterministic\n"
         "import foundationdb_tpu_torch.txn.transaction\n"
+        "import foundationdb_tpu_torch.utils.lockdep\n"
+        "import foundationdb_tpu_torch.utils.metrics\n"
+        "import foundationdb_tpu_torch.utils.span\n"
+        "import foundationdb_tpu_torch.utils.heatmap\n"
+        "import foundationdb_tpu_torch.utils.deviceprofile\n"
+        "import foundationdb_tpu_torch.utils.timeseries\n"
+        "import foundationdb_tpu_torch.server.health\n"
+        "import foundationdb_tpu_torch.server.consistencyscan\n"
+        "import foundationdb_tpu_torch.server.consistency\n"
         "assert callable(open) and callable(transactional)\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
@@ -277,7 +288,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 45
+    assert int(out.stdout.strip()) >= 54
 
 
 @pytest.mark.parametrize("name", sorted(workloads.STREAMS))

@@ -146,8 +146,7 @@ def _dedupe(side, backend):
     out.append([results(r) for r in c._commit_target().commit_batches([
         [req(b"a", b"4", b"same")], [req(b"e", b"1", b"new", read=b"d")]])])
     p = c._commit_target()
-    out.append(p.metrics.counter("idmp_dedupe_hits").value if side is JAX
-               else p.idmp_dedupe_hits)
+    out.append(p.metrics.counter("idmp_dedupe_hits").value)
     out.append(rows(c.storage))
     state = side.state(c) if backend != "cpu" else None
     c.close()

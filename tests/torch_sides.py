@@ -3,13 +3,17 @@ replication, the ratekeeper and the system keys
 (tests/test_torch_datadistribution.py, test_torch_ratekeeper.py,
 test_torch_systemkeys.py), of regions, change feeds and the layers
 (test_torch_regions.py, test_torch_changefeed.py,
-test_torch_layers.py): each test writes its script once against a
-``Side`` and runs it on the JAX package and on the port (its cluster on
-``device="cpu"``), then compares what the two returned, at tolerance 0.
+test_torch_layers.py) and of observability (test_torch_observability.py,
+test_torch_health.py, test_torch_status.py): each test writes its script
+once against a ``Side`` and runs it on the JAX package and on the port
+(its cluster on ``device="cpu"``), then compares what the two returned,
+at tolerance 0.
 """
 
+import contextlib
 import functools
 import importlib
+import time
 
 import numpy as np
 
@@ -35,6 +39,15 @@ from foundationdb_tpu.server.datadistribution import ShardMap as JShardMap
 from foundationdb_tpu.server.ratekeeper import Ratekeeper as JRatekeeper
 from foundationdb_tpu.server.sequencer import Sequencer as JSequencer
 from foundationdb_tpu.server.storage import StorageServer as JStorage
+from foundationdb_tpu.server import consistencyscan as jconsistencyscan
+from foundationdb_tpu.server import health as jhealth
+from foundationdb_tpu.utils import deviceprofile as jdeviceprofile
+from foundationdb_tpu.utils import heatmap as jheatmap
+from foundationdb_tpu.utils import lockdep as jlockdep
+from foundationdb_tpu.utils import metrics as jmetrics
+from foundationdb_tpu.utils import span as jspan
+from foundationdb_tpu.utils import timeseries as jtimeseries
+from foundationdb_tpu.utils import trace as jtrace
 from foundationdb_tpu_torch.convert import state_to_numpy
 from foundationdb_tpu_torch.core import deterministic as tdeterministic
 from foundationdb_tpu_torch.core import systemdata as tsystemdata
@@ -58,6 +71,15 @@ from foundationdb_tpu_torch.server.datadistribution import ShardMap as TShardMap
 from foundationdb_tpu_torch.server.ratekeeper import Ratekeeper as TRatekeeper
 from foundationdb_tpu_torch.server.sequencer import Sequencer as TSequencer
 from foundationdb_tpu_torch.server.storage import StorageServer as TStorage
+from foundationdb_tpu_torch.server import consistencyscan as tconsistencyscan
+from foundationdb_tpu_torch.server import health as thealth
+from foundationdb_tpu_torch.utils import deviceprofile as tdeviceprofile
+from foundationdb_tpu_torch.utils import heatmap as theatmap
+from foundationdb_tpu_torch.utils import lockdep as tlockdep
+from foundationdb_tpu_torch.utils import metrics as tmetrics
+from foundationdb_tpu_torch.utils import span as tspan
+from foundationdb_tpu_torch.utils import timeseries as ttimeseries
+from foundationdb_tpu_torch.utils import trace as ttrace
 
 
 # the layers packages export a ``directory`` object under the submodule's
@@ -79,6 +101,10 @@ JAX = Side("jax", cluster=JCluster, request=JRequest, error=JError,
            systemdata=jsystemdata, deterministic=jdeterministic,
            region=jregion, coordination=jcoordination, tuple=jtuple,
            subspace=jsubspace, directory=jdirectory, tenant=jtenant,
+           metrics=jmetrics, span=jspan, heatmap=jheatmap,
+           deviceprofile=jdeviceprofile, timeseries=jtimeseries,
+           health=jhealth, consistencyscan=jconsistencyscan, trace=jtrace,
+           lockdep=jlockdep,
            state=lambda c: [np.asarray(f) for f in c.resolvers[0].state])
 PORT = Side("port", cluster=functools.partial(TCluster, device="cpu"),
             request=TRequest, error=TError, selector=TSelector,
@@ -88,8 +114,68 @@ PORT = Side("port", cluster=functools.partial(TCluster, device="cpu"),
             deterministic=tdeterministic, region=tregion,
             coordination=tcoordination, tuple=ttuple, subspace=tsubspace,
             directory=tdirectory, tenant=ttenant,
+            metrics=tmetrics, span=tspan, heatmap=theatmap,
+            deviceprofile=tdeviceprofile, timeseries=ttimeseries,
+            health=thealth, consistencyscan=tconsistencyscan, trace=ttrace,
+            lockdep=tlockdep,
             state=lambda c: list(state_to_numpy(c.resolvers[0].state)))
 SIDES = (JAX, PORT)
+
+# the thread-mode daemons (prober, history, scan) commit and read on
+# their own schedule: a parity script that is not about them turns them
+# off on both sides
+QUIET = dict(health_probe_enabled=False, history_enabled=False,
+             consistency_scan_enabled=False)
+
+
+class StepClock:
+    """A clock that stands still until ``tick`` moves it: every wall a
+    script measures is 0.0, and the cadences (probe, history, scan) fire
+    where the script ticks past them."""
+
+    def __init__(self, t=1000.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+    def tick(self, dt=1.0):
+        self.t += dt
+
+
+@contextlib.contextmanager
+def seeded(side, seed=7, clock=None):
+    """``side``'s named streams seeded and its clock a StepClock for the
+    block (its trace ring emptied first); the clock is yielded."""
+    clock = clock or StepClock()
+    side.deterministic.seed(seed)
+    side.deterministic.set_clock(clock)
+    side.trace.global_trace_log().clear()
+    try:
+        yield clock
+    finally:
+        side.deterministic.unseed()
+        side.deterministic.set_clock(time.time)
+
+
+def doc_diff(want, got, path=""):
+    """Where two JSON-like documents differ: [(path, want, got)], keys
+    missing on one side included."""
+    out = []
+    if isinstance(want, dict) and isinstance(got, dict):
+        for k in sorted(set(want) | set(got), key=str):
+            p = f"{path}/{k}"
+            if k not in want or k not in got:
+                out.append((p, want.get(k, "<absent>"), got.get(k, "<absent>")))
+            else:
+                out.extend(doc_diff(want[k], got[k], p))
+    elif (isinstance(want, list) and isinstance(got, list)
+          and len(want) == len(got)):
+        for i, (w, g) in enumerate(zip(want, got)):
+            out.extend(doc_diff(w, g, f"{path}[{i}]"))
+    elif want != got:
+        out.append((path, want, got))
+    return out
 
 
 def outcome(side, fn):
