@@ -15,6 +15,8 @@ mako] ...`` is ``pipeline``), names the phase that printed it, and the
 seconds since the line before are charged to that phase: every phase of
 chip_smoke.py logs after its work, so a phase's seconds are its work's.
 A line without a tag is charged to the tag before it.
+Every line of phase 17 (the simulator, the special keys and the
+metacluster) carries the tag ``simulation``.
 
 Writes each run's stamped output to DIR/phases_<i>.log (by default
 foundationdb_tpu_torch/build/phases, which git ignores), prints one

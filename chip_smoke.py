@@ -213,9 +213,41 @@ Phases:
      where the script ticks it: the status documents equal apart from
      each resolver's device and graphs and the process-wide trace
      counters. The phase's seconds and the script's are printed.
+ 17. the simulator, the special keys and the metacluster: (a) BASELINE
+     config 1 under faults, its launch and graph counts zeroed first:
+     Simulation(seed=SIM_SEED) on the card at the default widths, one
+     resolver, the "manual" commit pipeline (the scheduler is the batch
+     clock), BUGGIFY on, SIM_ROWS preloaded uniform 16-byte keys
+     (b"sim/mako/" + b"r%06d"), SIM_MAKO_ACTORS mako actors (SIM_TXNS
+     transactions in all) beside SIM_CYCLE_ACTORS batched-cycle actors
+     (commit_async: they fill the batch lanes) and SIM_API_ACTORS
+     API-correctness actors; whole-cluster crashes at SIM_CRASH_P a step
+     (4-10 of them), each printed with its captures and the card memory
+     after it (the last within 5% of the first); quiesce, then
+     mako_check, cycle_check and api_correctness_check; the steps, the
+     outcomes, the sites, the batches and their mean live txns, the
+     committed txns a simulated second; fused_accept launched and every
+     dispatch a replay, and a pipelined dispatch on the sim's cluster
+     under set_sync_debug_mode("error"); (b) the same script at
+     SIM_TWIN_TXNS transactions and SIM_TWIN_KNOBS widths with the
+     fault-coverage witness on, twice on the card and once on the CPU:
+     the schedule_hash, sites, trace events, outcomes, rows and witness
+     equal; (c) on phase 14's deployment at SK_ROWS rows, every special
+     key: the views valid JSON and status/json equal to db.status(), a
+     range-carrying conflict whose conflicting_keys view lists every
+     read range, a storage excluded through the management keys and
+     drained with every replica equal, then included, and the lock set
+     and cleared through db_locked; (d) a management cluster and two
+     thread-pipeline data clusters on the card, their launch and graph
+     counts zeroed first: MC_TENANTS tenants of MC_TENANT_ROWS rows,
+     MC_TXNS tenant transactions with range reads from MC_CLIENTS
+     threads while MC_MOVES tenants move, one of them crashed between
+     the move's steps 2 and 3 and resumed by a fresh handle: every row
+     read back on its owner, no row left on a source. The phase's
+     seconds are printed.
 
 Every Resolver step runs as a CUDA graph replay (ops/conflict.StaticStep).
-Each of phases 4, 5, 8, 9, 10, 12, 14, 15 and 16 zeroes the graph counts with the
+Each of phases 4, 5, 8, 9, 10, 12, 14, 15, 16 and 17 zeroes the graph counts with the
 launch counts and checks after its drive that it captured, that every
 dispatch was a replay, and that no resolver step ran eagerly on the
 card (a wrapper counts calls of the eager steps on card tensors outside
@@ -232,6 +264,7 @@ import gc
 import hashlib
 import json
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -3776,6 +3809,527 @@ def phase_observability():
     return report, launches
 
 
+SIM_SEED = 41  # activates cluster_crash, proxy_kill, resolver_kill and
+# commit_applied_then_unknown (sim/buggify.py: activation is keyed on
+# the seed and the site alone)
+SIM_ROWS = 100_000  # BASELINE config 1: uniform 16-byte keys, preloaded
+SIM_PREFIX = b"sim/mako/"  # 9 bytes + b"r%06d" (7 bytes) = 16-byte keys
+SIM_PRELOAD_ROWS = 1000  # rows a preload transaction
+SIM_MAKO_ACTORS = 64
+SIM_TXNS = 9_984  # 64 mako actors x 156: config 1's 10k transactions
+SIM_CYCLE_ACTORS = 4
+SIM_CYCLE_NODES = 64
+SIM_CYCLE_OPS = 100  # per cycle actor
+SIM_API_ACTORS = 2
+SIM_API_TXNS = 50  # per API-correctness actor
+SIM_CRASH_P = 0.0006  # 4-10 whole-cluster crashes over the run's steps
+SIM_MEMORY_SLACK = 0.05
+SIM_TWIN_ROWS = 10_000  # (b): (a)'s script cut to 960 mako transactions
+SIM_TWIN_TXNS = 960
+SIM_TWIN_CYCLE_OPS = 20
+SIM_TWIN_API_TXNS = 10
+SIM_TWIN_CRASH_P = 0.002
+# (b)'s widths: the CPU twin runs the plain step, whose compares grow
+# with T x KR and the limbs (PERF.md: the twin's seconds at T=128)
+SIM_TWIN_KNOBS = dict(batch_txn_capacity=64, range_ring_capacity=256,
+                      key_limbs=4, hash_table_bits=16, accept_kernel="on")
+SK_ROWS = 16_384  # (c): the special keys on phase 14's deployment
+MC_TENANTS = 16  # (d)
+MC_TENANT_ROWS = 256
+MC_CAPACITY = 16  # tenants a data cluster takes
+MC_CLIENTS = 16  # one client thread a tenant
+MC_TXNS = 2_048  # tenant transactions over the client threads
+MC_MOVES = 4
+MC_RESUMED = 1  # of the moves, crashed between steps 2 and 3 and resumed
+
+
+def sim_drive(d, device=None, twin=False):
+    """(a)'s script: a Simulation at SIM_SEED with BUGGIFY on and the
+    manual commit pipeline, SIM_ROWS preloaded mako rows, then
+    SIM_MAKO_ACTORS mako actors (SIM_TXNS in all), SIM_CYCLE_ACTORS
+    batched-cycle actors (commit_async: they fill the batch lanes) and
+    SIM_API_ACTORS API-correctness actors, interleaved by the seeded
+    scheduler; quiesce and the three checks. ``twin``: (b)'s cut, the
+    SIM_TWIN_* sizes and widths with the fault-coverage witness on.
+    Returns the Simulation, what a same-seed run must reproduce, and
+    the timings with each crash's captures and card memory."""
+    from foundationdb_tpu_torch.ops import conflict as ck
+    from foundationdb_tpu_torch.sim import workloads as W
+    from foundationdb_tpu_torch.sim.simulation import Simulation
+    from foundationdb_tpu_torch.utils import faultcov
+    from foundationdb_tpu_torch.utils.trace import global_trace_log
+
+    if twin:
+        knobs, rows, txns = SIM_TWIN_KNOBS, SIM_TWIN_ROWS, SIM_TWIN_TXNS
+        cycle_ops, api_txns = SIM_TWIN_CYCLE_OPS, SIM_TWIN_API_TXNS
+        crash_p = SIM_TWIN_CRASH_P
+    else:
+        knobs, rows, txns = {}, SIM_ROWS, SIM_TXNS
+        cycle_ops, api_txns, crash_p = SIM_CYCLE_OPS, SIM_API_TXNS, SIM_CRASH_P
+    tlog = global_trace_log()
+    tlog.clear()
+    if twin:
+        faultcov.reset()
+        faultcov.enable()
+    t0 = time.perf_counter()
+    sim = Simulation(seed=SIM_SEED, buggify=True, crash_p=crash_p,
+                     datadir=d, commit_pipeline="manual", device=device,
+                     **knobs)
+    on_card = device != "cpu"
+    totals = dict(committed=0, conflicted=0, batches=0)
+
+    def tally(c, sign=1):
+        """Add (or take away) an incarnation's proxy counters: each
+        crash builds a cluster whose registries start at 0."""
+        def count(name):
+            return sign * c._sum_counter("commit_proxy", name)
+
+        totals["committed"] += count("txn_committed")
+        totals["conflicted"] += (count("abort_not_committed")
+                                 + count("abort_transaction_too_old"))
+        totals["batches"] += count("commit_batches")
+
+    crashes = []
+    crash_and_recover = sim.crash_and_recover
+
+    def crash():
+        tally(sim.cluster)
+        crash_and_recover()
+        crashes.append(dict(step=sim.steps,
+                            captures=ck.graph_counts["captures"],
+                            card_bytes=card_bytes() if on_card else None))
+
+    sim.crash_and_recover = crash
+    for b in range(0, rows, SIM_PRELOAD_ROWS):
+        sim.db.run(lambda tr, b=b: [
+            tr.set(SIM_PREFIX + b"r%06d" % i, b"seed")
+            for i in range(b, min(b + SIM_PRELOAD_ROWS, rows))])
+    cycle = b"sim/cycle/"
+    W.cycle_setup(sim.db, SIM_CYCLE_NODES, prefix=cycle)
+    tally(sim.cluster, -1)  # count the actors' transactions only
+    preload_s = time.perf_counter() - t0
+    stats = {}
+    for a in range(SIM_MAKO_ACTORS):
+        sim.add_workload(f"mako{a}", W.mako_workload(
+            sim.db, txns // SIM_MAKO_ACTORS, rows,
+            random.Random(SIM_SEED * 1000 + a), stats, prefix=SIM_PREFIX))
+    for a in range(SIM_CYCLE_ACTORS):
+        sim.add_workload(f"cycle{a}", W.batched_cycle_workload(
+            sim.db, SIM_CYCLE_NODES, cycle_ops,
+            random.Random(SIM_SEED * 2000 + a), prefix=cycle))
+    models = []
+    for a in range(SIM_API_ACTORS):
+        models.append(W.ApiModel())
+        sim.add_workload(f"api{a}", W.api_correctness_workload(
+            sim.db, models[-1], api_txns, 24,
+            random.Random(SIM_SEED * 3000 + a), prefix=b"sim/api/%d/" % a))
+    t1 = time.perf_counter()
+    sim.run()
+    run_s = time.perf_counter() - t1
+    sim.quiesce()
+    W.mako_check(sim.db, rows, prefix=SIM_PREFIX)
+    W.cycle_check(sim.db, SIM_CYCLE_NODES, prefix=cycle)
+    for a, model in enumerate(models):
+        W.api_correctness_check(sim.db, model, prefix=b"sim/api/%d/" % a)
+    tally(sim.cluster)
+    h = hashlib.sha256()
+    final = sim.db.get_range(b"", b"\xff")
+    for k, v in final:
+        h.update(len(k).to_bytes(4, "big") + k + len(v).to_bytes(4, "big")
+                 + v)
+    out = dict(
+        steps=sim.steps, schedule_hash=sim.schedule_hash,
+        crashes=sim.recoveries, generation=sim.cluster.generation,
+        role_kills=getattr(sim, "role_kills", 0),
+        sites=sim.buggify.activated_sites(),
+        sites_event=[e for e in tlog.events("SimBuggifySites")],
+        events=len(tlog.events()),
+        event_digest=hashlib.sha256(json.dumps(
+            tlog.events(), sort_keys=True, default=repr).encode()
+        ).hexdigest(),
+        committed=totals["committed"], conflicted=totals["conflicted"],
+        batches=totals["batches"],
+        unknown=stats.get("unknown", 0), mako_txns=stats.get("txns", 0),
+        rows=len(final), rows_sha256=h.hexdigest(),
+        witness=faultcov.witness_doc() if twin else None)
+    if twin:
+        faultcov.disable()
+    timing = dict(preload_s=preload_s, run_s=run_s,
+                  sim_seconds=sim.steps * sim.SIM_DT, crashes=crashes)
+    return sim, out, timing
+
+
+def sim_close(sim):
+    """Close a phase-17 simulation and give the process back its wall
+    clocks and unseeded streams (a Simulation leaves the trace clock on
+    its steps and the streams seeded)."""
+    from foundationdb_tpu_torch.core import deterministic
+    from foundationdb_tpu_torch.utils.trace import global_trace_log
+
+    sim.close()
+    global_trace_log().clock = time.time
+    deterministic.unseed()
+
+
+def sim_no_sync(sim):
+    """A replayed pipelined dispatch on the sim's cluster adds no host
+    sync: two groups of 3 range-heavy batches, the first to capture its
+    step, the second dispatched under set_sync_debug_mode("error")."""
+    from foundationdb_tpu_torch import workloads
+
+    c = sim.cluster
+    cp = c._commit_target()
+    stream = workloads.range_heavy(6, seed=SEED + 17)
+
+    def group(batches):
+        return [workloads.commit_requests(
+            txns, cv, c.sequencer.committed_version, c.knobs.key_limbs, b"s")
+            for txns, cv, _ in batches]
+
+    cp.commit_batches_finish(cp.commit_batches_begin(group(stream[:3])))
+    g = group(stream[3:])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pg = cp.commit_batches_begin(g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pg.results_list is None and pg.handle is not None, pg.error
+    cp.commit_batches_finish(pg)
+
+
+def sim_baseline():
+    """17(a): BASELINE config 1 under faults on the card."""
+    from foundationdb_tpu_torch.ops import _kernels
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as d:
+        sim, out, timing = sim_drive(d)
+        launches = dict(_kernels.launches)
+        graphs = graph_report("simulation")
+        sim_no_sync(sim)
+        sim_close(sim)
+    del sim
+    gc.collect()
+    crashes = timing["crashes"]
+    assert 4 <= out["crashes"] <= 10, out["crashes"]
+    assert launches["fused_accept"] > 0, launches
+    mem = [c["card_bytes"] for c in crashes]
+    assert abs(mem[-1] - mem[0]) <= SIM_MEMORY_SLACK * mem[0], mem
+    prev = 0
+    for i, c in enumerate(crashes):
+        log(f"[simulation] crash {i + 1} at step {c['step']}: "
+            f"{c['captures'] - prev} captures since the last, "
+            f"{c['card_bytes']} card bytes after")
+        prev = c["captures"]
+    live = (out["committed"] + out["conflicted"]) / max(out["batches"], 1)
+    rate = out["committed"] / timing["sim_seconds"]
+    log(f"[simulation] seed {SIM_SEED}: {SIM_ROWS} rows preloaded in "
+        f"{timing['preload_s']:.3f} s; {out['steps']} steps in "
+        f"{timing['run_s']:.3f} s; {out['mako_txns']} mako txns of "
+        f"{SIM_MAKO_ACTORS} actors, {SIM_CYCLE_ACTORS} batched-cycle and "
+        f"{SIM_API_ACTORS} API-correctness actors; committed "
+        f"{out['committed']}, conflicted {out['conflicted']}, unknown "
+        f"{out['unknown']}; {out['crashes']} crashes, generation "
+        f"{out['generation']}, {out['role_kills']} role kills; sites "
+        f"{out['sites']}; {out['batches']} batches, {live:.3f} live txns a "
+        f"batch; {rate:.1f} committed txns a simulated second "
+        f"({timing['sim_seconds']:.3f} s); launches {launches}; "
+        "mako_check, cycle_check and api_correctness_check passed; a "
+        "pipelined dispatch under set_sync_debug_mode('error'): no host "
+        "sync")
+    return dict(out, **{k: v for k, v in timing.items()},
+                live_txns_per_batch=live,
+                committed_per_sim_s=rate, graphs=graphs), launches
+
+
+def sim_determinism():
+    """17(b): (a)'s script cut down, at SIM_TWIN_KNOBS widths with the
+    fault-coverage witness on, twice on the card and once on the CPU:
+    every field equal."""
+    runs = []
+    for device in (None, None, "cpu"):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            sim, out, _ = sim_drive(d, device=device, twin=True)
+            sim_close(sim)
+        runs.append((out, time.perf_counter() - t0))
+    (a, ta), (b, tb), (cpu, tc) = runs
+    for other in (b, cpu):
+        bad = [k for k in a if a[k] != other[k]]
+        assert not bad, ("same-seed simulation runs differ", bad)
+    fired = json.loads(a["witness"])["fired"]
+    assert fired, "the witness saw no error site"
+    log(f"[simulation determinism] seed {SIM_SEED}, T="
+        f"{SIM_TWIN_KNOBS['batch_txn_capacity']}, KR="
+        f"{SIM_TWIN_KNOBS['range_ring_capacity']}, "
+        f"{SIM_TWIN_KNOBS['key_limbs']} key limbs: card {ta:.3f} s, card "
+        f"{tb:.3f} s, CPU twin {tc:.3f} s; equal schedule_hash "
+        f"{a['schedule_hash']}, {a['steps']} steps, {a['crashes']} crashes, "
+        f"sites {a['sites']}, {a['events']} trace events, outcomes "
+        f"{a['committed']}/{a['conflicted']}/{a['unknown']}, {a['rows']} rows "
+        f"(sha256 {a['rows_sha256'][:16]}), {len(fired)} fired error sites")
+    return dict(card_s=[ta, tb], cpu_s=tc, steps=a["steps"],
+                crashes=a["crashes"], schedule_hash=a["schedule_hash"],
+                fired_sites=len(fired))
+
+
+def special_keys_check():
+    """17(c): every special key on phase 14's deployment on the card."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.core import deterministic
+    from foundationdb_tpu_torch.core.errors import FDBError
+    from foundationdb_tpu_torch.txn import specialkeys as SK
+
+    c = repl_cluster()
+    db = c.database()
+    t0 = time.perf_counter()
+    preload(c, SK_ROWS)
+    settle_map(c)
+    views = {}
+    # one frozen clock for the two reads of the document
+    now = deterministic.now()
+    deterministic.set_clock(lambda: now)
+    try:
+        tr = db.create_transaction()
+        for key in (SK.STATUS_JSON, SK.HEALTH, SK.METRICS_JSON,
+                    SK.HOT_RANGES, SK.DEVICE, SK.HISTORY, SK.FLIGHT,
+                    SK.CONSISTENCY_SCAN):
+            views[key] = json.loads(tr.get(key))
+        doc = json.loads(json.dumps(db.status(), sort_keys=True))
+    finally:
+        deterministic.registry().reset_clock()
+    # building the document reads the metacluster registration row: one
+    # storage point read a call
+    for d in (views[SK.STATUS_JSON], doc):
+        for s in d["cluster"]["processes"]["storage_servers"]:
+            s["metrics"]["counters"].pop("point_reads")
+    assert views[SK.STATUS_JSON] == doc, "status/json != db.status()"
+    assert views[SK.DEVICE] == doc["cluster"]["device"]
+    assert tr.get(SK.CONNECTION_STRING) == b"local"
+    listed = [k for k, _ in tr.get_range(SK.PREFIX, SK.END)]
+    assert set(views) <= set(listed), listed
+    # a range-carrying conflict: the device step reports every read range
+    tr = db.create_transaction()
+    tr.options.set_report_conflicting_keys()
+    reads = [(workloads.user_key(5), workloads.user_key(5) + b"\x00"),
+             (workloads.user_key(7), workloads.user_key(7) + b"\x00"),
+             (workloads.user_key(100), workloads.user_key(110))]
+    tr.get(reads[0][0])
+    tr.get(reads[1][0])
+    tr.get_range(*reads[2])
+    db[workloads.user_key(5)] = b"other"
+    tr[workloads.user_key(9000)] = b"mine"
+    try:
+        tr.commit()
+        raise AssertionError("the conflicting transaction committed")
+    except FDBError as e:
+        assert e.code == 1020, e.code
+    CK = SK.CONFLICTING_KEYS
+    rows = tr.get_range(CK, CK + b"\xff")
+    opened = {k[len(CK):] for k, v in rows if v == b"1"}
+    assert {b for b, _ in reads} <= opened, rows
+    # exclusion through the management keys: the drain ends with every
+    # replica equal
+    owned = sum(2 in team for team in c.dd.map.teams)
+    db.run(lambda tr: tr.set(SK.EXCLUDED + b"2", b""))
+    assert c.list_excluded() == [2]
+    # the exclusion runs a rebalance round at its commit; poll for more
+    rounds = 0
+    while not c.storage_drained(2) and rounds < REPL_MAX_ROUNDS:
+        c.rebalance()
+        rounds += 1
+    assert c.storage_drained(2), "storage 2 did not drain"
+    problems = c.consistency_check()
+    assert problems == [], problems[:5]
+    db.run(lambda tr: tr.clear(SK.EXCLUDED + b"2"))
+    assert c.list_excluded() == []
+    # the lock through db_locked
+    db.run(lambda tr: tr.set(SK.DB_LOCKED, b"smoke"))
+    plain = c.database().create_transaction()
+    plain[b"plain"] = b"x"
+    try:
+        plain.commit()
+        locked = "committed"
+    except FDBError as e:
+        locked = e.code
+    assert locked == 1038, locked
+
+    def unlock(tr):
+        tr.options.set_lock_aware()
+        assert tr.get(SK.DB_LOCKED) == b"smoke"
+        tr.clear(SK.DB_LOCKED)
+
+    db.run(unlock)
+    db[b"plain"] = b"x"
+    shards = len(c.dd.map)
+    c.close()
+    secs = time.perf_counter() - t0
+    log(f"[simulation special keys] {SK_ROWS} rows on {REPL_STORAGE} "
+        f"storages: {len(views)} views valid JSON, status/json == "
+        f"db.status(); the conflict's view lists all {len(reads)} read "
+        f"ranges; storage 2 (in {owned} of {shards} teams) excluded, "
+        f"drained by the exclusion's own rebalance round and {rounds} "
+        f"more, included; replicas equal; lock 1038 then unlocked; "
+        f"{secs:.3f} s")
+    return dict(views=len(views), conflict_rows=len(rows), owned=owned,
+                drain_rounds=rounds, seconds=secs)
+
+
+def metacluster_check():
+    """17(d): a management cluster and two data clusters on the card,
+    MC_TENANTS tenants, MC_TXNS tenant transactions from MC_CLIENTS
+    threads while MC_MOVES tenants move (one crashed between the move's
+    steps 2 and 3 and resumed by a fresh handle); every row read back
+    on its owner, nothing left on a source."""
+    import threading
+
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.core.errors import FDBError
+    from foundationdb_tpu_torch.layers import metacluster as mc_mod
+    from foundationdb_tpu_torch.layers.tenant import TenantManagement
+    from foundationdb_tpu_torch.ops import _kernels
+    from foundationdb_tpu_torch.server.cluster import Cluster
+
+    reset_counts()
+    t0 = time.perf_counter()
+    clusters = [Cluster(commit_pipeline="thread", **QUIET) for _ in range(3)]
+    mgmt, d1, d2 = (c.database() for c in clusters)
+    mc = mc_mod.Metacluster.create(mgmt)
+    mc.register_data_cluster(b"dc1", d1, capacity=MC_CAPACITY)
+    mc.register_data_cluster(b"dc2", d2, capacity=MC_CAPACITY)
+    names = [b"tenant%02d" % i for i in range(MC_TENANTS)]
+    model = {}
+    for name in names:
+        mc.create_tenant(name)
+        rows = {workloads.user_key(j): b"t" * 100
+                for j in range(MC_TENANT_ROWS)}
+        mc.open_tenant(name).run(
+            lambda tr, rows=rows: [tr.set(k, v) for k, v in rows.items()])
+        model[name] = rows
+    placed = {n: mc.list_tenants()[n]["cluster"] for n in names}
+    per = MC_TXNS // MC_CLIENTS
+    rng = np.random.default_rng(SEED + 17)
+    starts = rng.integers(0, MC_TENANT_ROWS - 8, (MC_CLIENTS, per)).tolist()
+    fences = [0] * MC_CLIENTS
+
+    def client(i):
+        name = names[i % MC_TENANTS]
+        t = None
+        for j in range(per):
+            s = starts[i][j]
+            key, value = workloads.user_key(s), b"%d:%d" % (i, j)
+
+            def txn(tr):
+                tr.get_range(workloads.user_key(s), workloads.user_key(s + 8))
+                tr.set(key, value)
+
+            while True:
+                try:
+                    if t is None:
+                        t = mc.open_tenant(name)
+                    t.run(txn)
+                    break
+                except FDBError as e:
+                    # 2144 while the tenant moves; 2108 on a handle that
+                    # outlived its move: open it again on the owner
+                    if e.code not in (2108, 2144):
+                        raise
+                    fences[i] += 1
+                    t = None
+                    time.sleep(0.001)
+            model[name][key] = value
+
+    movers = [n for n in names if placed[n] == "dc1"][:MC_MOVES]
+    moved = []
+
+    class Crash(Exception):
+        pass
+
+    def mover():
+        for k, name in enumerate(movers):
+            time.sleep(0.05)
+            if k < MC_RESUMED:
+                # a crash between step 2 (the source fenced) and step 3
+                # (the copy): the destination's create never runs
+                create = TenantManagement.create_tenant
+                TenantManagement.create_tenant = staticmethod(
+                    lambda *a, **kw: (_ for _ in ()).throw(Crash()))
+                try:
+                    mc.move_tenant(name, b"dc2")
+                except Crash:
+                    pass
+                finally:
+                    TenantManagement.create_tenant = staticmethod(create)
+                assert mc.list_tenants()[name]["state"] == "moving"
+                fresh = mc_mod.Metacluster(mgmt)
+                fresh.attach_data_cluster(b"dc1", d1)
+                fresh.attach_data_cluster(b"dc2", d2)
+                fresh.resume_move(name)
+            else:
+                mc.move_tenant(name, b"dc2")
+            moved.append(name)
+
+    errors = []
+
+    def run_mover():
+        try:
+            mover()
+        except BaseException as e:
+            errors.append(e)
+
+    m = threading.Thread(target=run_mover, daemon=True)
+    m.start()
+    wall = run_clients(MC_CLIENTS, client)
+    m.join(CLIENT_DEADLINE_S)
+    assert not m.is_alive(), "the mover hung"
+    if errors:
+        raise errors[0]
+    launches = dict(_kernels.launches)
+    graphs = graph_report("simulation metacluster")
+    assert launches["fused_accept"] > 0, launches
+    assert moved == movers, (moved, movers)
+    owners = mc.list_tenants()
+    for name in names:
+        got = dict(mc.open_tenant(name).get_range(b"", b"\xff"))
+        assert got == model[name], name
+        assert owners[name]["state"] == "ready"
+        assert owners[name]["cluster"] == ("dc2" if name in movers
+                                           else placed[name])
+    for cname, db in ((b"dc1", d1), (b"dc2", d2)):
+        held = sum(len(model[n]) for n in names
+                   if owners[n]["cluster"] == cname.decode())
+        assert len(db.get_range(b"\xfd", b"\xfe")) == held, cname
+    for c in clusters:
+        c.close()
+    secs = time.perf_counter() - t0
+    log(f"[simulation metacluster] {MC_TENANTS} tenants of "
+        f"{MC_TENANT_ROWS} rows on 2 data clusters; {MC_TXNS} tenant "
+        f"transactions (get_range of 8, a set) on {MC_CLIENTS} threads in "
+        f"{wall:.3f} s ({MC_TXNS / wall:.1f} txns/s), {sum(fences)} fenced "
+        f"retries; {MC_MOVES} tenants moved dc1 -> dc2, {MC_RESUMED} "
+        f"resumed after a crash between steps 2 and 3; every row read back "
+        f"on its owner, no row left on a source; launches {launches}; "
+        f"{secs:.3f} s")
+    return dict(txns=MC_TXNS, wall_s=wall, txns_per_s=MC_TXNS / wall,
+                fenced_retries=sum(fences), moves=len(moved),
+                graphs=graphs, seconds=secs), launches
+
+
+def phase_simulation():
+    """Phase 17 on the card: the simulator, the special keys and the
+    metacluster; (a)'s and (d)'s launch and graph counts are zeroed at
+    their starts."""
+    t_phase = time.perf_counter()
+    report, sim_launches = sim_baseline()
+    report["determinism"] = sim_determinism()
+    report["special_keys"] = special_keys_check()
+    report["metacluster"], meta_launches = metacluster_check()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[simulation] phase 17 took {report['seconds']:.3f} s")
+    return report, sim_launches, meta_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3846,6 +4400,8 @@ def main():
     del region_stream
     gc.collect()
     obs_report, obs_launches = phase_observability()
+    gc.collect()
+    sim_report, sim_launches, meta_launches = phase_simulation()
 
     kernels = []
     for name, src, replaces in (
@@ -3867,7 +4423,9 @@ def main():
                    "native": native_report["launches"][name],
                    "replication": repl_launches[name],
                    "regions": region_launches[name],
-                   "observability": obs_launches[name]}
+                   "observability": obs_launches[name],
+                   "simulation": sim_launches[name],
+                   "metacluster": meta_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -3883,13 +4441,15 @@ def main():
                    pipeline=pipeline_report_, sharded=sharded_report,
                    recovery=recovery_report, native=native_report,
                    replication=repl_report, regions=region_report,
-                   observability=obs_report,
+                   observability=obs_report, simulation=sim_report,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
     log(f"[total] chip_smoke.py took {summary['seconds']:.3f} s, phase 16 "
-        f"{obs_report['seconds']:.3f} s of it")
+        f"{obs_report['seconds']:.3f} s and phase 17 "
+        f"{sim_report['seconds']:.3f} s of it")
     paths = {"fused_accept": ("main", "cluster", "pipeline", "recovery",
-                              "replication", "regions", "observability"),
+                              "replication", "regions", "observability",
+                              "simulation", "metacluster"),
              "ring_hits": ("ring_route",),
              "accept_sweep": ("main", "ring_route",
                               "sharded_and_partitioned", "regions")}

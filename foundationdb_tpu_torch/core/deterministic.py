@@ -11,7 +11,9 @@ to ``f"{s}:{name}"``, so two processes seeded alike draw the same ids.
 ``now()`` is the injected clock (the wall clock unless ``set_clock``
 swapped it): the region streamer's cadence and its lag in milliseconds
 read it, so a test that sets one clock on both packages gets the same
-lag.
+lag. The simulator (sim/simulation.py) seeds the streams and sets its
+step clock at every cluster build; ``Simulation.close`` puts the wall
+clock back through ``registry().reset_clock()``.
 """
 
 import random
@@ -48,6 +50,14 @@ class _Streams:
             for stream in self._streams.values():
                 stream.seed()
 
+    @property
+    def seeded(self):
+        return self._seed is not None
+
+    def reset_clock(self):
+        """Back to the wall clock."""
+        self.clock = time.time
+
 
 _streams = _Streams()
 
@@ -55,6 +65,11 @@ _streams = _Streams()
 def rng(name):
     """The named stream (one ``random.Random`` per name)."""
     return _streams.rng(name)
+
+
+def registry():
+    """The process's one registry: its streams, ``seeded`` and clock."""
+    return _streams
 
 
 def token_bytes(n, name="token"):

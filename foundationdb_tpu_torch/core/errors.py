@@ -4,7 +4,13 @@ Ref parity: flow/Error.h and the generated error list in
 fdbclient/vexillographer/fdb.options. The codes equal the reference's
 (and the JAX package's), so client code written against FDB's bindings
 ports over unchanged.
+
+The runtime fault-coverage witness (utils/faultcov.py) hooks
+``FDBError.__init__``: one module-global read when it is off, a
+per-site counter bump when it is on.
 """
+
+from foundationdb_tpu_torch.utils import faultcov as _faultcov
 
 _ERRORS = {
     0: "success",
@@ -39,6 +45,11 @@ _ERRORS = {
     2132: "tenant_already_exists",
     2133: "tenant_not_empty",
     2134: "tenants_disabled",
+    2144: "tenant_locked",  # mid-move fence (ref: metacluster moves)
+    2160: "invalid_metacluster_operation",
+    2161: "cluster_already_registered",
+    2165: "cluster_not_empty",
+    2166: "metacluster_no_capacity",
     2200: "api_version_unset",
 }
 
@@ -46,7 +57,7 @@ _BY_NAME = {v: k for k, v in _ERRORS.items()}
 
 # Errors on which the standard retry loop (Transaction.on_error) retries.
 # Ref: fdb_error_predicate(FDB_ERROR_PREDICATE_RETRYABLE, ...) in bindings/c.
-RETRYABLE = frozenset({1007, 1009, 1020, 1021, 1037, 1213})
+RETRYABLE = frozenset({1007, 1009, 1020, 1021, 1037, 1213, 2144})
 MAYBE_COMMITTED = frozenset({1021})
 
 
@@ -71,6 +82,8 @@ class FDBError(Exception):
         self.code = int(code)
         self.description = _ERRORS.get(self.code, "unknown_error")
         super().__init__(message or f"{self.description} ({self.code})")
+        if _faultcov._enabled:
+            _faultcov.note(self.code)
 
     @classmethod
     def from_name(cls, name, message=None):

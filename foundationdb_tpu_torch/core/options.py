@@ -177,5 +177,14 @@ class Knobs:
     # deadlines plus a grace); the port has no RPC deadlines
     rpc_deadline_commit_s: float = 15.0
 
+    # --- simulation ---
+    # process-global BUGGIFY default (sim/buggify.py): `buggify` arms
+    # the module-level BUGGIFY singleton at import (Simulation always
+    # builds its own seeded instance regardless); `buggify_prob` is the
+    # default per-evaluation fire probability for sites that do not
+    # pass an explicit fire_p.
+    buggify: bool = False
+    buggify_prob: float = 0.05
+
 
 DEFAULT_KNOBS = Knobs()

@@ -84,9 +84,16 @@ timeline), ``device``, ``history``, ``consistency_scan`` and ``trace``;
 ``consistency_check()`` audits every replica once; ``set_tracing``
 changes the sample rate live.
 
-Not ported: special keys, the metacluster layer (the status section
-reads its registration row) and RPC (the health document's ``rpc``
-section is the empty view of a process without a failure monitor).
+The special keys (txn/specialkeys.py) read the documents above and
+apply exclusions, the lock and the tracing rate through the cluster;
+``connection_string()`` is ``"local"``. The metacluster layer
+(layers/metacluster.py) writes the registration row that the status
+document's ``metacluster`` section reads. The simulator
+(sim/simulation.py) installs ``clock_advance`` and ``buggify_sites``.
+
+Not ported: RPC (the health document's ``rpc`` section is the empty
+view of a process without a failure monitor, and the remote connection
+string waits for it).
 """
 
 import contextlib
@@ -214,6 +221,8 @@ class Cluster:
         # coordinators, and a coordinator count; neither is ported)
         self.coordination = CoordinationQuorum.local(3, coordination_dir)
         self.generation = self._win_generation(recovered)
+        TraceEvent("MasterRecovered").detail(
+            generation=self.generation, version=recovered).log()
         self.recruitments = 0  # roles the failure monitor replaced
         # serializes transaction-system recoveries
         self._recovery_mu = lockdep.lock("Cluster._recovery_mu")
@@ -1027,6 +1036,12 @@ class Cluster:
         from foundationdb_tpu_torch.txn.database import Database
 
         return Database(self)
+
+    def connection_string(self):
+        """What \\xff\\xff/connection_string reports for an in-process
+        cluster (a remote client, once RPC is ported, reports its
+        cluster-file body)."""
+        return "local"
 
     # ── tracing and the consistency check ──
     TRACING_DEFAULT_RATE = 0.01  # set_tracing(enabled=True) without a rate

@@ -1,0 +1,687 @@
+"""Simulation workloads + invariant checks.
+
+Ref parity: fdbserver/workloads/ — Cycle.actor.cpp (ring-pointer swaps,
+cycle invariant), the ApiCorrectness/Serializability family (randomized
+ops vs an oracle), AtomicOps.actor.cpp (counter sums). Each workload is a
+generator; every ``yield`` is a scheduling point where the simulation may
+interleave other actors or inject faults.
+
+A copy of the JAX package's ``sim/workloads.py``: under one seed the
+same actors issue the same operations in both packages.
+"""
+
+import struct
+import zlib
+
+from foundationdb_tpu_torch.core.errors import FDBError
+from foundationdb_tpu_torch.core.mutations import Op, apply_atomic
+
+
+def run_txn(db, fn):
+    """Cooperative transactional runner (generator).
+
+    Yields once per attempt; returns (outcome, result, tr) where outcome
+    is "committed" or "unknown" (commit_unknown_result) — the caller owns
+    1021 disambiguation, like a client.
+    """
+    tr = db.create_transaction()
+    while True:
+        yield
+        try:
+            result = fn(tr)
+            tr.commit()
+            return ("committed", result, tr)
+        except FDBError as e:
+            if e.code == 1021:
+                return ("unknown", None, tr)
+            if not e.is_retryable:
+                raise
+            tr.reset()
+
+
+def run_txn_repair(db, fn, stats=None):
+    """Repair-aware cooperative runner (txn/repair.py): on a retryable
+    conflict it first tries repair — a replayed transaction resubmits
+    WITHOUT re-running ``fn`` (re-running would double-apply the
+    restored mutations); a cache-seeded one re-runs ``fn`` against the
+    verified snapshot. Unrepaired errors reset cold, like ``run_txn``
+    (no backoff sleep: the sim scheduler owns time). ``stats`` (when
+    given) tallies attempts/conflicts/repairs for the test's asserts.
+    """
+    tr = db.create_transaction()
+    result = None
+    while True:
+        yield
+        try:
+            if not tr.repair_ready:
+                result = fn(tr)
+            fut = tr.commit_async()
+            while not fut.done():
+                yield  # the scheduler's pump() forms the batch
+            tr.commit_finish(fut)
+            return ("committed", result, tr)
+        except FDBError as e:
+            if e.code == 1021:
+                return ("unknown", None, tr)
+            if not e.is_retryable:
+                raise
+            if stats is not None:
+                stats["conflicts"] = stats.get("conflicts", 0) + 1
+            if tr.try_repair(e):
+                if stats is not None:
+                    stats["repairs"] = stats.get("repairs", 0) + 1
+            else:
+                tr.reset()
+
+
+def tpcc_workload(db, n_districts, n_ops, rng, stats, prefix=b"tpcc/",
+                  repair=True):
+    """New-order-shaped contention (the bench's tpcc client as a sim
+    actor): RMW on a hot district counter + an order-row insert keyed
+    by the read value + a blind stock update. The value-dependent hot
+    read is exactly the shape the repair engine's digest check must
+    catch — a stale district counter replayed verbatim would assign a
+    duplicate order id. ``repair=False`` runs the same ops through the
+    restart-only path for the differential test."""
+    dkey = lambda d: prefix + b"district/%03d" % d
+    for t in range(n_ops):
+        d = rng.randrange(n_districts)
+        s = rng.randrange(n_districts * 4)
+
+        def fn(tr, d=d, s=s):
+            cur = tr.get(dkey(d))
+            oid = int(cur or b"0") + 1
+            tr.set(dkey(d), b"%d" % oid)
+            tr.set(dkey(d) + b"/order/%08d" % oid, b"o" * 16)
+            tr.set(prefix + b"stock/%06d" % s, b"s" * 8)
+            return oid
+
+        if repair:
+            outcome, _, _tr = yield from run_txn_repair(db, fn, stats)
+        else:
+            outcome, _, _tr = yield from _run_txn_async(db, fn, stats)
+        if outcome == "committed":
+            stats["committed"] = stats.get("committed", 0) + 1
+            stats.setdefault("per_district", {})
+            stats["per_district"][d] = stats["per_district"].get(d, 0) + 1
+        else:
+            stats["unknown"] = stats.get("unknown", 0) + 1
+
+
+def _run_txn_async(db, fn, stats=None):
+    """The restart-only twin of ``run_txn_repair``: identical async
+    commit protocol, cold reset on every retryable error — the
+    differential baseline."""
+    tr = db.create_transaction()
+    while True:
+        yield
+        try:
+            result = fn(tr)
+            fut = tr.commit_async()
+            while not fut.done():
+                yield
+            tr.commit_finish(fut)
+            return ("committed", result, tr)
+        except FDBError as e:
+            if e.code == 1021:
+                return ("unknown", None, tr)
+            if not e.is_retryable:
+                raise
+            if stats is not None:
+                stats["conflicts"] = stats.get("conflicts", 0) + 1
+            tr.reset()
+
+
+def tpcc_check(db, n_districts, stats, prefix=b"tpcc/"):
+    """Serializability-equivalence invariant: every district counter
+    equals its committed new-order count, and the order rows under it
+    are exactly 1..counter (a lost update, double-applied repair, or
+    replayed-stale-read would all break the sequence)."""
+    per = stats.get("per_district", {})
+    assert stats.get("unknown", 0) == 0, "ambiguous outcomes in a " \
+        "fault-free differential run"
+    for d in range(n_districts):
+        key = prefix + b"district/%03d" % d
+        row = db.get(key)
+        count = int(row) if row is not None else 0
+        assert count == per.get(d, 0), (
+            f"district {d}: counter {count} != committed {per.get(d, 0)}"
+        )
+        orders = db.get_range_startswith(key + b"/order/")
+        assert len(orders) == count, (
+            f"district {d}: {len(orders)} order rows != counter {count}"
+        )
+        for i, (k, _) in enumerate(orders):
+            assert k == key + b"/order/%08d" % (i + 1), (
+                f"district {d}: order id gap at {k!r}"
+            )
+
+
+def _enc(i):
+    return struct.pack(">I", i)
+
+
+def _dec(b):
+    return struct.unpack(">I", b)[0]
+
+
+# ───────────────────────────── cycle ────────────────────────────────────
+def cycle_setup(db, n_nodes, prefix=b"cycle/"):
+    def fn(tr):
+        for i in range(n_nodes):
+            tr.set(prefix + _enc(i), _enc((i + 1) % n_nodes))
+
+    db.run(fn)
+
+
+def cycle_workload(db, n_nodes, n_ops, rng, prefix=b"cycle/"):
+    """Pointer-rotation transactions: read r→a→b→c, relink to r→b→a→c.
+    Every committed state is a single n-cycle, so the invariant is
+    insensitive to how commit_unknown_result is disambiguated (the
+    reference uses this shape under fault injection for the same
+    reason); counter_workload below is the complementary shape whose
+    invariant REQUIRES the idempotency-id machinery for exactly-once."""
+    key = lambda i: prefix + _enc(i)
+    for _ in range(n_ops):
+        r = rng.randrange(n_nodes)
+
+        def fn(tr, r=r):
+            a = _dec(tr.get(key(r)))
+            b = _dec(tr.get(key(a)))
+            c = _dec(tr.get(key(b)))
+            tr.set(key(r), _enc(b))
+            tr.set(key(a), _enc(c))
+            tr.set(key(b), _enc(a))
+
+        yield from run_txn(db, fn)
+
+
+def counter_workload(db, n_ops, stats, key=b"idmp/counter"):
+    """Increment-by-one RMW transactions under AUTOMATIC_IDEMPOTENCY
+    (ref: the AtomicOps workload shape + IdempotencyId.actor.cpp): the
+    counter's final value must equal the increments REPORTED committed —
+    the invariant the cycle shape cannot see, because a 1021 retry that
+    double-applies still leaves a valid cycle but inflates a counter.
+    The runner retries 1021 like a real client (tr.on_error): the id
+    machinery — the id row committed atomically with the mutations, the
+    client's id-row check, and the proxy's serialized dedupe — makes
+    that retry exactly-once. ``stats['committed']`` counts successes."""
+    for _ in range(n_ops):
+        tr = db.create_transaction()
+        tr.options.set_automatic_idempotency()
+        while True:
+            yield
+            try:
+                cur = _dec(tr.get(key) or _enc(0))
+                tr.set(key, _enc(cur + 1))
+                tr.commit()
+                stats["committed"] += 1
+                break
+            except FDBError as e:
+                if not e.is_retryable:
+                    raise
+                stats["retried_1021"] += 1 if e.code == 1021 else 0
+                tr.on_error(e)
+
+
+def slow_cycle_workload(db, n_nodes, n_ops, rng, prefix=b"cycle/"):
+    """Cycle txns with yields *between* reads and commit: read versions
+    go stale across interleavings and crashes, exercising OCC conflicts
+    and recovery fencing on the same invariant."""
+    key = lambda i: prefix + _enc(i)
+    ops = 0
+    while ops < n_ops:
+        tr = db.create_transaction()
+        try:
+            yield
+            r = rng.randrange(n_nodes)
+            a = _dec(tr.get(key(r)))
+            yield
+            b = _dec(tr.get(key(a)))
+            yield
+            c = _dec(tr.get(key(b)))
+            tr.set(key(r), _enc(b))
+            tr.set(key(a), _enc(c))
+            tr.set(key(b), _enc(a))
+            yield
+            tr.commit()
+            ops += 1
+        except FDBError as e:
+            if e.code == 1021:
+                ops += 1  # either way the cycle invariant holds
+            elif not e.is_retryable:
+                raise
+            # retryable: abandon the attempt, new transaction
+
+
+def batched_cycle_workload(db, n_nodes, n_ops, rng, prefix=b"cycle/"):
+    """Cycle txns committed through the *async* path: the actor submits
+    to the batching commit proxy and yields until the shared-version
+    batch resolves. Many such actors running concurrently are what fills
+    the TPU resolver's batch lanes — the live-system analog of the
+    reference's commitBatcher accumulating commits from many clients."""
+    key = lambda i: prefix + _enc(i)
+    ops = 0
+    while ops < n_ops:
+        tr = db.create_transaction()
+        try:
+            yield
+            r = rng.randrange(n_nodes)
+            a = _dec(tr.get(key(r)))
+            b = _dec(tr.get(key(a)))
+            c = _dec(tr.get(key(b)))
+            tr.set(key(r), _enc(b))
+            tr.set(key(a), _enc(c))
+            tr.set(key(b), _enc(a))
+            fut = tr.commit_async()
+            while not fut.done():
+                yield  # the scheduler's pump() forms the batch
+            tr.commit_finish(fut)
+            ops += 1
+        except FDBError as e:
+            if e.code == 1021:
+                ops += 1  # either way the cycle invariant holds
+            elif not e.is_retryable:
+                raise
+
+
+def cycle_check(db, n_nodes, prefix=b"cycle/"):
+    """The walk from node 0 must traverse all nodes and close."""
+    rows = dict(db.get_range(prefix, prefix + b"\xff"))
+    assert len(rows) == n_nodes, f"expected {n_nodes} nodes, got {len(rows)}"
+    seen = set()
+    cur = 0
+    for _ in range(n_nodes):
+        assert cur not in seen, f"cycle broken: revisited {cur}"
+        seen.add(cur)
+        cur = _dec(rows[prefix + _enc(cur)])
+    assert cur == 0, f"walk did not close: ended at {cur}"
+    assert len(seen) == n_nodes
+
+
+# ──────────────────────── serializability ───────────────────────────────
+class SerializabilityLog:
+    """Shared committed-transaction log for the final linearization check."""
+
+    def __init__(self):
+        self.entries = []  # (stamp: 10B versionstamp, reads|None, writes)
+
+
+def serializability_workload(db, log, actor_id, n_txns, n_keys, rng,
+                             prefix=b"ser/"):
+    """Random read-modify-write txns, logged with their exact commit
+    versionstamp for the end-of-run serial replay.
+
+    Each txn sets a per-actor receipt via SET_VERSIONSTAMPED_VALUE. On
+    commit_unknown_result the actor disambiguates by reading its own
+    receipt (only it ever writes that key) — and because the receipt
+    carries the commit versionstamp, even an ambiguous commit is logged
+    at its true position in the serial order. The data write value is a
+    function of the token alone so it is reconstructable post-hoc.
+    """
+    key = lambda i: prefix + b"k%03d" % i
+    receipt_key = prefix + b"receipt/%d" % actor_id
+    for t in range(n_txns):
+        token = b"%d:%d:" % (actor_id, t)
+        ks = rng.sample(range(n_keys), 3)
+        wval = _enc(zlib.crc32(token))
+
+        def fn(tr, ks=ks, token=token, wval=wval):
+            reads = {key(k): tr.get(key(k)) for k in ks}
+            tr.set(key(ks[0]), wval)
+            # value = token + 10-byte stamp placeholder + LE32 offset trailer
+            tr.set_versionstamped_value(
+                receipt_key,
+                token + b"\x00" * 10 + struct.pack("<I", len(token)),
+            )
+            return reads
+
+        outcome, reads, tr = yield from run_txn(db, fn)
+        writes = {key(ks[0]): wval}
+        if outcome == "committed":
+            stamp = tr.get_versionstamp()()
+            w = dict(writes)
+            w[receipt_key] = token + stamp
+            log.entries.append((stamp, reads, w))
+        else:
+            check = yield from run_txn(db, lambda tr: tr.get(receipt_key))
+            val = check[1]
+            if check[0] == "unknown" or val is None or not val.startswith(token):
+                continue  # did not commit (or unknowable)
+            stamp = val[len(token):len(token) + 10]
+            # committed: the reads were lost with the reply, but the stamp
+            # places the writes exactly in the serial order
+            w = dict(writes)
+            w[receipt_key] = val
+            log.entries.append((stamp, None, w))
+
+
+def serializability_check(db, log, n_keys, prefix=b"ser/"):
+    """Replay the committed log in commit-versionstamp order against an
+    oracle: every recorded read and the final database state must match —
+    strict serializability of the OCC pipeline, checked end to end."""
+    key = lambda i: prefix + b"k%03d" % i
+    oracle = {}
+    for stamp, reads, writes in sorted(log.entries, key=lambda e: e[0]):
+        if reads is not None:
+            for k, v in reads.items():
+                assert oracle.get(k) == v, (
+                    f"read {k!r}={v!r} inconsistent with serial replay "
+                    f"{oracle.get(k)!r}"
+                )
+        for k, v in writes.items():
+            oracle[k] = v
+    final = dict(db.get_range(prefix, prefix + b"\xff"))
+    for k, v in oracle.items():
+        assert final.get(k) == v, f"final state diverges at {k!r}"
+    for k in [key(i) for i in range(n_keys)]:
+        assert final.get(k) == oracle.get(k), f"final state diverges at {k!r}"
+
+
+# ──────────────────────── api correctness ──────────────────────────────
+class ApiModel:
+    """In-memory model of one actor's keyspace slice (ref: the
+    MemoryKeyValueStore ApiCorrectness compares against)."""
+
+    def __init__(self):
+        self.data = {}  # committed state
+
+    def snapshot(self):
+        return dict(self.data)
+
+
+def api_correctness_workload(db, model, n_txns, n_keys, rng,
+                             prefix=b"api/"):
+    """Randomized API transactions checked op-by-op against a model.
+
+    Each transaction interleaves mutations (set / clear / clear_range /
+    atomic add) with reads (get, get_range with limit/reverse), and every
+    read is asserted against the model's view folded with the txn's own
+    staged writes — read-your-writes, range merge, and atomic folding are
+    all checked in-flight, then the committed state is folded into the
+    model. commit_unknown_result disambiguates via a receipt key the
+    actor alone writes. The actor owns ``prefix`` exclusively, so the
+    model is exact even under fault injection.
+    """
+    key = lambda i: prefix + b"k%03d" % i
+    receipt_key = prefix + b"receipt"
+
+    for t in range(n_txns):
+        token = b"t%d" % t
+        script = [rng.randrange(7) for _ in range(rng.randrange(2, 8))]
+        cell = {}  # staged view of the most recent attempt (for 1021)
+
+        def fn(tr, script=script, token=token, cell=cell):
+            staged = model.snapshot()
+            cell["staged"] = staged
+
+            def fold_add(k, param):
+                staged[k] = apply_atomic(Op.ADD, staged.get(k), param)
+
+            for op in script:
+                if op == 0:  # set
+                    k, v = key(rng.randrange(n_keys)), b"v%d" % rng.randrange(999)
+                    tr.set(k, v)
+                    staged[k] = v
+                elif op == 1:  # clear
+                    k = key(rng.randrange(n_keys))
+                    tr.clear(k)
+                    staged.pop(k, None)
+                elif op == 2:  # clear_range
+                    a, b = sorted(rng.sample(range(n_keys), 2))
+                    tr.clear_range(key(a), key(b))
+                    for i in range(a, b):
+                        staged.pop(key(i), None)
+                elif op == 3:  # atomic add
+                    k = key(rng.randrange(n_keys))
+                    param = struct.pack("<q", rng.randrange(-5, 10))
+                    tr.add(k, param)
+                    fold_add(k, param)
+                elif op == 4:  # get (RYW check)
+                    k = key(rng.randrange(n_keys))
+                    assert tr.get(k) == staged.get(k), (
+                        f"get({k!r}) diverged from model")
+                elif op == 5:  # get_range with limit
+                    a, b = sorted(rng.sample(range(n_keys + 1), 2))
+                    limit = rng.randrange(1, 6)
+                    got = tr.get_range(key(a), key(b), limit=limit)
+                    want = sorted(
+                        (k, v) for k, v in staged.items()
+                        if key(a) <= k < key(b)
+                    )[:limit]
+                    assert got == want, f"get_range diverged: {got} != {want}"
+                else:  # reverse range
+                    a, b = sorted(rng.sample(range(n_keys + 1), 2))
+                    got = tr.get_range(key(a), key(b), reverse=True, limit=3)
+                    want = sorted(
+                        ((k, v) for k, v in staged.items()
+                         if key(a) <= k < key(b)),
+                        reverse=True,
+                    )[:3]
+                    assert got == want, "reverse get_range diverged"
+            tr.set(receipt_key, token)
+            return staged
+
+        outcome, staged, _tr = yield from run_txn(db, fn)
+        if outcome == "unknown":
+            check = yield from run_txn(db, lambda tr: tr.get(receipt_key))
+            if check[0] == "unknown" or check[1] != token:
+                continue  # did not commit; model unchanged
+            # a 1021 always comes from the FINAL attempt (run_txn returns
+            # on the first one), so the ambiguous-but-committed state is
+            # exactly the staged view that attempt recorded
+            staged = cell["staged"]
+        model.data = {k: v for k, v in staged.items()}
+        model.data[receipt_key] = token
+
+
+def api_correctness_check(db, model, prefix=b"api/"):
+    """Final state must equal the model exactly."""
+    final = dict(db.get_range(prefix, prefix + b"\xff"))
+    assert final == model.data, (
+        f"final state diverged: extra={set(final) - set(model.data)} "
+        f"missing={set(model.data) - set(final)} "
+        f"changed={[k for k in final if k in model.data and final[k] != model.data[k]]}"
+    )
+
+
+# ─────────────────────────── mako load mix ──────────────────────────────
+def mako_workload(db, n_txns, n_rows, rng, stats, mix=None, prefix=b"mako/"):
+    """Mixed-operation load generator (ref: bindings' mako benchmark
+    tool): each transaction performs GRV + a configurable mix of
+    get / set / getrange / update (read-modify-write) / clearrange ops
+    over a fixed row population. ``stats`` accrues per-op counts; the
+    sanity check is that the row population's key set never changes
+    (updates overwrite, clears are immediately refilled)."""
+    mix = mix or {"get": 4, "set": 2, "getrange": 2, "update": 1, "clearrange": 1}
+    ops = [op for op, w in mix.items() for _ in range(w)]
+    row = lambda i: prefix + b"r%06d" % i
+
+    for _ in range(n_txns):
+        chosen = [rng.choice(ops) for _ in range(rng.randrange(1, 5))]
+
+        def fn(tr, chosen=chosen):
+            for op in chosen:
+                i = rng.randrange(n_rows)
+                if op == "get":
+                    tr.get(row(i))
+                elif op == "set":
+                    tr.set(row(i), b"x" * rng.randrange(8, 32))
+                elif op == "getrange":
+                    tr.get_range(row(i), row(min(i + 10, n_rows)), limit=10)
+                elif op == "update":
+                    v = tr.get(row(i)) or b""
+                    tr.set(row(i), v[:16] + b"u")
+                else:  # clearrange + refill, population invariant kept
+                    j = min(i + rng.randrange(1, 4), n_rows)
+                    tr.clear_range(row(i), row(j))
+                    for k in range(i, j):
+                        tr.set(row(k), b"refill")
+                stats[op] = stats.get(op, 0) + 1
+
+        outcome, _, _tr = yield from run_txn(db, fn)
+        stats["txns"] = stats.get("txns", 0) + 1
+        if outcome == "unknown":
+            stats["unknown"] = stats.get("unknown", 0) + 1
+
+
+def mako_check(db, n_rows, prefix=b"mako/"):
+    """Row population invariant: exactly n_rows keys, none missing."""
+    rows = db.get_range(prefix, prefix + b"\xff")
+    assert len(rows) == n_rows, f"population changed: {len(rows)} != {n_rows}"
+    for i, (k, _) in enumerate(rows):
+        assert k == prefix + b"r%06d" % i
+
+
+# ───────────────────────────── atomic ops ───────────────────────────────
+def atomic_counter_workload(db, actor_id, n_ops, rng, totals,
+                            prefix=b"ctr/"):
+    """Atomic ADDs with 1021 disambiguation via a receipt; ``totals``
+    accrues the definitely-applied sum per counter for the final check."""
+    receipt_key = prefix + b"receipt/%d" % actor_id
+    for t in range(n_ops):
+        c = rng.randrange(4)
+        delta = rng.randrange(1, 10)
+        token = b"%d:%d" % (actor_id, t)
+        ckey = prefix + b"c%d" % c
+
+        def fn(tr, ckey=ckey, delta=delta, token=token):
+            tr.add(ckey, struct.pack("<q", delta))
+            tr.set(receipt_key, token)
+
+        outcome, _, _tr = yield from run_txn(db, fn)
+        if outcome == "unknown":
+            check = yield from run_txn(db, lambda tr: tr.get(receipt_key))
+            if check[0] == "unknown" or check[1] != token:
+                continue
+        totals[c] = totals.get(c, 0) + delta
+
+
+def atomic_counter_check(db, totals, prefix=b"ctr/"):
+    for c, expect in totals.items():
+        raw = db.get(prefix + b"c%d" % c)
+        got = struct.unpack("<q", raw)[0] if raw else 0
+        assert got == expect, f"counter {c}: {got} != {expect}"
+
+
+# ─────────────────── message-level network workloads ────────────────────
+def net_exec(net, gen):
+    """Drive a thunk-generator over the simulated network: each item the
+    generator yields is sent as a message (``(kind, thunk)`` or a bare
+    thunk), the actor yields to the scheduler until the reply delivers,
+    and the generator resumes with the result. Errors (conflicts, drops,
+    fencing) propagate to the caller's retry logic."""
+    try:
+        item = next(gen)
+        while True:
+            kind, thunk = (
+                item if isinstance(item, tuple) else ("call", item)
+            )
+            fut = net.call(thunk, kind=kind)
+            while not fut.done:
+                yield
+            item = gen.send(fut.result())
+    except StopIteration as s:
+        return s.value
+
+
+def _net_cycle_txn(tr, key, r):
+    a = _dec((yield (lambda: tr.get(key(r)))))
+    b = _dec((yield (lambda: tr.get(key(a)))))
+    c = _dec((yield (lambda: tr.get(key(b)))))
+
+    def relink():
+        tr.set(key(r), _enc(b))
+        tr.set(key(a), _enc(c))
+        tr.set(key(b), _enc(a))
+
+    yield relink
+    yield ("commit", tr.commit)
+
+
+def net_cycle_workload(db, net, n_nodes, n_ops, rng, prefix=b"cycle/"):
+    """Cycle transactions where EVERY operation crosses the simulated
+    network: reads and commits from concurrent actors reorder against
+    each other, stall behind partitions, and drop — the invariant must
+    hold anyway (ref: Cycle.actor.cpp under sim2's network)."""
+    key = lambda i: prefix + _enc(i)
+    ops = 0
+    while ops < n_ops:
+        tr = db.create_transaction()
+        r = rng.randrange(n_nodes)
+        try:
+            yield from net_exec(net, _net_cycle_txn(tr, key, r))
+            ops += 1
+        except FDBError as e:
+            if e.code == 1021:
+                ops += 1  # either way the cycle invariant holds
+            elif not e.is_retryable:
+                raise
+
+
+def _one_op(thunk):
+    """Single-message transaction body for net_exec."""
+    return (yield thunk)
+
+
+def _net_ser_txn(tr, key, receipt_key, ks, token, wval):
+    reads = {}
+    for k in ks:
+        reads[key(k)] = yield (lambda k=k: tr.get(key(k)))
+
+    def write():
+        tr.set(key(ks[0]), wval)
+        tr.set_versionstamped_value(
+            receipt_key, token + b"\x00" * 10 + struct.pack("<I", len(token))
+        )
+
+    yield write
+    yield ("commit", tr.commit)
+    return reads
+
+
+def net_serializability_workload(db, net, log, actor_id, n_txns, n_keys,
+                                 rng, prefix=b"ser/"):
+    """serializability_workload with every read/commit as a reorderable
+    network message; 1021 disambiguation via the versionstamped receipt
+    also rides the network."""
+    key = lambda i: prefix + b"k%03d" % i
+    receipt_key = prefix + b"receipt/%d" % actor_id
+    for t in range(n_txns):
+        token = b"%d:%d:" % (actor_id, t)
+        ks = rng.sample(range(n_keys), 3)
+        wval = _enc(zlib.crc32(token))
+        writes = {key(ks[0]): wval}
+        while True:  # retry loop, one attempt per iteration
+            tr = db.create_transaction()
+            try:
+                reads = yield from net_exec(
+                    net, _net_ser_txn(tr, key, receipt_key, ks, token, wval)
+                )
+                stamp = tr.get_versionstamp()()
+                w = dict(writes)
+                w[receipt_key] = token + stamp
+                log.entries.append((stamp, reads, w))
+                break
+            except FDBError as e:
+                if e.code == 1021:
+                    # ambiguous: disambiguate via the receipt (only this
+                    # actor writes it), itself over the network
+                    while True:
+                        try:
+                            chk = db.create_transaction()
+                            val = yield from net_exec(
+                                net, _one_op(lambda: chk.get(receipt_key))
+                            )
+                            break
+                        except FDBError as e2:
+                            if not e2.is_retryable:
+                                raise
+                    if val is not None and val.startswith(token):
+                        stamp = val[len(token):len(token) + 10]
+                        w = dict(writes)
+                        w[receipt_key] = val
+                        log.entries.append((stamp, None, w))
+                    break
+                if not e.is_retryable:
+                    raise

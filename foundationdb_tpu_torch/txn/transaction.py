@@ -36,8 +36,15 @@ one emits ``txn.grv``, ``txn.read``, ``txn.read_range`` and
 ``txn.commit`` children, and its commit request carries the commit
 span's context, under which the proxy's and resolver's spans nest. An
 unsampled transaction that aborts while tracing is on is promoted after
-the fact (``promote_lite``). Not ported yet: special keys (the
-``\\xff\\xff`` views).
+the fact (``promote_lite``).
+
+Special keys (txn/specialkeys.py): a read in ``[\\xff\\xff,
+\\xff\\xff\\xff)`` is materialized from the cluster (no read version,
+no read conflict range, never storage); a set or clear there buffers a
+management write that commit applies after the data half, on every
+commit path; atomics and selectors there raise 2004. A failed commit
+keeps its ``conflicting_key_ranges`` for
+``\\xff\\xff/transaction/conflicting_keys/``. Not ported yet: RPC.
 """
 
 import time
@@ -47,6 +54,7 @@ from foundationdb_tpu_torch.utils import span as span_mod
 from foundationdb_tpu_torch.core.commit import CommitRequest
 from foundationdb_tpu_torch.core.errors import FDBError, err
 from foundationdb_tpu_torch.core.keys import (
+    KeySelector,
     MAX_KEY_SIZE,
     MAX_VALUE_SIZE,
     key_successor,
@@ -55,9 +63,11 @@ from foundationdb_tpu_torch.core.keys import (
 from foundationdb_tpu_torch.core.mutations import Mutation, Op
 from foundationdb_tpu_torch.core.versions import Versionstamp
 from foundationdb_tpu_torch.txn import repair as repair_mod
+from foundationdb_tpu_torch.txn import specialkeys
 from foundationdb_tpu_torch.txn.futures import FutureRange, FutureValue
 from foundationdb_tpu_torch.txn.rows import WriteMap
 from foundationdb_tpu_torch.utils.backoff import Backoff
+from foundationdb_tpu_torch.utils.trace import TraceEvent
 
 
 def _check_key(key, limit=MAX_KEY_SIZE):
@@ -218,6 +228,7 @@ class Transaction:
                                 growth=knobs.backoff_growth)
         self._retries = 0
         self._size = 0
+        self._special_writes = []  # buffered \xff\xff management writes
         self._conflicting_ranges = None  # from a failed reporting commit
         self._watches_pending = []
         # transaction repair (txn/repair.py): the op-log recorder (None =
@@ -388,6 +399,8 @@ class Transaction:
         """Future-returning point read; :meth:`get` waits on it."""
         self._guard()
         key = _check_key(key)
+        if key.startswith(b"\xff") and specialkeys.contains(key):
+            return self._special_read(FutureValue, specialkeys.get, key)
         rv = self.get_read_version()
         if not self._ryw_disabled:
             known, needs_base, entry = self._writes.lookup(key)
@@ -400,9 +413,23 @@ class Transaction:
     def get(self, key, snapshot=False):
         return self.get_async(key, snapshot=snapshot).wait()
 
+    def _special_read(self, cls, read, *args):
+        """A settled future of a special-space read: no read version, no
+        conflict range. Its rows are not verifiable at a later version,
+        so this attempt's op log never replays."""
+        if self._repair is not None:
+            self._repair.unreplayable = True
+        try:
+            return cls(read(self, *args))
+        except FDBError as e:
+            return cls(error=e)
+
     def get_key_async(self, selector, snapshot=False):
         """Future-returning key-selector resolution."""
         self._guard()
+        if specialkeys.contains(getattr(selector, "key", None)):
+            # selectors are not defined over the materialized special space
+            raise err("key_outside_legal_range")
         rv = self.get_read_version()
         if self._repair is not None:
             # a selector's resolution is not recorded key by key, so it
@@ -433,6 +460,15 @@ class Transaction:
         txn's writes as they stand when the read is issued. begin/end:
         bytes or KeySelector (selectors resolve at issue)."""
         self._guard()
+        if specialkeys.contains(begin) or (
+                isinstance(begin, KeySelector)
+                and specialkeys.contains(begin.key)):
+            # the special space takes literal bytes only
+            if not specialkeys.contains(begin) or not isinstance(end, bytes):
+                raise err("key_outside_legal_range")
+            return self._special_read(
+                FutureRange, specialkeys.get_range, begin,
+                min(end, specialkeys.END), limit, reverse)
         rv = self.get_read_version()
         st = self._cluster.read_storage()
         if begin is None:
@@ -560,6 +596,9 @@ class Transaction:
         self._guard()
         key = _check_key(key, self._knobs.key_size_limit)
         value = _check_value(value, self._knobs.value_size_limit)
+        if key.startswith(b"\xff") and specialkeys.contains(key):
+            specialkeys.write(self, key, value)
+            return
         self._writes.set(key, value)
         self._log_mutation(Mutation(Op.SET, key, value))
         self._add_write_conflict(key, key + b"\x00")
@@ -567,6 +606,9 @@ class Transaction:
     def clear(self, key):
         self._guard()
         key = _check_key(key)
+        if specialkeys.contains(key):
+            specialkeys.clear(self, key)
+            return
         self._writes.clear(key)
         self._log_mutation(Mutation(Op.CLEAR_RANGE, key, key_successor(key)))
         self._add_write_conflict(key, key_successor(key))
@@ -576,6 +618,9 @@ class Transaction:
         begin, end = _check_key(begin), _check_key(end)
         if begin > end:
             raise err("inverted_range")
+        if specialkeys.contains(begin):
+            specialkeys.clear_range(self, begin, end)
+            return
         self._writes.clear_range(begin, end)
         self._log_mutation(Mutation(Op.CLEAR_RANGE, begin, end))
         self._add_write_conflict(begin, end)
@@ -587,6 +632,9 @@ class Transaction:
     def _atomic(self, op, key, param):
         self._guard()
         key = _check_key(key)
+        if specialkeys.contains(key):
+            # management modules take set and clear only
+            raise err("key_outside_legal_range")
         param = bytes(param)
         self._writes.atomic(op, key, param)
         self._log_mutation(Mutation(op, key, param))
@@ -783,11 +831,13 @@ class Transaction:
         self._repair_ready = False  # consumed: this IS the resubmission
         self._drain_reads()
         if not self._mutation_log and not self._write_conflicts:
-            # read-only: nothing to resolve
+            # read-only or management-only: nothing to resolve
+            specialkeys.commit_special(self)
             self._state = "committed"
             self._activate_watches()
             self._trace_commit_done(None)
             return
+        self._precheck_special_lock()
         # through a batching proxy this is submit-and-wait: concurrent
         # committers share a batch
         self._finish_commit(
@@ -807,12 +857,14 @@ class Transaction:
             from foundationdb_tpu_torch.server.batcher import CommitFuture
 
             # the same contract as commit()'s read-only path
+            specialkeys.commit_special(self)
             self._state = "committed"
             self._activate_watches()
             self._trace_commit_done(None)
             fut = CommitFuture()
             fut.set(None)
             return fut
+        self._precheck_special_lock()
         req = self._build_commit_request()
         # in flight: further ops, or a second commit, fail with
         # used_during_commit instead of resubmitting the mutation log
@@ -826,7 +878,20 @@ class Transaction:
             return
         self._finish_commit(fut.result(timeout=0))
 
+    def _precheck_special_lock(self):
+        """A transaction with management writes checks the lock before
+        its data commits, so a locked database rejects the whole
+        transaction (see _finish_commit for the race that remains)."""
+        if (self._special_writes and not self._lock_aware
+                and self._cluster.lock_uid() is not None):
+            raise err("database_locked")
+
     def _finish_commit(self, result):
+        """Data and management writes are not atomic: the data commit
+        becomes durable first, then the buffered special-key writes
+        apply. A lock that lands between the two halves fences only the
+        management half, which is dropped with a trace: the data commit
+        passed the proxy's lock check and stands."""
         if (isinstance(result, FDBError) and result.code == 1021
                 and self._idempotency_id is not None):
             # commit_unknown_result (ref: IdempotencyId): the id row
@@ -848,6 +913,16 @@ class Transaction:
         self._committed_version = result
         self._versionstamp = Versionstamp.from_version(result).tr_version
         self._trace_commit_done(None)
+        try:
+            specialkeys.commit_special(self)
+        except FDBError as e:
+            if e.description != "database_locked" or self._lock_aware:
+                # a genuine management failure (a lock-aware txn is never
+                # fenced; locking over another uid raises its own 1038)
+                self._state = "error"
+                raise
+            TraceEvent("ManagementWritesFencedByLock", severity=30).detail(
+                committed_version=result).log()
         self._state = "committed"
         self._activate_watches()
 

@@ -1,0 +1,228 @@
+"""Runtime fault-coverage witness — which coded-error fabrication
+sites actually fire.
+
+Ref parity: the reference's simulation culture only works because its
+chaos provably REACHES the error paths — ``flow/Error.h`` codes are
+fabricated at known sites and the swarm's value is measured by which of
+them it exercises. The static half here is flowlint FL011
+(analysis/rules/fl011_faultsites.py): every coded-error fabrication
+site in the tree, enumerated from the AST into the checked-in
+``analysis/faultsites.txt``. This module is the dynamic half: every
+site that ACTUALLY fabricated an ``FDBError`` while the witness was
+on, keyed by a site id ``module.dotted:qualname:code``. The port's ids
+carry its package path (``foundationdb_tpu_torch.server.storage:...``),
+where the JAX package's carry the path inside its package
+(``server.storage:...``): the two fired sets diff once that prefix is
+mapped. The static half waits for the port's ``analysis/``.
+
+Design, mirroring ``utils/lockdep.py``:
+
+* **Kill switch.** Off (the default), ``FDBError.__init__`` pays one
+  module-global read and nothing else. Enable with :func:`enable` or
+  ``FDB_TPU_FAULTCOV=1``.
+* **GIL-atomic counters.** ``note()`` bumps a per-site int in a plain
+  dict — no mutex on the fabrication path. Under real threads a racing
+  increment can be lost (counts are approximate); the fired SET is
+  exact, and under the single-threaded deterministic sim the counts
+  are exact too.
+* **Attribution by frame walk.** The fabrication site is the first
+  frame outside ``core/errors.py`` (``err`` → ``from_name`` →
+  ``__init__`` are plumbing, not fabrication). Comprehension and
+  lambda frames are skipped outward so attribution lands on the
+  enclosing ``def`` — the same owner the static enumerator assigns.
+  Frames outside the package (tests, bench) and the excluded
+  propagation seam ``rpc/wire.py`` (it *deserializes* coded errors
+  arriving off the wire — fabricated elsewhere) are not counted. The
+  port has no ``rpc/`` yet; the exclusion stands under the path the
+  module will take.
+* **Deterministic witness.** :func:`witness_doc` is canonical (sorted,
+  no timestamps): two same-seed sim runs emit byte-identical
+  documents.
+
+Qualnames come from :func:`qualname_index` — a per-file AST map built
+lazily on first sighting and shared with the static rule, so both
+sides derive ``ClassName.method`` / ``outer.inner`` identically by
+construction (Python 3.10 has no ``co_qualname``).
+
+A copy of the JAX package's ``utils/faultcov.py``; only the site ids'
+package path differs.
+"""
+
+import ast
+import json
+import os
+import sys
+
+__all__ = [
+    "enable", "disable", "enabled", "reset", "note",
+    "fired", "counts", "fired_codes", "witness_doc",
+    "qualname_index", "site_id", "EXCLUDED_MODULES",
+]
+
+_enabled = os.environ.get("FDB_TPU_FAULTCOV", "") not in ("", "0")
+
+PACKAGE = "foundationdb_tpu_torch"
+
+# module.dotted ids whose frames never count as fabrication sites:
+# core.errors is the constructor plumbing itself; rpc.wire DECODES
+# coded errors that crossed the wire (propagation, not fabrication);
+# analysis.* builds Finding objects about errors, it never raises them
+EXCLUDED_MODULES = frozenset({f"{PACKAGE}.core.errors",
+                              f"{PACKAGE}.rpc.wire"})
+_EXCLUDED_PREFIXES = (f"{PACKAGE}.analysis.",)
+
+# frames that are lexical sugar, not owners: attribute to the
+# enclosing def, exactly like the AST enumerator does
+_SKIP_CO_NAMES = frozenset({
+    "<listcomp>", "<setcomp>", "<dictcomp>", "<genexpr>", "<lambda>",
+})
+
+_counts = {}        # site id -> fire count
+_qualnames = {}     # abspath -> {firstlineno: qualname} (lazy, cached)
+_module_ids = {}    # abspath -> module.dotted or None (lazy, cached)
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_ERRORS_FILE = os.path.join(_PKG_DIR, "core", "errors.py")
+_SELF_FILE = os.path.abspath(__file__)
+
+
+def enabled():
+    return _enabled
+
+
+def enable():
+    global _enabled
+    _enabled = True
+
+
+def disable():
+    global _enabled
+    _enabled = False
+
+
+def reset():
+    """Drop all recorded fires (tests; between bench arms). The lazy
+    qualname cache survives — it is derived from source, not runs."""
+    _counts.clear()
+
+
+def qualname_index(tree):
+    """``{lineno: qualname}`` for every (Async)FunctionDef in ``tree``,
+    qualnames as dotted owner chains (``ClassName.method``,
+    ``outer.inner``). Each def registers BOTH its ``def`` line and its
+    decorator lines: CPython's ``co_firstlineno`` points at the first
+    decorator when one exists, the AST's ``lineno`` at the ``def``."""
+    index = {}
+
+    def walk(node, prefix):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                qn = prefix + child.name if prefix else child.name
+                index.setdefault(child.lineno, qn)
+                for dec in child.decorator_list:
+                    index.setdefault(dec.lineno, qn)
+                walk(child, qn + ".")
+            elif isinstance(child, ast.ClassDef):
+                cp = prefix + child.name if prefix else child.name
+                walk(child, cp + ".")
+            else:
+                walk(child, prefix)
+
+    walk(tree, "")
+    return index
+
+
+def _module_id(filename):
+    """``foundationdb_tpu_torch.server.storage`` for a file under the
+    package dir, else None (tests, bench, site-packages — not
+    fabrication we enumerate)."""
+    mid = _module_ids.get(filename)
+    if mid is not None or filename in _module_ids:
+        return mid
+    try:
+        rel = os.path.relpath(filename, _PKG_DIR)
+    except ValueError:           # different drive (windows)
+        rel = ".."
+    if rel.startswith("..") or not rel.endswith(".py"):
+        mid = None
+    else:
+        mid = f"{PACKAGE}." + rel[:-3].replace(os.sep, ".")
+        if mid.endswith(".__init__"):
+            mid = mid[: -len(".__init__")]
+    _module_ids[filename] = mid
+    return mid
+
+
+def _file_qualnames(filename):
+    qn = _qualnames.get(filename)
+    if qn is None:
+        try:
+            with open(filename, encoding="utf-8") as f:
+                tree = ast.parse(f.read())
+            qn = qualname_index(tree)
+        except (OSError, SyntaxError):
+            qn = {}
+        _qualnames[filename] = qn
+    return qn
+
+
+def site_id(module, qualname, code):
+    return f"{module}:{qualname}:{code}"
+
+
+def note(code):
+    """Called by ``FDBError.__init__`` when the witness is on: walk out
+    of core/errors.py to the fabrication frame and bump its counter."""
+    try:
+        frame = sys._getframe(2)  # note -> __init__ -> caller
+    except ValueError:
+        return
+    while frame is not None:
+        fn = frame.f_code.co_filename
+        if fn == _ERRORS_FILE or fn == _SELF_FILE or \
+                frame.f_code.co_name in _SKIP_CO_NAMES:
+            frame = frame.f_back
+            continue
+        break
+    if frame is None:
+        return
+    filename = frame.f_code.co_filename
+    module = _module_id(filename)
+    if module is None or module in EXCLUDED_MODULES or \
+            module.startswith(_EXCLUDED_PREFIXES):
+        return
+    # module-level raises have co_firstlineno 1 and co_name "<module>"
+    # — the fallback is already the right owner label
+    qualname = _file_qualnames(filename).get(
+        frame.f_code.co_firstlineno, frame.f_code.co_name)
+    site = f"{module}:{qualname}:{code}"
+    _counts[site] = _counts.get(site, 0) + 1
+
+
+def fired():
+    """Frozen set of site ids that fired so far."""
+    return frozenset(_counts)
+
+
+def counts():
+    """``{site id: fire count}`` snapshot (counts approximate under
+    real threads, exact under the single-threaded sim)."""
+    return dict(_counts)
+
+
+def fired_codes():
+    """Frozen set of int error codes that fired so far."""
+    out = set()
+    for site in _counts:
+        try:
+            out.add(int(site.rsplit(":", 1)[1]))
+        except ValueError:
+            continue
+    return frozenset(out)
+
+
+def witness_doc():
+    """Canonical JSON witness: sorted site->count map, no timestamps —
+    two same-seed sim runs produce byte-identical documents."""
+    doc = {"fired": {site: _counts[site] for site in sorted(_counts)}}
+    return json.dumps(doc, sort_keys=True, separators=(",", ":"))

@@ -247,8 +247,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     storage router, the ratekeeper, the system keys, the client
     transaction, the observability modules (lock witness, metrics,
     spans, heatmaps, device profile, history, the doctor, the consistency
-    scan and check) and the package's ``open`` by name, then every
-    module of the package."""
+    scan and check), the simulator, the special keys, the metacluster
+    and the fault-coverage witness, and the package's ``open`` by name,
+    then every module of the package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -276,6 +277,14 @@ def test_port_imports_without_jax_or_the_jax_package():
         "import foundationdb_tpu_torch.server.health\n"
         "import foundationdb_tpu_torch.server.consistencyscan\n"
         "import foundationdb_tpu_torch.server.consistency\n"
+        "import foundationdb_tpu_torch.sim\n"
+        "import foundationdb_tpu_torch.sim.buggify\n"
+        "import foundationdb_tpu_torch.sim.network\n"
+        "import foundationdb_tpu_torch.sim.simulation\n"
+        "import foundationdb_tpu_torch.sim.workloads\n"
+        "import foundationdb_tpu_torch.txn.specialkeys\n"
+        "import foundationdb_tpu_torch.layers.metacluster\n"
+        "import foundationdb_tpu_torch.utils.faultcov\n"
         "assert callable(open) and callable(transactional)\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
@@ -288,7 +297,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 54
+    assert int(out.stdout.strip()) >= 76
 
 
 @pytest.mark.parametrize("name", sorted(workloads.STREAMS))

@@ -4,7 +4,9 @@ replication, the ratekeeper and the system keys
 test_torch_systemkeys.py), of regions, change feeds and the layers
 (test_torch_regions.py, test_torch_changefeed.py,
 test_torch_layers.py) and of observability (test_torch_observability.py,
-test_torch_health.py, test_torch_status.py): each test writes its script
+test_torch_health.py, test_torch_status.py), of the simulator, special
+keys and the metacluster (test_torch_simulation.py,
+test_torch_specialkeys.py, test_torch_metacluster.py): each test writes its script
 once against a ``Side`` and runs it on the JAX package and on the port
 (its cluster on ``device="cpu"``), then compares what the two returned,
 at tolerance 0.
@@ -24,6 +26,7 @@ from foundationdb_tpu.core.errors import FDBError as JError
 from foundationdb_tpu.core.keys import KeySelector as JSelector
 from foundationdb_tpu.core.mutations import Mutation as JMutation
 from foundationdb_tpu.core.mutations import Op as JOp
+from foundationdb_tpu.layers import metacluster as jmetacluster
 from foundationdb_tpu.layers import subspace as jsubspace
 from foundationdb_tpu.layers import tenant as jtenant
 from foundationdb_tpu.layers import tuple as jtuple
@@ -41,7 +44,13 @@ from foundationdb_tpu.server.sequencer import Sequencer as JSequencer
 from foundationdb_tpu.server.storage import StorageServer as JStorage
 from foundationdb_tpu.server import consistencyscan as jconsistencyscan
 from foundationdb_tpu.server import health as jhealth
+from foundationdb_tpu.sim import buggify as jbuggify
+from foundationdb_tpu.sim import network as jnetwork
+from foundationdb_tpu.sim import simulation as jsimulation
+from foundationdb_tpu.sim import workloads as jworkloads
+from foundationdb_tpu.txn import specialkeys as jspecialkeys
 from foundationdb_tpu.utils import deviceprofile as jdeviceprofile
+from foundationdb_tpu.utils import faultcov as jfaultcov
 from foundationdb_tpu.utils import heatmap as jheatmap
 from foundationdb_tpu.utils import lockdep as jlockdep
 from foundationdb_tpu.utils import metrics as jmetrics
@@ -56,6 +65,7 @@ from foundationdb_tpu_torch.core.errors import FDBError as TError
 from foundationdb_tpu_torch.core.keys import KeySelector as TSelector
 from foundationdb_tpu_torch.core.mutations import Mutation as TMutation
 from foundationdb_tpu_torch.core.mutations import Op as TOp
+from foundationdb_tpu_torch.layers import metacluster as tmetacluster
 from foundationdb_tpu_torch.layers import subspace as tsubspace
 from foundationdb_tpu_torch.layers import tenant as ttenant
 from foundationdb_tpu_torch.layers import tuple as ttuple
@@ -73,7 +83,13 @@ from foundationdb_tpu_torch.server.sequencer import Sequencer as TSequencer
 from foundationdb_tpu_torch.server.storage import StorageServer as TStorage
 from foundationdb_tpu_torch.server import consistencyscan as tconsistencyscan
 from foundationdb_tpu_torch.server import health as thealth
+from foundationdb_tpu_torch.sim import buggify as tbuggify
+from foundationdb_tpu_torch.sim import network as tnetwork
+from foundationdb_tpu_torch.sim import simulation as tsimulation
+from foundationdb_tpu_torch.sim import workloads as tworkloads
+from foundationdb_tpu_torch.txn import specialkeys as tspecialkeys
 from foundationdb_tpu_torch.utils import deviceprofile as tdeviceprofile
+from foundationdb_tpu_torch.utils import faultcov as tfaultcov
 from foundationdb_tpu_torch.utils import heatmap as theatmap
 from foundationdb_tpu_torch.utils import lockdep as tlockdep
 from foundationdb_tpu_torch.utils import metrics as tmetrics
@@ -104,7 +120,9 @@ JAX = Side("jax", cluster=JCluster, request=JRequest, error=JError,
            metrics=jmetrics, span=jspan, heatmap=jheatmap,
            deviceprofile=jdeviceprofile, timeseries=jtimeseries,
            health=jhealth, consistencyscan=jconsistencyscan, trace=jtrace,
-           lockdep=jlockdep,
+           lockdep=jlockdep, simulation=jsimulation, workloads=jworkloads,
+           buggify=jbuggify, network=jnetwork, faultcov=jfaultcov,
+           specialkeys=jspecialkeys, metacluster=jmetacluster,
            state=lambda c: [np.asarray(f) for f in c.resolvers[0].state])
 PORT = Side("port", cluster=functools.partial(TCluster, device="cpu"),
             request=TRequest, error=TError, selector=TSelector,
@@ -117,7 +135,9 @@ PORT = Side("port", cluster=functools.partial(TCluster, device="cpu"),
             metrics=tmetrics, span=tspan, heatmap=theatmap,
             deviceprofile=tdeviceprofile, timeseries=ttimeseries,
             health=thealth, consistencyscan=tconsistencyscan, trace=ttrace,
-            lockdep=tlockdep,
+            lockdep=tlockdep, simulation=tsimulation, workloads=tworkloads,
+            buggify=tbuggify, network=tnetwork, faultcov=tfaultcov,
+            specialkeys=tspecialkeys, metacluster=tmetacluster,
             state=lambda c: list(state_to_numpy(c.resolvers[0].state)))
 SIDES = (JAX, PORT)
 
