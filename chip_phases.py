@@ -17,8 +17,9 @@ chip_smoke.py logs after its work, so a phase's seconds are its work's.
 A line without a tag is charged to the tag before it.
 Every line of phase 17 (the simulator, the special keys and the
 metacluster) carries the tag ``simulation``, every line of phase 18
-(the fdbserver processes over RPC) the tag ``rpc``, and every line of
-phase 19 (the operator tools) the tag ``tools``.
+(the fdbserver processes over RPC) the tag ``rpc``, every line of
+phase 19 (the operator tools) the tag ``tools``, and every line of
+phase 20 (flowlint and the fault-coverage probe) the tag ``faultcov``.
 
 Writes each run's stamped output to DIR/phases_<i>.log (by default
 foundationdb_tpu_torch/build/phases, which git ignores), prints one

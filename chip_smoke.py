@@ -300,9 +300,25 @@ Phases:
      neither libtorch nor libcuda and prints the tool's pure function of
      the documents it fetched. fused_accept's ``tools`` launches are
      (a)'s and the server's, by its profile (routes plus pads).
+ 20. flowlint and the fault-coverage witness, every line tagged
+     ``faultcov``: (a) ``python -m foundationdb_tpu_torch.analysis.flowlint
+     --json`` over the port's tree in a child that maps neither libtorch
+     nor libcuda: exit 0, no finding, each rule's ms; (b) ``faultcov
+     --probe --json`` (the reference's chaos probe, seed 11: buggified
+     proxies, crash_p 0.01, 4 machines) twice on cuda:0 in this process:
+     no violation against the port's faultsites.txt, byte-identical
+     snapshots, card memory after every crash or machine reboot and at
+     the end of each run within FAULTCOV_MEMORY_SLACK of the first,
+     fused_accept launched, every dispatch a replay; (c) ``--snapshot``
+     of (b)'s witness in a child without torch: (b)'s report; and the
+     same probe with ``--device cpu`` in a child that sees no card,
+     started at the phase's start: its snapshot byte-identical to the
+     card's. ``parallel/distributed.py``: ``initialize()`` with no
+     address is ``(0, 1)`` and ``fleet_mesh()`` one process of lanes
+     only (one card: no cross-card run).
 
 Every Resolver step runs as a CUDA graph replay (ops/conflict.StaticStep).
-Each of phases 4, 5, 8, 9, 10, 12, 14, 15, 16, 17 and 19 zeroes the graph
+Each of phases 4, 5, 8, 9, 10, 12, 14, 15, 16, 17, 19 and 20 zeroes the graph
 counts with the launch counts and checks after its drive that it
 captured, that every dispatch was a replay, and that no resolver step
 ran eagerly on the card (a wrapper counts calls of the eager steps on card tensors outside
@@ -5439,6 +5455,222 @@ def phase_tools():
     return report, launches
 
 
+
+FAULTCOV_SEED = 11  # the reference's canonical chaos probe
+FAULTCOV_MEMORY_SLACK = 0.05
+# the probe's --device cpu twin runs the plain step at T=1024 on every
+# core: about 160-170 s on the card machine, so it starts with the phase
+# and runs beside (a)-(c). Started after phase 6 instead, niced on 4
+# threads, it cut phase 9's range stream to 0.55x of its rate in the
+# same run (PERF.md, PR 16): the host-bound phases share those cores
+FAULTCOV_CPU_TIMEOUT_S = 600
+# (a) and (c): a child that runs one of the port's client modules and,
+# after it, records its exit code, whether torch is loaded and whether
+# libtorch or libcuda is mapped (/proc/<pid>/maps of itself)
+FAULTCOV_CHILD = """
+import json, runpy, sys
+out, module, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+sys.argv = [module] + argv
+rc = 0
+try:
+    runpy.run_module(module, run_name="__main__")
+except SystemExit as e:
+    rc = e.code or 0
+with open("/proc/self/maps") as f:
+    maps = f.read()
+with open(out, "w") as f:
+    json.dump({"rc": rc, "torch": "torch" in sys.modules,
+               "libtorch": "libtorch" in maps,
+               "libcuda": "libcuda" in maps}, f)
+"""
+
+
+def faultcov_child(d, name, module, *args, env=None):
+    """Start FAULTCOV_CHILD on ``module``; returns (process, out path)."""
+    out = os.path.join(d, f"{name}.json")
+    p = subprocess.Popen(
+        [sys.executable, "-c", FAULTCOV_CHILD, out, module, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, **(env or {})))
+    return p, out
+
+
+def faultcov_wait(p, out, timeout, name):
+    """A child's stdout and record, once it has ended."""
+    stdout, stderr = p.communicate(timeout=timeout)
+    assert p.returncode == 0, (name, p.returncode, stderr[-2000:])
+    with open(out) as f:
+        return stdout, json.load(f)
+
+
+def faultcov_lint(d):
+    """(a): flowlint over the port's tree in a child that loads no torch:
+    exit 0, no finding, each rule's ms."""
+    t0 = time.perf_counter()
+    p, out = faultcov_child(d, "lint", "foundationdb_tpu_torch.analysis.flowlint",
+                            "--json")
+    stdout, seen = faultcov_wait(p, out, 300, "flowlint")
+    secs = time.perf_counter() - t0
+    doc = json.loads(stdout)
+    assert seen["rc"] == 0 and doc["new"] == [] and doc["total"] == 0, doc
+    assert not (seen["torch"] or seen["libtorch"] or seen["libcuda"]), seen
+    walls = doc["rule_wall_ms"]
+    assert len(walls) == 11, walls
+    total = sum(walls.values())
+    log(f"[faultcov lint] python -m foundationdb_tpu_torch.analysis.flowlint: "
+        f"exit 0, {doc['total']} findings, rules {total:.2f} ms ("
+        + ", ".join(f"{r} {ms:.2f}" for r, ms in sorted(walls.items()))
+        + f"), {secs:.3f} s in a child that maps neither libtorch nor "
+        "libcuda")
+    return dict(findings=doc["total"], rule_wall_ms=walls,
+                rules_ms=total, seconds=secs)
+
+
+def faultcov_probe(path):
+    """One ``faultcov --probe --json --save path`` on cuda:0 in this
+    process, with the card memory after every crash or machine reboot
+    and after the run: (report, seconds, recovery events, memory)."""
+    import io
+
+    from foundationdb_tpu_torch.sim.simulation import Simulation
+    from foundationdb_tpu_torch.tools import faultcov as tool
+
+    events, mem = [], []
+    wrapped = {}
+    for name in ("crash_and_recover", "reboot_machine", "quiesce"):
+        def hook(self, *a, _f=getattr(Simulation, name), _n=name, **kw):
+            out = _f(self, *a, **kw)
+            if _n != "quiesce":
+                events.append((_n, self.steps))
+            mem.append(card_bytes())
+            return out
+
+        wrapped[name] = getattr(Simulation, name)
+        setattr(Simulation, name, hook)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(["--probe", "--seed", str(FAULTCOV_SEED), "--json",
+                            "--save", path])
+    finally:
+        for name, f in wrapped.items():
+            setattr(Simulation, name, f)
+    secs = time.perf_counter() - t0
+    rep = json.loads(buf.getvalue())
+    assert rc == 0 and rep["violations"] == [], rep["violations"]
+    return rep, secs, events, mem
+
+
+def phase_faultcov():
+    """Phase 20 on the card: flowlint and the fault-coverage witness.
+    (b)'s launch and graph counts are zeroed at its start."""
+    from foundationdb_tpu_torch.ops import _kernels
+    from foundationdb_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="fdb-faultcov-")
+    report = {}
+    # the CPU twin of the probe, in a child that sees no card
+    cpu_snap = os.path.join(d, "cpu.json")
+    cpu, cpu_out = faultcov_child(
+        d, "cpu-probe", "foundationdb_tpu_torch.tools.faultcov", "--probe",
+        "--seed", str(FAULTCOV_SEED), "--device", "cpu", "--json", "--save",
+        cpu_snap, env={"CUDA_VISIBLE_DEVICES": ""})
+    try:
+        report["lint"] = faultcov_lint(d)
+        reset_counts()
+        base = card_bytes()
+        probes, snaps = [], []
+        for i in range(2):
+            path = os.path.join(d, f"card-{i}.json")
+            rep, secs, events, mem = faultcov_probe(path)
+            gc.collect()
+            probes.append(dict(seconds=secs, events=events, memory=mem,
+                               after=card_bytes(), report=rep))
+            with open(path) as f:
+                snaps.append(f.read())
+        launches = dict(_kernels.launches)
+        report["graphs"] = graph_report("faultcov probe")
+        assert snaps[0] == snaps[1], "same-seed card probes differ"
+        assert probes[0]["report"] == probes[1]["report"]
+        rep = probes[0]["report"]
+        mem = [m for p in probes for m in p["memory"]]
+        assert all(abs(m - mem[0]) <= FAULTCOV_MEMORY_SLACK * mem[0]
+                   for m in mem), mem
+        assert launches["fused_accept"] > 0, launches
+        crashes = [e for e in probes[0]["events"]
+                   if e[0] == "crash_and_recover"]
+        reboots = [e for e in probes[0]["events"] if e[0] == "reboot_machine"]
+        for i, p in enumerate(probes):
+            log(f"[faultcov probe] card run {i + 1}: {p['seconds']:.3f} s, "
+                f"{len(p['events'])} crashes and machine reboots, card "
+                f"bytes {p['memory']} (after each and at the end), "
+                f"{p['after']} after the cluster closed (before: {base})")
+        log(f"[faultcov probe] seed {FAULTCOV_SEED} on the card twice: "
+            f"byte-identical snapshots ({len(snaps[0])} bytes); "
+            f"{len(crashes)} crashes, {len(reboots)} machine reboots; "
+            f"{report['graphs']['captures']} captures; sites fired "
+            f"{rep['sites_fired']} of {rep['sites_total']} "
+            f"({rep['coverage_pct']}%), {len(rep['violations'])} violations; "
+            f"fired {rep['fired_counts']}; launches {launches}")
+        # (c): the snapshot read back in a process without torch
+        t0 = time.perf_counter()
+        p, out = faultcov_child(
+            d, "snapshot", "foundationdb_tpu_torch.tools.faultcov",
+            "--snapshot", os.path.join(d, "card-0.json"), "--json")
+        stdout, seen = faultcov_wait(p, out, 300, "faultcov --snapshot")
+        snap_s = time.perf_counter() - t0
+        assert seen["rc"] == 0, seen
+        assert not (seen["torch"] or seen["libtorch"] or seen["libcuda"]), seen
+        assert json.loads(stdout) == rep, "snapshot report != probe report"
+        log(f"[faultcov snapshot] --snapshot of the card's witness in "
+            f"{snap_s:.3f} s, in a child without torch, libtorch or "
+            "libcuda: the probe's report")
+        # the CPU twin
+        t0 = time.perf_counter()
+        stdout, seen = faultcov_wait(cpu, cpu_out, FAULTCOV_CPU_TIMEOUT_S,
+                                     "faultcov --probe --device cpu")
+        waited = time.perf_counter() - t0
+        twin_s = time.perf_counter() - t_phase
+        with open(cpu_snap) as f:
+            cpu_doc = f.read()
+        assert seen["rc"] == 0, seen
+        assert cpu_doc == snaps[0], "card probe != CPU probe"
+        assert json.loads(stdout) == rep
+        log(f"[faultcov cpu] the device='cpu' probe in a child without the "
+            f"card: its snapshot byte-identical to the card's ({twin_s:.3f} "
+            f"s from the phase's start; waited {waited:.3f} s for it after "
+            "(a)-(c))")
+        # parallel/distributed.py on one card: one process, lanes only
+        idx = distributed.initialize()
+        fleet = distributed.fleet_mesh()
+        assert idx == (0, 1), idx
+        assert fleet.axis_names == (distributed.AXIS,) and fleet.size == 1
+        log(f"[faultcov distributed] initialize() with no address: {idx}; "
+            f"fleet_mesh(): {tuple(fleet.shape)} over {fleet.axis_names}; "
+            "no cross-card run (one card)")
+        report.update(
+            probe_s=[p["seconds"] for p in probes], crashes=len(crashes),
+            reboots=len(reboots), sites_fired=rep["sites_fired"],
+            sites_total=rep["sites_total"], violations=len(rep["violations"]),
+            card_bytes=[p["memory"] for p in probes],
+            card_bytes_after=[p["after"] for p in probes],
+            card_bytes_before=base, snapshot_s=snap_s, cpu_wait_s=waited,
+            cpu_twin_s=twin_s, launches=launches, process=list(idx))
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait(30)
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[faultcov] phase 20 took {report['seconds']:.3f} s")
+    return report, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5516,6 +5748,8 @@ def main():
         pipeline_report_["range"]["committed_txns_per_s"])
     gc.collect()
     tools_report, tools_launches = phase_tools()
+    gc.collect()
+    faultcov_report, faultcov_launches = phase_faultcov()
 
     kernels = []
     for name, src, replaces in (
@@ -5541,7 +5775,8 @@ def main():
                    "simulation": sim_launches[name],
                    "metacluster": meta_launches[name],
                    "rpc": rpc_launches[name],
-                   "tools": tools_launches.get(name, 0)}
+                   "tools": tools_launches.get(name, 0),
+                   "faultcov": faultcov_launches.get(name, 0)}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -5559,17 +5794,20 @@ def main():
                    replication=repl_report, regions=region_report,
                    observability=obs_report, simulation=sim_report,
                    rpc=rpc_report, tools=tools_report,
+                   faultcov=faultcov_report,
                    seconds=time.perf_counter() - t_start)
     log("[summary] " + json.dumps(summary))
     log(f"[total] chip_smoke.py took {summary['seconds']:.3f} s, phase 10a "
         f"{sharded_report['range']['seconds']:.3f} s, phase 16 "
         f"{obs_report['seconds']:.3f} s, phase 17 "
         f"{sim_report['seconds']:.3f} s, phase 18 "
-        f"{rpc_report['seconds']:.3f} s and phase 19 "
-        f"{tools_report['seconds']:.3f} s of it")
+        f"{rpc_report['seconds']:.3f} s, phase 19 "
+        f"{tools_report['seconds']:.3f} s and phase 20 "
+        f"{faultcov_report['seconds']:.3f} s of it")
     paths = {"fused_accept": ("main", "cluster", "pipeline", "recovery",
                               "replication", "regions", "observability",
-                              "simulation", "metacluster", "rpc", "tools"),
+                              "simulation", "metacluster", "rpc", "tools",
+                              "faultcov"),
              "ring_hits": ("ring_route",),
              "accept_sweep": ("main", "ring_route",
                               "sharded_and_partitioned", "regions")}

@@ -61,13 +61,27 @@ RETRYABLE = frozenset({1007, 1009, 1020, 1021, 1037, 1213, 2144})
 MAYBE_COMMITTED = frozenset({1021})
 
 
+def registered_codes():
+    """Frozen set of every registered error code (FL009's ground truth
+    for numeric codes crossing the wire)."""
+    return frozenset(_ERRORS)
+
+
+def registered_names():
+    """Frozen set of every registered symbolic error name."""
+    return frozenset(_BY_NAME)
+
+
 def code_for(name):
     """The registered code for a symbolic name; ValueError naming the
     symbol when it is not registered."""
     try:
         return _BY_NAME[name]
     except KeyError:
-        raise ValueError(f"unknown FDB error name {name!r}") from None
+        raise ValueError(
+            f"unknown FDB error name {name!r} — register it in "
+            f"core/errors.py"
+        ) from None
 
 
 def error_name(code):

@@ -106,22 +106,22 @@ def parse_cluster_file(path):
 # ───────────────────────────── knobs document ────────────────────────────
 # the port's kernel switches under the reference's names, so the JAX
 # package's client can build its own Knobs from a port server's document
-_KNOB_WIRE_NAMES = {"accept_kernel": "pallas_scan",
-                    "ring_kernel": "pallas_ring"}
-_KNOB_PORT_NAMES = {w: p for p, w in _KNOB_WIRE_NAMES.items()}
+_WIRE_NAME_OF = {"accept_kernel": "pallas_scan",
+                 "ring_kernel": "pallas_ring"}
+_PORT_NAME_OF = {w: p for p, w in _WIRE_NAME_OF.items()}
 _KNOB_FIELDS = frozenset(f.name for f in dataclasses.fields(Knobs))
 
 
 def knobs_to_wire(knobs):
     """A Knobs as the ``knobs`` endpoint's document."""
-    return {_KNOB_WIRE_NAMES.get(k, k): v
+    return {_WIRE_NAME_OF.get(k, k): v
             for k, v in dataclasses.asdict(knobs).items()}
 
 
 def knobs_from_wire(doc):
     """The Knobs a ``knobs`` document describes: the kernel switches
     under this package's names, fields this package lacks dropped."""
-    kw = {_KNOB_PORT_NAMES.get(k, k): v for k, v in doc.items()}
+    kw = {_PORT_NAME_OF.get(k, k): v for k, v in doc.items()}
     return Knobs(**{k: v for k, v in kw.items() if k in _KNOB_FIELDS})
 
 

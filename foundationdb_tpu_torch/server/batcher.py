@@ -50,13 +50,6 @@ from foundationdb_tpu_torch.utils.trace import SEV_ERROR, StageStats, TraceEvent
 _UNSET = object()
 
 
-def _log_batch_error(phase, e):
-    """A failed batch's root cause in the trace (its futures answer
-    1021 or the error itself)."""
-    TraceEvent("CommitBatchError", severity=SEV_ERROR).detail(
-        phase=phase, etype=type(e).__name__, error=str(e)[:200]).log()
-
-
 class CommitFuture:
     """Resolves to a commit version (int) or an FDBError.
 
@@ -152,9 +145,11 @@ class BatchingCommitProxy:
         self.batches_committed = 0
         self.txns_batched = 0
         self.max_batch_seen = 0
+        # flowlint: shared(last-writer-wins debug breadcrumb; readers only poll it)
         self.last_batch_error = None  # the last failure's exception
         # AIMD target: an int written by one thread at a time and read
         # by the next group (staleness is harmless)
+        # flowlint: shared(AIMD heuristic target; GIL-atomic int, staleness is benign)
         self._backlog_target = self.MAX_BACKLOG
         self._thread = None
         # bounded commit pipeline (thread mode only): up to ``depth``
@@ -298,7 +293,10 @@ class BatchingCommitProxy:
                     try:
                         eligible = self.inner.pipeline_eligible(reqs)
                     except Exception as e:
-                        _log_batch_error("eligibility", e)
+                        TraceEvent("CommitBatchError",
+                                   severity=SEV_ERROR).detail(
+                            phase="eligibility", etype=type(e).__name__,
+                            error=str(e)[:200]).log()
                         self._fail_chunks(group, e)
                         continue
                     if eligible:
@@ -309,7 +307,10 @@ class BatchingCommitProxy:
                         except Exception as e:
                             # begin died outside its own guards: the
                             # futures still resolve
-                            _log_batch_error("pipeline_begin", e)
+                            TraceEvent("CommitBatchError",
+                                       severity=SEV_ERROR).detail(
+                                phase="pipeline_begin", etype=type(e).__name__,
+                                error=str(e)[:200]).log()
                             self._fail_chunks(group, e)
                         continue
                 # serial route: in-flight groups settle first, or this
@@ -318,7 +319,10 @@ class BatchingCommitProxy:
                 try:
                     results_list = self.inner.commit_batches(reqs)
                 except Exception as e:
-                    _log_batch_error("backlog", e)
+                    TraceEvent("CommitBatchError",
+                               severity=SEV_ERROR).detail(
+                        phase="backlog", etype=type(e).__name__,
+                        error=str(e)[:200]).log()
                     self._fail_chunks(group, e)
                     continue
                 self._settle_group(group, results_list)
@@ -331,7 +335,10 @@ class BatchingCommitProxy:
                     # never propagate: every future must resolve, and the
                     # remaining chunks still get their turn; the chunk
                     # may or may not be durable — 1021
-                    _log_batch_error("batch", e)
+                    TraceEvent("CommitBatchError",
+                               severity=SEV_ERROR).detail(
+                        phase="batch", etype=type(e).__name__,
+                        error=str(e)[:200]).log()
                     self._fail_chunks([chunk], e)
                     continue
                 self._settle_group([chunk], [results])
@@ -576,7 +583,10 @@ class BatchingCommitProxy:
                 try:
                     self._run_batch(pending)
                 except Exception as e:  # last resort: keep the thread up
-                    _log_batch_error("batcher_loop", e)
+                    TraceEvent("CommitBatchError",
+                               severity=SEV_ERROR).detail(
+                        phase="batcher_loop", etype=type(e).__name__,
+                        error=str(e)[:200]).log()
                     self.last_batch_error = e
 
     def fail_pending(self, error):

@@ -190,12 +190,17 @@ class ConsistencyScanner:
         # jittered cadence off the named deterministic stream: same-seed
         # runs draw the same batches at the same steps
         self._rng = deterministic.rng("consistency-scan")
+        # flowlint: shared(single-driver protocol: thread mode scans ONLY from the daemon loop, sims ONLY from their scheduler — never both, one writer at a time)
         self._next_due = None
+        # flowlint: shared(advanced only by the single scan driver; status() and the persist path only read it)
         self._cursor = b""
+        # flowlint: shared(round-start stamp: written only by the single scan driver, like _cursor)
         self._round_started = None
         self._started_at = deterministic.now()
         self._last_round_at = None
+        # flowlint: shared(last-writer-wins breadcrumb; the doctor only polls it)
         self.last_error = None
+        # flowlint: shared(bounded sample list, rebound whole by the single scan driver; readers copy)
         self.errors = []  # bounded confirmed-inconsistency sample
         self._stop = threading.Event()
         self._thread = None

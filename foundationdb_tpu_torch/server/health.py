@@ -81,7 +81,9 @@ class LatencyProber:
         # jittered cadence off the named deterministic stream: same-seed
         # runs draw the same offsets, real fleets de-align
         self._rng = deterministic.rng("latency-probe")
+        # flowlint: shared(single-driver protocol: thread mode probes ONLY from the daemon loop, sims ONLY from their scheduler — never both, one writer at a time)
         self._next_due = None
+        # flowlint: shared(last-writer-wins breadcrumb; the doctor only polls it)
         self.last_error = None  # last failed probe's error code
         self._stop = threading.Event()
         self._thread = None

@@ -80,10 +80,6 @@ _STAMPED = (Op.SET_VERSIONSTAMPED_KEY, Op.SET_VERSIONSTAMPED_VALUE)
 REPAIR_COUNTERS = ("repair_attempts", "repair_commits", "repair_fallbacks")
 
 
-def _errors(name, n):
-    return [FDBError.from_name(name) for _ in range(n)]
-
-
 class GateTimeout(Exception):
     """A gate turn no one will take (a peer proxy died between its
     grant and its advance): the fleet is wedged until a txn-system
@@ -359,7 +355,8 @@ class CommitProxy:
             return []
         if not self.alive or not self.sequencer.alive:
             self._note_abort("commit_unknown_result", len(requests))
-            return _errors("commit_unknown_result", len(requests))
+            return [FDBError.from_name("commit_unknown_result")
+                    for _ in requests]
         t0 = (None if self.spans_owned_externally
               or not metrics_mod.enabled() else metrics_mod.now())
         try:
@@ -388,7 +385,7 @@ class CommitProxy:
         gates, and answer 1021 — the batch's fate is unknown."""
         self.kill()
         self._note_abort("commit_unknown_result", n)
-        return _errors("commit_unknown_result", n)
+        return [FDBError.from_name("commit_unknown_result") for _ in range(n)]
 
     def _partition_rejects(self, requests, reject_fn):
         """Per-request admission: ``reject_fn(request)`` names an error
@@ -540,7 +537,8 @@ class CommitProxy:
         except SequencerDown:
             # the kill raced past the entry check: the same 1021
             self._note_abort("commit_unknown_result", len(requests))
-            return _errors("commit_unknown_result", len(requests))
+            return [FDBError.from_name("commit_unknown_result")
+                    for _ in requests]
         window = self._window(cv)
         requests, plan = self._maybe_schedule(requests)
         try:
@@ -565,7 +563,7 @@ class CommitProxy:
             # granted version still consumes its log turn
             self._skip_turns_quiet(prev, cv)
             self._note_abort("not_committed", len(requests))
-            return _errors("not_committed", len(requests))
+            return [FDBError.from_name("not_committed") for _ in requests]
         except GateTimeout:
             raise
         except BaseException:
@@ -674,7 +672,7 @@ class CommitProxy:
         except SequencerDown:
             self._note_abort("commit_unknown_result",
                              sum(len(r) for r in request_batches))
-            return [_errors("commit_unknown_result", len(reqs))
+            return [[FDBError.from_name("commit_unknown_result") for _ in reqs]
                     for reqs in request_batches]
         first_prev, last_cv = pairs[0][0], pairs[-1][1]
         try:
@@ -698,7 +696,7 @@ class CommitProxy:
             self._skip_turns_quiet(first_prev, last_cv)
             self._note_abort("not_committed",
                              sum(len(r) for r in request_batches))
-            return [_errors("not_committed", len(reqs))
+            return [[FDBError.from_name("not_committed") for _ in reqs]
                     for reqs in request_batches]
         except BaseException:
             # resolve_many touches no gate: skip the owed log turn
@@ -769,7 +767,7 @@ class CommitProxy:
 
         def err_1021():
             self._note_abort("commit_unknown_result", n_total)
-            return [_errors("commit_unknown_result", len(reqs))
+            return [[FDBError.from_name("commit_unknown_result") for _ in reqs]
                     for reqs in request_batches]
 
         try:
@@ -812,8 +810,9 @@ class CommitProxy:
         except ResolverDown:
             # definitively not committed; the log turn is still owed
             self._note_abort("not_committed", n_total)
-            group.results_list = [_errors("not_committed", len(reqs))
-                                  for reqs in request_batches]
+            group.results_list = [
+                [FDBError.from_name("not_committed") for _ in reqs]
+                for reqs in request_batches]
             return group
         except Exception as e:
             group.error = e
@@ -842,7 +841,7 @@ class CommitProxy:
             group.error = e
             self._note_abort("commit_unknown_result", sum(
                 len(reqs) for reqs in group.request_batches))
-            return [_errors("commit_unknown_result", len(reqs))
+            return [[FDBError.from_name("commit_unknown_result") for _ in reqs]
                     for reqs in group.request_batches]
         group.resolve_s = time.perf_counter() - t0
         t1 = time.perf_counter()
@@ -852,7 +851,8 @@ class CommitProxy:
                 self._skip_turns_quiet(group.first_prev, group.last_cv)
                 self._note_abort("commit_unknown_result", sum(
                     len(reqs) for reqs in group.request_batches))
-                return [_errors("commit_unknown_result", len(reqs))
+                return [[FDBError.from_name("commit_unknown_result")
+                         for _ in reqs]
                         for reqs in group.request_batches]
             try:
                 if self.log_gate is not None:

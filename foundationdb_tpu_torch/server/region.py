@@ -251,6 +251,7 @@ class RegionReplicator:
         self._rng = deterministic.rng("region-stream")
         # one streamer at a time: the daemon loop in thread mode, the
         # caller's schedule otherwise
+        # flowlint: shared(single-driver protocol: thread mode streams ONLY from the region-streamer daemon, sims ONLY from their scheduler — never both, one writer at a time)
         self._next_due = None
         self._caught_up_at = deterministic.now()
         self._stop = threading.Event()

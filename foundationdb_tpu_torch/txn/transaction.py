@@ -635,6 +635,8 @@ class Transaction:
             raise err("transaction_too_large")
 
     def set(self, key, value):
+        # the hottest client call: _log_mutation is inlined, as in the
+        # reference, so a too-large set fabricates its 2101 here
         self._guard()
         key = _check_key(key, self._knobs.key_size_limit)
         value = _check_value(value, self._knobs.value_size_limit)
@@ -642,7 +644,10 @@ class Transaction:
             specialkeys.write(self, key, value)
             return
         self._writes.set(key, value)
-        self._log_mutation(Mutation(Op.SET, key, value))
+        self._mutation_log.append(Mutation(Op.SET, key, value))
+        self._size += len(key) + len(value)
+        if self._size > self._knobs.transaction_size_limit:
+            raise err("transaction_too_large")
         self._add_write_conflict(key, key + b"\x00")
 
     def clear(self, key):

@@ -219,6 +219,7 @@ class HistoryCollector:
         # stream: same-seed runs cut the same windows; a real
         # fleet's collectors never thunder in step
         self._rng = deterministic.rng("history-cadence")
+        # flowlint: shared(single-driver protocol: thread mode collects ONLY from the daemon loop, sims ONLY from their scheduler — never both, one writer at a time)
         self._next_due = None
         self._last_t = None
         # leaf lock: held only while mutating/copying the rings, never

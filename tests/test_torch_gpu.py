@@ -458,6 +458,60 @@ def test_cluster_and_open_raise_without_a_card():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_faultcov_probe_raises_without_a_card():
+    """With no card visible, the chaos probe (``run_probe()`` and the
+    CLI's ``--probe``) raises: it runs on cuda:0 unless asked for the
+    CPU. In a subprocess with CUDA_VISIBLE_DEVICES="", so it holds on
+    any machine."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "from foundationdb_tpu_torch.tools import faultcov\n"
+        "for f in (faultcov.run_probe,\n"
+        "          lambda: faultcov.main(['--probe', '--json'])):\n"
+        "    try:\n"
+        "        f()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('no error without a card')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.gpu
+def test_faultcov_probe_runs_on_the_card_by_default(cuda):
+    """``run_probe()`` with no device argument resolves on cuda:0: its
+    steps are captured and replayed as CUDA graphs there, and every site
+    it fires is in the port's table."""
+    import json
+
+    from foundationdb_tpu_torch.tools import faultcov
+
+    devices = []
+    orig = Resolver.__init__
+
+    def spy(self, *a, **kw):
+        orig(self, *a, **kw)
+        devices.append(self.device)
+
+    Resolver.__init__ = spy
+    ck.reset_graph_counts()
+    try:
+        doc = faultcov.run_probe()
+    finally:
+        Resolver.__init__ = orig
+    assert devices and all(d == cuda for d in devices), devices
+    assert ck.graph_counts["replays"] > 0
+    assert ck.graph_counts["replays"] == ck.graph_counts["dispatches"]
+    rep = faultcov.coverage_report(json.loads(doc)["fired"],
+                                   faultcov.load_table())
+    assert rep["violations"] == [] and rep["sites_fired"] > 0
+
+
 # ── the batching commit pipeline on the card ──
 
 def _range_requests(c, n, seed):

@@ -250,9 +250,12 @@ def test_port_imports_without_jax_or_the_jax_package():
     scan and check), the simulator, the special keys, the metacluster,
     the fault-coverage witness, the RPC stack and the server process,
     the operator tools (fdbcli, backup, doctor, the span and flight
-    readers, the heatmap advisor, benchdiff), and the package's ``open``
-    by name, then every module of the package. The client-side tools
-    (every tool module but the server process) load no ``torch``."""
+    readers, the heatmap advisor, benchdiff), flowlint and its rules,
+    the fault-coverage reporter, the multi-process layout, and the
+    package's ``open`` by name, then every module of the package. The
+    client-side tools (every tool module but the server process) and
+    flowlint load no ``torch``. ``chip_smoke.py`` imports under the same
+    blocks."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys, pkgutil, importlib\n"
@@ -292,6 +295,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "import foundationdb_tpu_torch.rpc.chaos\n"
         "import foundationdb_tpu_torch.rpc.storageworker\n"
         "import foundationdb_tpu_torch.tools.fdbserver\n"
+        "import foundationdb_tpu_torch.analysis.flowlint\n"
+        "import foundationdb_tpu_torch.analysis.rules\n"
+        "import foundationdb_tpu_torch.tools.faultcov\n"
+        "import foundationdb_tpu_torch.parallel.distributed\n"
         "assert callable(open) and callable(transactional)\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
@@ -304,19 +311,33 @@ def test_port_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 93
+    assert int(out.stdout.strip()) >= 111
     tools = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['foundationdb_tpu'] = None\n"
         "for t in ('cli', 'backup', 'doctor', 'tracing', 'heatmap', "
-        "'flight', 'benchdiff'):\n"
+        "'flight', 'benchdiff', 'faultcov'):\n"
         "    importlib.import_module('foundationdb_tpu_torch.tools.' + t)\n"
+        "import foundationdb_tpu_torch.analysis.flowlint\n"
+        "import foundationdb_tpu_torch.analysis.rules\n"
         "print('torch' in sys.modules)\n"
     )
     out = subprocess.run([sys.executable, "-c", tools], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert (out.returncode, out.stdout) == (0, "False\n"), out.stderr
+    # the card's smoke script: imported (not run) with both blocked
+    smoke = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['foundationdb_tpu'] = None\n"
+        "import chip_smoke\n"
+        "chip_smoke.count_eager_steps()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", smoke], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert (out.returncode, out.stdout) == (0, "ok\n"), out.stderr
 
 
 @pytest.mark.parametrize("name", sorted(workloads.STREAMS))
