@@ -14,7 +14,12 @@ Phases:
      a Zipfian mixed batch and on a high-conflict batch, and with the
      ring 40% full also on a pipeline-sized batch (33 live txns of 1024)
      and on resolve_many's zero-txn pad batch, accept_sweep on those
-     batches' conflict matrices (against jacobi_accept); kernel
+     batches' conflict matrices (against jacobi_accept), and lane_pairs
+     on the lanes of 3 range-sharded resolvers (2,392 point and 1,200
+     range slots a side a lane) for a YCSB-A batch (lane 1 live, lanes 0
+     and 2 all padding) and a batch live on every lane in all four
+     relations (against lane_pairs_plain, the index_add_ pair counts),
+     each case's bound from its own inputs; kernel
      and plain times (``ms``, ``plain_ms``) by CUDA events around
      back-to-back calls, which include the host's cost of each call;
   4. the main path: Resolver() with default knobs (accept kernel on,
@@ -77,9 +82,11 @@ Phases:
      counts zeroed first (fused_accept and ring_hits must launch 0 times,
      as the reference runs no Pallas kernel on the mesh or the
      partitioned ring; accept_sweep accepts over their conflict
-     matrix): (a) Cluster(n_resolvers=3) on the card in "range" mode,
-     SHARDED_PRELOAD rows, the range-heavy stream as client requests,
-     12 commit_batch then one commit_batches of 12 (committed txns/s,
+     matrix, and lane_pairs marks its pairs on the "range" lanes, so it
+     must launch in (a) and not in (b)): (a) Cluster(n_resolvers=3) on
+     the card in "range" mode, SHARDED_PRELOAD rows, the range-heavy
+     stream as client requests, 12 commit_batch then one commit_batches
+     of 12 (committed txns/s,
      per-batch p50 / p99 / slowest, the router's per-lane entries and
      chunk factors, the card memory of the lanes' state); (b) the same
      in "hash" mode at a smaller preload and depth; (c) a card and a CPU
@@ -170,8 +177,8 @@ Phases:
      without a capture, card memory within 5%; (d) an async satellite
      on a fresh cluster: lag during a backlog, none after stream_now(),
      every commit at or below the frontier kept across a failover; (e)
-     configure() on (c)'s promoted cluster: 3 lanes (accept_sweep, no
-     fused_accept), 1 (fused_accept again), 3 again (card memory within
+     configure() on (c)'s promoted cluster: 3 lanes (accept_sweep and
+     lane_pairs, no fused_accept), 1 (fused_accept again, no lane_pairs), 3 again (card memory within
      5% of the first 3-lane resize's), 1, commit_proxies=3, the same
      call (no recovery), regions off (the row cleared), each resize's
      recovery ms and first commit; (f) TENANTS tenants in mode
@@ -556,7 +563,9 @@ def dynamic_smem(p):
     return {"ring_hits_kernel": ring_walk, "accept_ring_kernel": ring_walk,
             "accept_pairs_kernel": pairs, "accept_pack_kernel": 0,
             # accept.cu sweep_smem_words: 4 word arrays and the staged rows
-            "accept_sweep_kernel": 4 * (4 * nw + nw * (T | 1))}
+            "accept_sweep_kernel": 4 * (4 * nw + nw * (T | 1)),
+            # lanes.cu's slot tile is static shared memory: ptxas reports it
+            "lane_pairs_kernel": 0}
 
 
 FULL_RING_BATCHES = 24  # mixed batches after which the 4096-entry ring has wrapped
@@ -680,7 +689,103 @@ def kernel_cases():
                 fn=lambda a=a0, O=O: sweep_accept(a, O),
                 plain=lambda a=a0, O=O: jacobi_accept(a, O),
                 plain_reps=5, cost=lambda a=a0, O=O: sweep_cost(a, O)))
+    try:
+        from foundationdb_tpu_torch.ops.lanes import lane_pairs, lane_pairs_plain
+    except ImportError:  # a tree before the lanes' kernel
+        return params, cases
+    for label, views in lane_batches(params, "cuda").items():
+        for i, v in enumerate(views):
+            cases.append(dict(
+                kernel="lane_pairs", case=f"{label} slice {i}",
+                fn=lambda v=v: lane_pairs(v, T),
+                plain=lambda v=v: lane_pairs_plain(v, T),
+                plain_reps=3, cost=lambda v=v: lane_pairs_cost(v, T)))
     return params, cases
+
+
+def lane_batches(params, device):
+    """The lane views lane_pairs takes (ops/lanes.py) at the default
+    widths under SHARDED_LANES range-sharded lanes, routed as the
+    "range" MeshResolver routes them (ShardRouter at its default
+    headroom: 2,392 point and 1,200 range slots a side a lane at T=1024),
+    for two batches of T txns: "ycsb_a", each txn reading and writing
+    one Zipfian user key (YCSB-A's update), so every key falls in lane 1
+    of the uniform first-limb split, lanes 0 and 2 are all padding and
+    no range slot is live; and "spread", 0-2 point reads, point writes,
+    range reads and range writes a txn over keys of every first byte, so
+    all four relations are live on every lane and most ranges span
+    lanes. Returns {label: [the lane view of each txn slice]}."""
+    from foundationdb_tpu_torch import workloads
+    from foundationdb_tpu_torch.convert import shard_batch_from_numpy
+    from foundationdb_tpu_torch.ops import conflict as ck
+    from foundationdb_tpu_torch.parallel.mesh import lane_view
+    from foundationdb_tpu_torch.resolver.packing import BatchPacker, ShardRouter
+    from foundationdb_tpu_torch.resolver.skiplist import TxnRequest
+
+    T, n = params.txns, SHARDED_LANES
+    rng = np.random.default_rng(SEED + 3)
+    ids = workloads.zipfian_sampler(workloads.NKEYS, workloads.THETA, rng)(T)
+    ycsb = [TxnRequest(read_version=1, point_reads=[workloads.user_key(i)],
+                       point_writes=[workloads.user_key(i)])
+            for i in ids.tolist()]
+    pool = sorted(bytes([b]) + b"k%d" % i
+                  for i, b in enumerate(rng.integers(0, 256, 4096).tolist()))
+
+    def some(f):
+        return [f() for _ in range(int(rng.integers(0, 3)))]
+
+    def key():
+        return pool[int(rng.integers(len(pool)))]
+
+    def span():
+        a, b = sorted(rng.choice(len(pool), 2, replace=False).tolist())
+        return pool[a], pool[b]
+
+    spread = [TxnRequest(read_version=1, point_reads=some(key),
+                         point_writes=some(key), range_reads=some(span),
+                         range_writes=some(span)) for _ in range(T)]
+    packer = BatchPacker(params, use_native=False)
+    router = ShardRouter(params, n)
+    out = {}
+    for label, txns in (("ycsb_a", ycsb), ("spread", spread)):
+        b = packer.pack(txns, 0, 50, 0)
+        stacked = ck.ResolveBatch(*(np.stack([np.asarray(f)]) for f in b))
+        sb, k, counts = router.split(stacked)
+        sb = shard_batch_from_numpy(sb, device)
+        views = [lane_view(ck.ShardBatch(*(f[i] for f in sb)), n)
+                 for i in range(sb.rv.shape[0])]
+        v = views[0]
+        live = {s: getattr(v, s + "_mask").sum(1).tolist()
+                for s in ("pw", "pr", "rr", "rw")}
+        log(f"[lanes {label}] T={T} n={n} k={k} slots a lane pw/pr/rr/rw "
+            f"{v.pw_txn.shape[1]}/{v.pr_txn.shape[1]}/{v.rr_txn.shape[1]}/"
+            f"{v.rw_txn.shape[1]}; live slots of slice 0 by lane {live}; "
+            f"entries by lane {counts.tolist()}")
+        if label == "ycsb_a":
+            assert live == {"pw": [0, T, 0], "pr": [0, T, 0],
+                            "rr": [0, 0, 0], "rw": [0, 0, 0]}, live
+        else:
+            assert all(min(c) > 0 for c in live.values()), live
+        out[label] = views
+    return out
+
+
+def lane_pairs_cost(v, T):
+    """lane_pairs' bytes and ops on the lane view ``v``, a lower bound:
+    the T*T marks written (the memset), every slot's mask and the txn
+    mask read once, and of each live slot its txn id, and its hash (a
+    point slot) or its 16-byte key prefix per bound where the lane has a
+    live slot of a relation that compares it; one compare per live write
+    slot and live read slot of a lane in each of the four relations."""
+    pw, pr, rr, rw = (m.sum(1).to(torch.int64)
+                      for m in (v.pw_mask, v.pr_mask, v.rr_mask, v.rw_mask))
+    ops = int((pw * pr + pw * rr + rw * pr + rw * rr).sum())
+    nb = T * T + io_bytes(v.txn_mask, v.pw_mask, v.pr_mask, v.rr_mask,
+                          v.rw_mask)
+    nb += 8 * int((pw + pr).sum()) + 4 * int((rr + rw).sum())
+    nb += 16 * int((pw * (rr > 0) + pr * (rw > 0)).sum())
+    nb += 32 * int((rr * ((pw + rw) > 0) + rw * ((pr + rr) > 0)).sum())
+    return nb, ops
 
 
 def sweep_cost(a0, O):
@@ -704,7 +809,8 @@ def phase_kernels():
     params, cases = kernel_cases()
     log("[smem] dynamic shared memory per block at these widths: " + ", ".join(
         f"{k} {v} B" for k, v in dynamic_smem(params).items()))
-    results = {"ring_hits": [], "fused_accept": [], "accept_sweep": []}
+    results = {"ring_hits": [], "fused_accept": [], "accept_sweep": [],
+               "lane_pairs": []}
     for c in cases:
         got, want = c["fn"](), c["plain"]()
         torch.cuda.synchronize()
@@ -747,7 +853,8 @@ ACCEPT_PARTS = ("accept_ring_kernel", "accept_pairs_kernel",
                 "accept_sweep_kernel")
 SWEEP_PARTS = ("accept_pack_kernel", "accept_sweep_kernel")
 PARTS = {"fused_accept": ACCEPT_PARTS, "accept_sweep": SWEEP_PARTS,
-         "ring_hits": ("ring_hits_kernel",)}
+         "ring_hits": ("ring_hits_kernel",),
+         "lane_pairs": ("lane_pairs_kernel",)}
 
 
 def kernel_parts(fn, reps, names, tries=5):
@@ -1256,7 +1363,10 @@ def lanes_report(c):
 def phase_sharded(streams):
     """Phase 10a and 10b: Cluster(n_resolvers=3) on the card in "range"
     and "hash" mode. Launch counts are zeroed first and read last, over
-    10a-10d: no kernel may launch on these paths."""
+    10a-10d: neither fused_accept nor ring_hits may launch on these
+    paths; accept_sweep accepts over the lanes' conflict matrix, and
+    lane_pairs, which marks its intra-batch pairs on the "range" lanes,
+    must launch in 10a and not in 10b."""
     from foundationdb_tpu_torch import workloads
     from foundationdb_tpu_torch.ops import _kernels
     from foundationdb_tpu_torch.server.cluster import Cluster
@@ -1267,6 +1377,7 @@ def phase_sharded(streams):
     for mode, rows, depth in (("range", SHARDED_PRELOAD, CLUSTER_BATCHES),
                               ("hash", HASH_PRELOAD, HASH_BATCHES)):
         t_mode = time.perf_counter()
+        lp0 = _kernels.launches["lane_pairs"]
         c = Cluster(n_resolvers=SHARDED_LANES, resolver_sharding=mode)
         assert len(c.resolvers) == 1 and c.resolvers[0].n_lanes == SHARDED_LANES
         t0 = time.perf_counter()
@@ -1308,8 +1419,11 @@ def phase_sharded(streams):
         c.close()
         del c
         gc.collect()
+        r["lane_pairs_launches"] = lp = _kernels.launches["lane_pairs"] - lp0
+        assert (lp > 0) == (mode == "range"), (mode, lp)
         r["seconds"] = time.perf_counter() - t_mode
-        log(f"[sharded {mode}] {r['seconds']:.3f} s")
+        log(f"[sharded {mode}] lane_pairs launches {lp}; "
+            f"{r['seconds']:.3f} s")
         report[mode] = r
     return report
 
@@ -3195,8 +3309,10 @@ def region_configure_arm(c, stream, value):
     for st in (lanes, lanes2):
         assert st["shape"]["resolver_lanes"] == SHARDED_LANES
         assert st["launches"]["accept_sweep"] > 0
+        assert st["launches"]["lane_pairs"] > 0
         assert st["launches"]["fused_accept"] == 0
     assert one["launches"]["fused_accept"] > 0
+    assert one["launches"]["lane_pairs"] == 0
     assert proxies["shape"]["commit_proxies"] == 3
     assert again["recovered"] == 0, "a repeated configure recovered"
     assert all(st["recovered"] == 1 for st in steps if st is not again)
@@ -5789,7 +5905,11 @@ def main():
              "foundationdb_tpu/ops/pallas_ring.py:62"),
             # no TPU kernel: the reference's on-device lax.while_loop
             ("accept_sweep", "foundationdb_tpu_torch/csrc/accept.cu",
-             "foundationdb_tpu/ops/conflict.py:560")):
+             "foundationdb_tpu/ops/conflict.py:560"),
+            # no TPU kernel: the reference's XLA scatter-add of the
+            # presharded lanes' pair counts
+            ("lane_pairs", "foundationdb_tpu_torch/csrc/lanes.cu",
+             "foundationdb_tpu/ops/conflict.py:823")):
         cases = checks[name]
         head = cases[0]
         by_path = {"main": main_launches[name],
@@ -5804,7 +5924,10 @@ def main():
                    "observability": obs_launches[name],
                    "simulation": sim_launches[name],
                    "metacluster": meta_launches[name],
-                   "rpc": rpc_launches[name],
+                   # by the server's device profile, which counts
+                   # routes: its one resolver has no lanes to launch
+                   # lane_pairs on
+                   "rpc": rpc_launches.get(name, 0),
                    "tools": tools_launches.get(name, 0),
                    "faultcov": faultcov_launches.get(name, 0)}
         kernels.append(dict(
@@ -5840,7 +5963,8 @@ def main():
                               "faultcov"),
              "ring_hits": ("ring_route",),
              "accept_sweep": ("main", "ring_route",
-                              "sharded_and_partitioned", "regions")}
+                              "sharded_and_partitioned", "regions"),
+             "lane_pairs": ("sharded_and_partitioned", "regions")}
     for k in kernels:
         for path in paths[k["name"]]:
             assert k["launches_by_path"][path] > 0, \
@@ -5848,7 +5972,7 @@ def main():
         assert k["mismatches"] == 0 and k["max_abs_err"] == 0, k["name"]
         # the reference runs no Pallas kernel on the mesh or the
         # partitioned ring: neither ported kernel may launch there
-        if k["name"] != "accept_sweep":
+        if k["name"] not in ("accept_sweep", "lane_pairs"):
             assert k["launches_by_path"]["sharded_and_partitioned"] == 0, \
                 k["name"]
         # the host resolvers run no kernel, as in the reference

@@ -1,6 +1,7 @@
 // Shared key-order helpers for the resolver's CUDA kernels (ring.cu,
-// accept.cu): the counterpart of _signed / _pairwise_lex in
-// foundationdb_tpu/ops/pallas_ring.py.
+// accept.cu, lanes.cu): the counterpart of _signed / _pairwise_lex in
+// foundationdb_tpu/ops/pallas_ring.py, and the 16-byte key prefixes the
+// pair kernels compare before they fall back to the full keys.
 //
 // Keys are W uint32 limbs compared lexicographically, most significant
 // limb first. The TPU kernels flipped the sign bit because the TPU's
@@ -55,6 +56,74 @@ __device__ __forceinline__ void load_key(uint32_t (&k)[FDB_MAX_W],
 #pragma unroll
   for (int i = 0; i < FDB_MAX_W; ++i)
     k[i] = (valid && i < W) ? (uint32_t)row[i] : 0u;
+}
+
+// A key's prefix: its limbs 0-2 (zero past W), then its tail, the last
+// limb when every limb between is zero and LONG_KEY otherwise. Two
+// prefixes order their keys exactly unless both tails read LONG_KEY (a
+// key whose last limb is LONG_KEY reads long too, which only sends more
+// pairs to the full compare): with limbs 0-2 equal, a key with a nonzero
+// limb between is the greater, and two keys with none differ only in
+// their last limb.
+#define LONG_KEY 0xFFFFFFFFu
+__device__ __forceinline__ uint4 key_prefix(const int64_t* k, int W) {
+  uint4 p;
+  p.x = (uint32_t)k[0];
+  p.y = W > 1 ? (uint32_t)k[1] : 0u;
+  p.z = W > 2 ? (uint32_t)k[2] : 0u;
+  const uint32_t last = (uint32_t)k[W - 1];
+  uint32_t mid = 0u;
+  for (int i = 3; i < W - 1; ++i) mid |= (uint32_t)k[i];
+  p.w = W > 3 ? (mid ? LONG_KEY : last) : 0u;
+  return p;
+}
+
+// The order of two keys from their prefixes, computed without branches
+// so that the lanes of a warp never part: lt, a < b; open, the prefixes
+// cannot tell (lt is then false).
+struct Order {
+  bool lt, open;
+};
+__device__ __forceinline__ Order prefix_cmp(uint4 a, uint4 b) {
+  const bool ex = a.x == b.x, ey = a.y == b.y, ez = a.z == b.z;
+  const bool lt = (a.x < b.x) | (ex & ((a.y < b.y) |
+                  (ey & ((a.z < b.z) | (ez & (a.w < b.w))))));
+  return {lt, bool(ex & ey & ez & (a.w == b.w) & (a.w == LONG_KEY))};
+}
+
+// Fold one test of the prefixes into a lane's verdict where on: c when
+// it holds, open when the prefixes cannot tell.
+__device__ __forceinline__ void prefix_test(bool on, bool yes, bool no,
+                                            bool& c, bool& open) {
+  c |= on & yes;
+  open |= on & !yes & !no;
+}
+
+// b <= k < e
+__device__ __forceinline__ void prefix_in(bool on, uint4 k, uint4 b, uint4 e,
+                                          bool& c, bool& open) {
+  const Order lo = prefix_cmp(k, b), hi = prefix_cmp(k, e);
+  prefix_test(on, !lo.lt & !lo.open & hi.lt, lo.lt | (!hi.lt & !hi.open),
+              c, open);
+}
+
+// [b1, e1) meets [b2, e2): b1 < e2 and b2 < e1
+__device__ __forceinline__ void prefix_overlap(bool on, uint4 b1, uint4 e1,
+                                               uint4 b2, uint4 e2, bool& c,
+                                               bool& open) {
+  const Order x = prefix_cmp(b1, e2), y = prefix_cmp(b2, e1);
+  prefix_test(on, x.lt & y.lt, (!x.lt & !x.open) | (!y.lt & !y.open), c,
+              open);
+}
+
+// a < b for two W-limb keys in device memory (zero-extended int64 limbs).
+__device__ __forceinline__ bool lex_lt_dev(const int64_t* a, const int64_t* b,
+                                           int W) {
+  for (int i = 0; i < W; ++i) {
+    const uint32_t x = (uint32_t)a[i], y = (uint32_t)b[i];
+    if (x != y) return x < y;
+  }
+  return false;
 }
 
 // Dynamic shared memory of one ring-walk block for keys of W limbs: the

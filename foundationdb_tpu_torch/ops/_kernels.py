@@ -29,7 +29,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("ring", "accept")
+SOURCES = ("ring", "accept", "lanes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,9 +41,11 @@ _SIGNATURES = {
     "ring": {"fdb_ring_hits": [_P] * 7 + [_I] * 4 + [_P, _P]},
     "accept": {"fdb_fused_accept": [_P] * 18 + [_I] * 8 + [_P] * 4,
                "fdb_accept_sweep": [_P, _P, _I, _P, _P, _P]},
+    "lanes": {"fdb_lane_pairs": [_P] * 17 + [_I] * 7 + [_P, _P]},
 }
 
-launches = {"ring_hits": 0, "fused_accept": 0, "accept_sweep": 0}
+launches = {"ring_hits": 0, "fused_accept": 0, "accept_sweep": 0,
+            "lane_pairs": 0}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per source
 build_logs = {}
 
@@ -162,15 +164,16 @@ def check(rc, what):
 MAX_KEY_WIDTH = 17
 
 
-def check_args(what, device, key_width, int64s, bools):
+def check_args(what, device, key_width, int64s, bools, int32s=None):
     """Raise ValueError unless the key width (None: no keys) is one the
     kernels take and every tensor lies on ``device`` with its expected
-    shape: int64 for ``int64s``, bool for ``bools`` (both {name: (tensor,
-    shape)})."""
+    shape: int64 for ``int64s``, bool for ``bools``, int32 for ``int32s``
+    (each {name: (tensor, shape)})."""
     if key_width is not None and not 1 <= key_width <= MAX_KEY_WIDTH:
         raise ValueError(f"{what}: key width {key_width} outside the "
                          f"kernels' 1..{MAX_KEY_WIDTH}")
-    for group, dtype in ((int64s, torch.int64), (bools, torch.bool)):
+    for group, dtype in ((int64s, torch.int64), (bools, torch.bool),
+                         (int32s or {}, torch.int32)):
         for name, (t, shape) in group.items():
             if (t.device != device or t.dtype != dtype
                     or tuple(t.shape) != tuple(shape)):

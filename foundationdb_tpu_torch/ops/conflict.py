@@ -26,9 +26,11 @@ statuses and the same state after every batch. Three layouts:
   ``pmax`` of the replicated summaries a single scatter-max into the one
   copy, which every lane shares.
 
-The kernels run only on the single-device flat ring, as in the JAX
-package (which turns its Pallas kernels off for lanes and for the
-partitioned ring).
+The ring and accept kernels run only on the single-device flat ring, as
+in the JAX package (which turns its Pallas kernels off for lanes and for
+the partitioned ring). The presharded step marks its lanes' conflicting
+pairs with its own kernel on a card (ops/lanes.py, csrc/lanes.cu), where
+the JAX package scatter-adds pair counts.
 
 1. **Point-version hash table** ``ht[2^HB]``: max commit-version offset
    per key-hash bucket (scatter-max on write, gather on read).
@@ -64,13 +66,12 @@ from foundationdb_tpu_torch.core.status import COMMITTED, CONFLICT, TOO_OLD
 from foundationdb_tpu_torch.ops import _kernels
 from foundationdb_tpu_torch.ops.accept import (
     MAX_TXNS,
-    READ_SENTINEL,
-    WRITE_SENTINEL,
     conflict_matrix,
     fused_accept,
     sweep_accept,
 )
 from foundationdb_tpu_torch.ops.intervals import point_in, ranges_overlap
+from foundationdb_tpu_torch.ops.lanes import lane_pairs
 from foundationdb_tpu_torch.ops.ring import ring_slot_hits
 
 
@@ -579,9 +580,10 @@ def resolve_batch_presharded(state: ResolverState, sb: ShardBatch,
     ring, so the [Q, KR] ring scan and the pairwise matrix shrink with n.
     Any read and write that overlap share a key, and both are routed to
     that key's lane, so every conflict is checked on some lane; the
-    lanes' per-txn hit counts and [T, T] pair counts sum into one before
-    the > 0 threshold (the psum of the JAX package). ``rv``, ``txn_mask``
-    and the versions are replicated, so one verdict vector comes out.
+    lanes' per-txn hit counts sum into one before the > 0 threshold (the
+    psum of the JAX package), and their pairs that meet mark one [T, T]
+    relation (ops/lanes.py ``lane_pairs``). ``rv``, ``txn_mask`` and the
+    versions are replicated, so one verdict vector comes out.
     """
     n = sb.pr_txn.shape[0]
     T = params.txns
@@ -647,39 +649,8 @@ def resolve_batch_presharded(state: ResolverState, sb: ShardBatch,
     hist = hist_i > 0
 
     # ─────────────────────── intra-batch conflict matrix ───────────────────
-    # O[t1, t2] counts (write txn, read txn) pairs over every lane; a
-    # spanning write and a spanning read seen on two lanes add twice
-    # before the > 0 threshold
-    O_i = torch.zeros((T * T,), dtype=torch.int32, device=dev)
-
-    def pairs(w_txn, r_txn, val):  # val: bool[n, Qw, Qr]
-        idx = (w_txn.to(torch.int64)[:, :, None] * T
-               + r_txn.to(torch.int64)[:, None, :])
-        O_i.index_add_(0, idx.reshape(-1), val.reshape(-1).to(torch.int32))
-
-    if Qpw and Qpr:
-        wh = torch.where(sb.pw_mask, sb.pw_hash, WRITE_SENTINEL)
-        rh = torch.where(sb.pr_mask, sb.pr_hash, READ_SENTINEL)
-        pairs(sb.pw_txn, sb.pr_txn, wh[:, :, None] == rh[:, None, :])
-    if Qpw and Qrr:
-        inr = point_in(sb.pw_key[:, :, None, :], sb.rr_b[:, None],
-                       sb.rr_e[:, None])  # [n, Qpw, Qrr]
-        pairs(sb.pw_txn, sb.rr_txn,
-              inr & sb.pw_mask[:, :, None] & sb.rr_mask[:, None, :])
-    if Qrw and Qpr:
-        inr = point_in(sb.pr_key[:, None], sb.rw_b[:, :, None, :],
-                       sb.rw_e[:, :, None, :])  # [n, Qrw, Qpr]
-        pairs(sb.rw_txn, sb.pr_txn,
-              inr & sb.rw_mask[:, :, None] & sb.pr_mask[:, None, :])
-    if Qrw and Qrr:
-        ov = ranges_overlap(sb.rr_b[:, None], sb.rr_e[:, None],
-                            sb.rw_b[:, :, None, :], sb.rw_e[:, :, None, :])
-        pairs(sb.rw_txn, sb.rr_txn,
-              ov & sb.rw_mask[:, :, None] & sb.rr_mask[:, None, :])
-
-    upper = torch.ones((T, T), dtype=torch.bool, device=dev).triu(1)
-    O = ((O_i.view(T, T) > 0) & upper & sb.txn_mask[:, None]
-         & sb.txn_mask[None, :])
+    # the lanes' (write txn, read txn) pairs that meet, w < r, both live
+    O = lane_pairs(sb, T)
     a0 = (~too_old) & (~hist) & sb.txn_mask
     accepted = sweep_accept(a0, O)
 
@@ -728,9 +699,9 @@ def validate_presharded_params(params: ResolverParams):
     into the coarse summaries instead of wrapping."""
     if params.use_ring_kernel or params.use_accept_kernel:
         raise ValueError(
-            "the presharded step has no kernel lanes: the kernels take the "
-            "dense [T, K] layout (ignoring an explicit kernel request would "
-            "misattribute measurements)")
+            "the presharded step takes neither the ring nor the accept "
+            "kernel: they take the dense [T, K] layout (ignoring an "
+            "explicit kernel request would misattribute measurements)")
     if params.ring_partition_bits:
         raise ValueError(
             "ring_partition_bits is a single-device layout; the presharded "

@@ -23,7 +23,11 @@ import pytest
 import torch
 
 import foundationdb_tpu_torch as tfdb
-from foundationdb_tpu_torch.convert import state_to_numpy, tensor_from_numpy
+from foundationdb_tpu_torch.convert import (
+    shard_batch_from_numpy,
+    state_to_numpy,
+    tensor_from_numpy,
+)
 from foundationdb_tpu_torch.core.options import Knobs
 from foundationdb_tpu_torch.ops import _kernels
 from foundationdb_tpu_torch.ops import conflict as ck
@@ -41,12 +45,16 @@ from foundationdb_tpu_torch.ops.accept import (
     launch_fused_accept,
     sweep_accept,
 )
+from foundationdb_tpu_torch.ops.lanes import lane_pairs, lane_pairs_plain
 from foundationdb_tpu_torch.ops.ring import (
     ring_hits,
     ring_hits_plain,
     ring_slot_hits,
 )
+from foundationdb_tpu_torch.parallel.mesh import _SHARD_REPLICATED, lane_view
+from foundationdb_tpu_torch.resolver.packing import BatchPacker, ShardRouter
 from foundationdb_tpu_torch.resolver.resolver import Resolver
+from foundationdb_tpu_torch.resolver.skiplist import TxnRequest
 from foundationdb_tpu_torch.server.cluster import Cluster
 from foundationdb_tpu_torch import workloads
 from foundationdb_tpu_torch.workloads import STREAMS
@@ -333,7 +341,8 @@ def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
     """Cluster(n_resolvers=3): the lane fleet on the card and on the CPU
     give the same outcomes, rows and state, and launch neither ported
     TPU kernel (the lanes run the plain torch step, as the JAX mesh runs
-    jnp), only the sweep that accepts over their conflict matrix."""
+    jnp), only the sweep that accepts over their conflict matrix and, on
+    the "range" lanes, lane_pairs, which builds it."""
     from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 
     gpu = Cluster(n_resolvers=3, resolver_sharding=mode, **CLUSTER_KNOBS)
@@ -347,6 +356,7 @@ def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
     assert _kernels.launches["fused_accept"] == 0
     assert _kernels.launches["ring_hits"] == 0
     assert _kernels.launches["accept_sweep"] > 0
+    assert (_kernels.launches["lane_pairs"] > 0) == (mode == "range")
     assert got[0] == want[0] and 1020 in got[0]
     assert got[1] == want[1]
     for f, a, b in zip(ck.ResolverState._fields, got[2], want[2]):
@@ -372,6 +382,206 @@ def test_lane_and_partitioned_resolvers_on_card_equal_cpu(cuda, knobs):
     got = [gpu.resolve(*b) for b in stream[:4]] + gpu.resolve_many(stream[4:])
     want = [cpu.resolve(*b) for b in stream[:4]] + cpu.resolve_many(stream[4:])
     assert got == want
+    for f, a, b in zip(ck.ResolverState._fields, state_to_numpy(gpu.state),
+                       state_to_numpy(cpu.state)):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+# the presharded lanes' shapes: T and the slot capacities vary by case
+LANE_SHAPE = dict(point_reads=2, point_writes=2, range_reads=2,
+                  range_writes=2, key_width=5, hash_bits=14,
+                  ring_capacity=1024, bucket_bits=8)
+
+
+def _lane_txns(kind, T, rng):
+    """T txns. "spread": keys over the whole byte range from a pool of
+    64, so slots of every lane meet, and ranges between two of them,
+    most spanning lanes; "one_lane": YCSB-A's shape, one point read and
+    one point write of a user key each, every key in lane 1 of the
+    uniform first-limb split; "same": every txn one key and range."""
+    if kind == "one_lane":
+        ids = rng.integers(0, 2000, (T, 2))
+        return [TxnRequest(read_version=1,
+                           point_reads=[workloads.user_key(int(a))],
+                           point_writes=[workloads.user_key(int(b))])
+                for a, b in ids]
+    if kind == "same":
+        return [TxnRequest(read_version=1, point_reads=[b"same"],
+                           point_writes=[b"same"],
+                           range_reads=[(b"same", b"same2")],
+                           range_writes=[(b"same", b"same2")])
+                for _ in range(T)]
+    pool = sorted(bytes([int(b)]) + b"k%d" % i
+                  for i, b in enumerate(rng.integers(0, 256, 64)))
+
+    def some(f):
+        return [f() for _ in range(int(rng.integers(0, 3)))]
+
+    def key():
+        return pool[int(rng.integers(64))]
+
+    def span():
+        a, b = sorted(rng.choice(64, 2, replace=False))
+        return pool[a], pool[b]
+
+    return [TxnRequest(read_version=1, point_reads=some(key),
+                       point_writes=some(key), range_reads=some(span),
+                       range_writes=some(span)) for _ in range(T)]
+
+
+def _lane_views(kind, T, n, headroom, seed, dev):
+    """The router's ShardBatch of one packed batch of ``kind``, each txn
+    slice viewed [n, Q, ...] on ``dev``; and the chunk factor k."""
+    params = ck.ResolverParams(txns=T, **LANE_SHAPE)
+    txns = _lane_txns(kind, T, np.random.default_rng(seed))
+    b = BatchPacker(params, use_native=False).pack(txns, 0, 50, 0)
+    stacked = ck.ResolveBatch(*(np.stack([np.asarray(f)]) for f in b))
+    sb, k, _ = ShardRouter(params, n, headroom=headroom).split(stacked)
+    sb = shard_batch_from_numpy(sb, dev)
+    return [lane_view(ck.ShardBatch(*(f[i] for f in sb)), n)
+            for i in range(sb.rv.shape[0])], k
+
+
+def _per_lane(v, j):
+    """Lane j of a lane view alone, as a view of one lane."""
+    return ck.ShardBatch(*(f if name in _SHARD_REPLICATED else f[j:j + 1]
+                           for name, f in zip(ck.ShardBatch._fields, v)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,T,n,headroom", [
+    ("spread", 1024, 1, 1.75), ("spread", 1024, 3, 1.75),
+    ("spread", 1024, 8, 1.75),
+    # T and every slot capacity off the kernel's 128-slot tile
+    ("spread", 1000, 3, 1.75),
+    # YCSB-A's shape: lanes 0 and 2 all padding
+    ("one_lane", 1024, 3, 1.75),
+    # the router overflows a lane: k > 1 txn slices
+    ("spread", 256, 3, 0.3), ("same", 64, 8, 0.5)])
+def test_lane_pairs_kernel_matches_plain(cuda, kind, T, n, headroom):
+    """csrc/lanes.cu against lane_pairs_plain (the index_add_ pair
+    counts, > 0, upper, masks) on the router's ShardBatches, bit for bit;
+    a pair that ranges spanning lanes meet on two lanes is one mark."""
+    views, k = _lane_views(kind, T, n, headroom, seed=T + n, dev=cuda)
+    assert k > 1 or headroom > 1
+    _kernels.reset_launches()
+    twice = 0
+    for v in views:
+        want = lane_pairs_plain(v, T)
+        got = lane_pairs(v, T)
+        assert got.dtype == torch.bool and got.shape == (T, T)
+        assert torch.equal(got, want)
+        assert want.any()
+        if n > 1:
+            twice += int((sum(lane_pairs_plain(_per_lane(v, j), T).int()
+                              for j in range(n)) > 1).sum())
+    assert _kernels.launches["lane_pairs"] == len(views)
+    if kind == "one_lane":
+        assert not views[0].pw_mask[0].any() and not views[0].pw_mask[2].any()
+        assert views[0].pw_mask[1].sum() == T
+    if kind == "spread" and n > 1:
+        assert twice > 0
+
+
+def _synthetic_lanes(seed, n, T, Qpw, Qpr, Qrr, Qrw, W, live, dev):
+    """A ShardBatch lane view with random slots: txns anywhere in [0, T),
+    masks live with probability ``live``, point hashes from {1, 2, 3} and
+    both masked-slot sentinels, keys whose limbs 0-2 tie often and long
+    keys (nonzero middle limbs, some last limbs 0xFFFFFFFF), so the
+    kernel's prefix compares reach their full-key fallback."""
+    g = np.random.default_rng(seed)
+
+    def keys(N):
+        k = np.zeros((N, W), np.int64)
+        k[:, 0] = g.integers(0, 4, N)
+        if W > 1:
+            k[:, 1] = g.integers(0, 3, N)
+        if W > 3:
+            longk = g.random(N) < 0.3
+            k[longk, 3:W - 1] = g.integers(0, 3, (int(longk.sum()), W - 4))
+            k[:, W - 1] = g.integers(0, 3, N)
+            k[g.random(N) < 0.05, W - 1] = 0xFFFFFFFF
+        return torch.tensor(k.reshape(n, N // n, W), device=dev)
+
+    def side(Q):
+        N = n * Q
+        return (torch.tensor(g.integers(0, T, N).reshape(n, Q),
+                             dtype=torch.int32, device=dev),
+                torch.tensor(g.random(N).reshape(n, Q) < live, device=dev))
+
+    def hashes(Q):
+        h = g.choice(np.array([1, 2, 3, 0xFFFFFFFE, 0xFFFFFFFF]), n * Q)
+        return torch.tensor(h.reshape(n, Q), dtype=torch.int64, device=dev)
+
+    def z(Q):
+        return torch.zeros((n, Q), dtype=torch.int32, device=dev)
+
+    (pwt, pwm), (prt, prm) = side(Qpw), side(Qpr)
+    (rrt, rrm), (rwt, rwm) = side(Qrr), side(Qrw)
+    return ck.ShardBatch(
+        rv=torch.zeros(T, dtype=torch.int64, device=dev),
+        txn_mask=torch.tensor(g.random(T) < 0.9, device=dev),
+        pr_hash=hashes(Qpr), pr_key=keys(n * Qpr), pr_bucket=z(Qpr),
+        pr_txn=prt, pr_mask=prm,
+        pw_hash=hashes(Qpw), pw_key=keys(n * Qpw), pw_bucket=z(Qpw),
+        pw_txn=pwt, pw_mask=pwm,
+        rr_b=keys(n * Qrr), rr_e=keys(n * Qrr), rr_lo=z(Qrr), rr_hi=z(Qrr),
+        rr_txn=rrt, rr_mask=rrm,
+        rw_b=keys(n * Qrw), rw_e=keys(n * Qrw), rw_lo=z(Qrw), rw_hi=z(Qrw),
+        rw_txn=rwt, rw_mask=rwm,
+        cv=torch.zeros((), dtype=torch.int64, device=dev),
+        new_window_start=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,live", [
+    ((1, 64, 130, 129, 40, 200, 9), 0.5),
+    ((3, 100, 300, 257, 150, 131, 9), 0.5),
+    ((2, 50, 5, 7, 0, 3, 3), 0.5),
+    ((2, 40, 20, 20, 20, 20, 4), 0.5),
+    ((2, 200, 600, 600, 260, 260, 9), 0.01),
+    ((3, 1024, 2392, 2392, 1200, 1200, 9), 0.2)])
+def test_lane_pairs_kernel_on_random_slots(cuda, shape, live):
+    """csrc/lanes.cu against lane_pairs_plain on random slot arrays: the
+    sentinel hashes of masked slots (a live read hashing 0xFFFFFFFF meets
+    every masked write slot, in tiles with no live writer too), long keys
+    that tie on their prefixes, dead txns, zero-width sides."""
+    v = _synthetic_lanes(sum(shape), *shape, live, cuda)
+    T = shape[1]
+    want = lane_pairs_plain(v, T)
+    assert torch.equal(lane_pairs(v, T), want)
+    assert want.any()
+
+
+@pytest.mark.gpu
+def test_range_lanes_on_card_equal_cpu_over_a_long_stream(cuda):
+    """MeshResolver in "range" mode on the card against the CPU over 300
+    batches of keys spread over the lanes (resolve, then resolve_many
+    backlogs): the same statuses and state; every batch launches
+    lane_pairs."""
+    from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
+
+    rng = np.random.default_rng(9)
+    stream, cv = [], 1000
+    for _ in range(300):
+        cv += 64
+        txns = _lane_txns("spread", 64, rng)
+        for t in txns:
+            t.read_version = cv - 1 - int(rng.integers(0, 300))
+        stream.append((txns, cv, max(0, cv - 5000)))
+    knobs = Knobs(**SMALL, resolver_sharding="range")
+    gpu = MeshResolver(knobs, n_lanes=3)
+    cpu = MeshResolver(knobs, n_lanes=3, device="cpu")
+    _kernels.reset_launches()
+    got = [gpu.resolve(*b) for b in stream[:200]]
+    want = [cpu.resolve(*b) for b in stream[:200]]
+    assert _kernels.launches["lane_pairs"] >= 200
+    for i in range(200, 300, 10):
+        got += gpu.resolve_many(stream[i:i + 10])
+        want += cpu.resolve_many(stream[i:i + 10])
+    assert got == want
+    statuses = [x for s in got for x in s]
+    assert statuses.count(0) > 0 and statuses.count(1) > 0  # both verdicts
     for f, a, b in zip(ck.ResolverState._fields, state_to_numpy(gpu.state),
                        state_to_numpy(cpu.state)):
         np.testing.assert_array_equal(a, b, err_msg=f)
@@ -761,15 +971,16 @@ def test_launches_are_counted_on_every_replay(cuda):
     first = dict(_kernels.launches)
     # the full variant on the ring route: ring_hits for point and range
     # reads, then accept_sweep; warm-up + replay
-    assert first == {"ring_hits": 4, "fused_accept": 0, "accept_sweep": 2}
+    assert first == {"ring_hits": 4, "fused_accept": 0, "accept_sweep": 2,
+                     "lane_pairs": 0}
     for b in stream[1:]:
         r.resolve(*b)
     assert _kernels.launches == {"ring_hits": 2 * 6, "fused_accept": 0,
-                                 "accept_sweep": 1 + 5}
+                                 "accept_sweep": 1 + 5, "lane_pairs": 0}
     _kernels.reset_launches()
     r.resolve_many(stream[:3])  # pads to BACKLOG_B: 8 steps in one graph
     assert _kernels.launches == {"ring_hits": 2 * 8 * 2, "fused_accept": 0,
-                                 "accept_sweep": 8 * 2}
+                                 "accept_sweep": 8 * 2, "lane_pairs": 0}
 
 
 @pytest.mark.gpu

@@ -11,6 +11,9 @@ tolerance 0, every value is an integer or a bit.
 - the presharded ("range") step at n = 2, 3 and 8 on the fixtures of
   ``tests/test_shard_split.py``, and a fixture that overflows the
   router's slots into k > 1 txn slices, where the two must agree too;
+- the presharded step's pair relation (``ops/lanes.lane_pairs_plain``)
+  against a brute-force loop over each lane's live slot pairs, at n = 1,
+  2, 3 and 8 and with k > 1 txn slices;
 - the "hash" step at n = 2 and 3;
 - ``MeshResolver`` in both modes, ``resolve`` and ``resolve_many``;
 - ``Cluster(n_resolvers=3)`` in both modes against the JAX cluster on
@@ -44,6 +47,9 @@ from foundationdb_tpu_torch.convert import (
 from foundationdb_tpu_torch.core.errors import FDBError as TError
 from foundationdb_tpu_torch.core.options import Knobs as TKnobs
 from foundationdb_tpu_torch.ops import conflict as tck
+from foundationdb_tpu_torch.ops.accept import READ_SENTINEL, WRITE_SENTINEL
+from foundationdb_tpu_torch.ops.intervals import point_in, ranges_overlap
+from foundationdb_tpu_torch.ops.lanes import lane_pairs_plain
 from foundationdb_tpu_torch.parallel import mesh as tpm
 from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 from foundationdb_tpu_torch.resolver.packing import ShardRouter
@@ -191,6 +197,121 @@ def test_presharded_chunked_split_matches_jax():
         trouter.reassemble(tst, k).numpy(),
         np.asarray(jrouter.reassemble(np.asarray(jst), k)))
     _same_state(js, ts)
+
+
+def _lane_txns(seed):
+    """JPARAMS.txns txns over eight keys spread across the byte range,
+    each side 0-2 entries; ranges between two of the keys, so most span
+    lanes."""
+    rng = np.random.default_rng(seed)
+    pool = [bytes([32 * i + 5]) + b"key" for i in range(8)]
+
+    def key():
+        return pool[int(rng.integers(8))]
+
+    def span():
+        a, b = sorted(rng.choice(8, 2, replace=False))
+        return pool[a], pool[b]
+
+    def some(f):
+        return [f() for _ in range(int(rng.integers(0, 3)))]
+
+    return [dict(read_version=1, point_reads=some(key),
+                 point_writes=some(key), range_reads=some(span),
+                 range_writes=some(span)) for _ in range(JPARAMS.txns)]
+
+
+def _brute_pairs(v, T):
+    """O[w, r] of a ShardBatch viewed [n, Q, ...], by a loop over each
+    lane's live slot pairs with ops/intervals' tests, one pair at a
+    time; and, per pair (w, r), the lanes that mark it."""
+    O = torch.zeros((T, T), dtype=torch.bool)
+    seen = {}
+
+    def live(mask):
+        return mask.nonzero().flatten().tolist()
+
+    def mark(lane, w, r):
+        w, r = int(w), int(r)
+        if w < r and v.txn_mask[w] and v.txn_mask[r]:
+            O[w, r] = True
+            seen.setdefault((w, r), set()).add(lane)
+
+    for j in range(v.pr_txn.shape[0]):
+        pr, pw = live(v.pr_mask[j]), live(v.pw_mask[j])
+        rr, rw = live(v.rr_mask[j]), live(v.rw_mask[j])
+        for a in pw:
+            for b in pr:
+                if v.pw_hash[j, a] == v.pr_hash[j, b]:
+                    mark(j, v.pw_txn[j, a], v.pr_txn[j, b])
+            for b in rr:
+                if point_in(v.pw_key[j, a], v.rr_b[j, b], v.rr_e[j, b]):
+                    mark(j, v.pw_txn[j, a], v.rr_txn[j, b])
+        for a in rw:
+            for b in pr:
+                if point_in(v.pr_key[j, b], v.rw_b[j, a], v.rw_e[j, a]):
+                    mark(j, v.rw_txn[j, a], v.pr_txn[j, b])
+            for b in rr:
+                if ranges_overlap(v.rr_b[j, b], v.rr_e[j, b], v.rw_b[j, a],
+                                  v.rw_e[j, a]):
+                    mark(j, v.rw_txn[j, a], v.rr_txn[j, b])
+    return O, seen
+
+
+@pytest.mark.parametrize("n,headroom", [(1, 1.75), (2, 1.75), (3, 1.75),
+                                        (8, 1.75), (3, 0.3)])
+def test_lane_pairs_plain_matches_brute_force(n, headroom):
+    """ops/lanes.lane_pairs_plain (the CPU version of the presharded
+    step's pair relation) against a relation built slot pair by slot
+    pair over each lane's live slots, on the router's ShardBatches:
+    n = 1, 2, 3, 8, and a tight headroom that splits the batch into
+    k > 1 txn slices. A masked slot compares as its sentinel hash in the
+    plain version; no live hash here equals one, so only live pairs
+    mark."""
+    T = TPARAMS.txns
+    b = JPacker(JPARAMS, use_native=False).pack(
+        [JTxn(**t) for t in _lane_txns(n)], 0, 50, 0)
+    sb, k, _ = ShardRouter(TPARAMS, n, headroom=headroom).split(
+        _stack([b], jck.ResolveBatch))
+    assert k > 1 or headroom > 1
+    tsb = shard_batch_from_numpy(sb)
+    spanned = 0
+    for i in range(tsb.rv.shape[0]):
+        v = tpm.lane_view(tck.ShardBatch(*(f[i] for f in tsb)), n)
+        for h, m in ((v.pw_hash, v.pw_mask), (v.pr_hash, v.pr_mask)):
+            assert not torch.isin(h[m], torch.tensor(
+                [READ_SENTINEL, WRITE_SENTINEL])).any()
+        want, seen = _brute_pairs(v, T)
+        assert want.any()
+        assert torch.equal(lane_pairs_plain(v, T), want)
+        spanned += sum(len(lanes) > 1 for lanes in seen.values())
+    # ranges that span lanes: a pair marked on two lanes is one mark
+    assert (spanned > 0) == (n > 1)
+
+
+def test_chip_smoke_lane_cases_at_the_cell_shapes():
+    """chip_smoke.py's lane_pairs cases, built on the CPU at the default
+    widths: three lanes of 2,392 point and 1,200 range slots a side, the
+    YCSB-A batch live on lane 1 alone and the spread batch live on every
+    lane in all four relations (lane_batches asserts both); each case's
+    bound counts at least the T*T marks' bytes and one compare a pair
+    the plain version marks on one lane."""
+    import chip_smoke
+    from foundationdb_tpu_torch.resolver.resolver import params_from_knobs
+
+    params = params_from_knobs(TKnobs())
+    T = params.txns
+    cases = chip_smoke.lane_batches(params, "cpu")
+    assert list(cases) == ["ycsb_a", "spread"]
+    for label, views in cases.items():
+        for v in views:
+            assert (v.pw_txn.shape[1], v.pr_txn.shape[1], v.rr_txn.shape[1],
+                    v.rw_txn.shape[1]) == (2392, 2392, 1200, 1200)
+            nb, ops = chip_smoke.lane_pairs_cost(v, T)
+            marks = int(lane_pairs_plain(v, T).sum())
+            assert nb > T * T and ops >= marks > 0
+    (v,) = cases["ycsb_a"]
+    assert chip_smoke.lane_pairs_cost(v, T)[1] == T * T
 
 
 @pytest.mark.parametrize("n", [2, 3])
