@@ -19,6 +19,10 @@ Phases:
      range slots a side a lane) for a YCSB-A batch (lane 1 live, lanes 0
      and 2 all padding) and a batch live on every lane in all four
      relations (against lane_pairs_plain, the index_add_ pair counts),
+     and ring_hits_lanes on the YCSB-A batch's point-read slots and the
+     spread batch's range-read slots of those lanes against an empty ring
+     a lane and a full ring rolled and cut differently in each lane
+     (against ring_hits_plain over the lanes, the [n, Q, KR] broadcast),
      each case's bound from its own inputs; kernel
      and plain times (``ms``, ``plain_ms``) by CUDA events around
      back-to-back calls, which include the host's cost of each call;
@@ -82,8 +86,9 @@ Phases:
      counts zeroed first (fused_accept and ring_hits must launch 0 times,
      as the reference runs no Pallas kernel on the mesh or the
      partitioned ring; accept_sweep accepts over their conflict
-     matrix, and lane_pairs marks its pairs on the "range" lanes, so it
-     must launch in (a) and not in (b)): (a) Cluster(n_resolvers=3) on
+     matrix, and lane_pairs marks its pairs and ring_hits_lanes walks
+     the rings of the "range" lanes, so both must launch in (a) and not
+     in (b)): (a) Cluster(n_resolvers=3) on
      the card in "range" mode, SHARDED_PRELOAD rows, the range-heavy
      stream as client requests, 12 commit_batch then one commit_batches
      of 12 (committed txns/s,
@@ -561,6 +566,7 @@ def dynamic_smem(p):
     pairs = 4 * 32 * (4 * (PR + 2 * RR + PW + 2 * RW) + 2 * PR + RR + 2 * PW
                       + RW)
     return {"ring_hits_kernel": ring_walk, "accept_ring_kernel": ring_walk,
+            "ring_lanes_kernel": ring_walk,
             "accept_pairs_kernel": pairs, "accept_pack_kernel": 0,
             # accept.cu sweep_smem_words: 4 word arrays and the staged rows
             "accept_sweep_kernel": 4 * (4 * nw + nw * (T | 1)),
@@ -693,14 +699,105 @@ def kernel_cases():
         from foundationdb_tpu_torch.ops.lanes import lane_pairs, lane_pairs_plain
     except ImportError:  # a tree before the lanes' kernel
         return params, cases
-    for label, views in lane_batches(params, "cuda").items():
-        for i, v in enumerate(views):
+    views = lane_batches(params, "cuda")
+    for label, lanes in views.items():
+        for i, v in enumerate(lanes):
             cases.append(dict(
                 kernel="lane_pairs", case=f"{label} slice {i}",
                 fn=lambda v=v: lane_pairs(v, T),
                 plain=lambda v=v: lane_pairs_plain(v, T),
                 plain_reps=3, cost=lambda v=v: lane_pairs_cost(v, T)))
+    try:
+        from foundationdb_tpu_torch.ops.ring import ring_hits_lanes  # noqa: F401
+    except ImportError:  # a tree before the lanes' ring walk
+        return params, cases
+    _, full, batches = histories[-1]
+    cases += ring_lane_cases(params, views, full, batches["zipfian mixed"].rv)
     return params, cases
+
+
+def ring_lane_cases(params, views, full, rv_full):
+    """ring_hits_lanes' cases at resolvers3.ycsb_a's shapes (SHARDED_LANES
+    lanes, 2,392 point-read and 1,200 range-read slots a lane, KR
+    entries a lane): point mode on the point-read slots of the "ycsb_a"
+    lane view of ``views`` (lane_batches: lane 1's live) and range mode on
+    the range-read slots of its "spread" view (live on every lane), each
+    slot with its txn's read version, against the lanes' rings in two
+    states: "empty ring", a fresh history (no range write has reached a
+    lane: the cell's own state); and "full ring, rolled and cut by lane",
+    the flat ring of ``full`` (a Resolver's history after it wrapped:
+    every entry live) rolled by j*KR/n entries in lane j and live in its
+    first j/(n - 1) (lane 0 empty, the last lane full), so no two lanes
+    hold the same entries and a walk of lane 0's ring in every lane
+    would hit nothing, the slots
+    taking the read versions ``rv_full`` of their txns (a batch of that
+    history, lagging up to 5000 versions). ``some_hits`` says whether a
+    case must hit somewhere (it must also miss somewhere); its cost is
+    ring_lane_cost's."""
+    from foundationdb_tpu_torch.ops import conflict as ck
+    from foundationdb_tpu_torch.ops.ring import ring_hits_lanes, ring_hits_plain
+
+    n = SHARDED_LANES
+    W = params.key_width
+    KR = full.ring_v.shape[0]
+    fresh = ck.init_state(params._replace(ring_capacity=KR), full.ring_v.device,
+                          n_lanes=n)
+    cut = torch.arange(KR, device=full.ring_v.device)[None, :] < (
+        torch.arange(n, device=full.ring_v.device)[:, None] * KR // (n - 1))
+    lanes = [torch.stack([f.roll(j * KR // n, 0) for j in range(n)])
+             for f in (full.ring_b, full.ring_e, full.ring_v, full.ring_mask)]
+    lanes[3] = lanes[3] & cut
+    rings = {"empty ring": (fresh.ring_b.view(n, KR, W),
+                            fresh.ring_e.view(n, KR, W),
+                            fresh.ring_v.view(n, KR),
+                            fresh.ring_mask.view(n, KR), None),
+             "full ring, rolled and cut by lane": (*lanes, rv_full)}
+    cases = []
+    for label, (rb, re, rvv, rm, rv) in rings.items():
+        for mode, v, lo, hi, txn, mask in (
+                ("point", views["ycsb_a"][0], "pr_key", "pr_key", "pr_txn",
+                 "pr_mask"),
+                ("range", views["spread"][0], "rr_b", "rr_e", "rr_txn",
+                 "rr_mask")):
+            rvs = v.rv if rv is None else rv
+            args = (getattr(v, lo), getattr(v, hi),
+                    rvs[getattr(v, txn).to(torch.int64)], rb, re, rvv, rm)
+            point = mode == "point"
+            cases.append(dict(
+                kernel="ring_hits_lanes",
+                case=f"{mode} n={n} Q={args[0].shape[1]} KR={KR} W={W}, "
+                     f"{label}",
+                fn=lambda a=args, p=point: ring_hits_lanes(*a, point_mode=p),
+                plain=lambda a=args, p=point: ring_hits_plain(
+                    *a, point_mode=p),
+                plain_reps=3, some_hits=rv is not None,
+                cost=lambda a=args, m=getattr(v, mask), p=point:
+                    ring_lane_cost(a, m, p)))
+    return cases
+
+
+def ring_lane_cost(args, active, point):
+    """ring_hits_lanes' bytes and ops on these inputs, a lower bound of
+    the work they need: every ring entry's mask and every slot's mask
+    read and its hit bit written; and in each lane with a live entry and
+    a live slot (``active``), the live slots' keys and read versions and
+    the live entries' bounds and versions read once, and ring_ops' walk
+    of the live slots over the live entries only."""
+    qlo, qhi, rvq, rb, re, rvv, rm = args
+    nb = io_bytes(rm, active) + active.numel()
+    ops = 0
+    for j in range(qlo.shape[0]):
+        a, live = active[j], rm[j]
+        if not (a.any() and live.any()):
+            continue
+        q = (qlo[j][a], qhi[j][a], rvq[j][a])
+        ring = (rb[j][live], re[j][live], rvv[j][live])
+        ops += ring_ops(*q, torch.ones_like(q[2], dtype=torch.bool), *ring,
+                        torch.ones_like(ring[2], dtype=torch.bool),
+                        point=point)
+        # point mode reads the key once (qhi is qlo and unread)
+        nb += io_bytes(*(q[:1] + q[2:] if point else q), *ring)
+    return nb, ops
 
 
 def lane_batches(params, device):
@@ -810,7 +907,7 @@ def phase_kernels():
     log("[smem] dynamic shared memory per block at these widths: " + ", ".join(
         f"{k} {v} B" for k, v in dynamic_smem(params).items()))
     results = {"ring_hits": [], "fused_accept": [], "accept_sweep": [],
-               "lane_pairs": []}
+               "lane_pairs": [], "ring_hits_lanes": []}
     for c in cases:
         got, want = c["fn"](), c["plain"]()
         torch.cuda.synchronize()
@@ -820,6 +917,10 @@ def phase_kernels():
         pms = cuda_ms(c["plain"], c["plain_reps"])
         nb, ops = c["cost"]()
         bms, by = bound_ms(nb, ops)
+        if "some_hits" in c:  # a case that must hit, and miss, somewhere
+            hits = int(got.sum())
+            assert (0 < hits < got.numel() if c["some_hits"] else hits == 0), \
+                (c["case"], hits)
         results[c["kernel"]].append(dict(
             case=c["case"], hits=int(got.sum()), mismatches=mism,
             max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
@@ -854,7 +955,8 @@ ACCEPT_PARTS = ("accept_ring_kernel", "accept_pairs_kernel",
 SWEEP_PARTS = ("accept_pack_kernel", "accept_sweep_kernel")
 PARTS = {"fused_accept": ACCEPT_PARTS, "accept_sweep": SWEEP_PARTS,
          "ring_hits": ("ring_hits_kernel",),
-         "lane_pairs": ("lane_pairs_kernel",)}
+         "lane_pairs": ("lane_pairs_kernel",),
+         "ring_hits_lanes": ("ring_lanes_kernel",)}
 
 
 def kernel_parts(fn, reps, names, tries=5):
@@ -1366,7 +1468,8 @@ def phase_sharded(streams):
     10a-10d: neither fused_accept nor ring_hits may launch on these
     paths; accept_sweep accepts over the lanes' conflict matrix, and
     lane_pairs, which marks its intra-batch pairs on the "range" lanes,
-    must launch in 10a and not in 10b."""
+    and ring_hits_lanes, which walks their rings, must launch in 10a and
+    not in 10b."""
     from foundationdb_tpu_torch import workloads
     from foundationdb_tpu_torch.ops import _kernels
     from foundationdb_tpu_torch.server.cluster import Cluster
@@ -1378,6 +1481,7 @@ def phase_sharded(streams):
                               ("hash", HASH_PRELOAD, HASH_BATCHES)):
         t_mode = time.perf_counter()
         lp0 = _kernels.launches["lane_pairs"]
+        rl0 = _kernels.launches["ring_hits_lanes"]
         c = Cluster(n_resolvers=SHARDED_LANES, resolver_sharding=mode)
         assert len(c.resolvers) == 1 and c.resolvers[0].n_lanes == SHARDED_LANES
         t0 = time.perf_counter()
@@ -1420,10 +1524,13 @@ def phase_sharded(streams):
         del c
         gc.collect()
         r["lane_pairs_launches"] = lp = _kernels.launches["lane_pairs"] - lp0
+        r["ring_hits_lanes_launches"] = rl = (
+            _kernels.launches["ring_hits_lanes"] - rl0)
         assert (lp > 0) == (mode == "range"), (mode, lp)
+        assert (rl > 0) == (mode == "range"), (mode, rl)
         r["seconds"] = time.perf_counter() - t_mode
-        log(f"[sharded {mode}] lane_pairs launches {lp}; "
-            f"{r['seconds']:.3f} s")
+        log(f"[sharded {mode}] lane_pairs launches {lp}, ring_hits_lanes "
+            f"launches {rl}; {r['seconds']:.3f} s")
         report[mode] = r
     return report
 
@@ -5909,7 +6016,11 @@ def main():
             # no TPU kernel: the reference's XLA scatter-add of the
             # presharded lanes' pair counts
             ("lane_pairs", "foundationdb_tpu_torch/csrc/lanes.cu",
-             "foundationdb_tpu/ops/conflict.py:823")):
+             "foundationdb_tpu/ops/conflict.py:823"),
+            # no TPU kernel: the reference's presharded step folds its
+            # lanes' ring checks in jnp
+            ("ring_hits_lanes", "foundationdb_tpu_torch/csrc/ring.cu",
+             "foundationdb_tpu/ops/conflict.py:781")):
         cases = checks[name]
         head = cases[0]
         by_path = {"main": main_launches[name],
@@ -5964,7 +6075,8 @@ def main():
              "ring_hits": ("ring_route",),
              "accept_sweep": ("main", "ring_route",
                               "sharded_and_partitioned", "regions"),
-             "lane_pairs": ("sharded_and_partitioned", "regions")}
+             "lane_pairs": ("sharded_and_partitioned", "regions"),
+             "ring_hits_lanes": ("sharded_and_partitioned", "regions")}
     for k in kernels:
         for path in paths[k["name"]]:
             assert k["launches_by_path"][path] > 0, \
@@ -5972,7 +6084,7 @@ def main():
         assert k["mismatches"] == 0 and k["max_abs_err"] == 0, k["name"]
         # the reference runs no Pallas kernel on the mesh or the
         # partitioned ring: neither ported kernel may launch there
-        if k["name"] not in ("accept_sweep", "lane_pairs"):
+        if k["name"] not in ("accept_sweep", "lane_pairs", "ring_hits_lanes"):
             assert k["launches_by_path"]["sharded_and_partitioned"] == 0, \
                 k["name"]
         # the host resolvers run no kernel, as in the reference

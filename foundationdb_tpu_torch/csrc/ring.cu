@@ -71,3 +71,77 @@ extern "C" int fdb_ring_hits(const void* qlo, const void* qhi,
       (const bool*)ring_mask, Q, KR, W, point_mode, (bool*)out);
   return (int)cudaGetLastError();
 }
+
+// ring_hits_lanes: the same check for the n resolver lanes of the
+// presharded ("range") step (ops/conflict.py resolve_batch_presharded),
+// each lane's query slots against that lane's own ring.
+//
+// Replaces the broadcast torch form of that step (ops/ring.py
+// ring_hits_plain over the lanes, still its CPU form), which folds
+// ops/intervals.py's lex compares limb by limb over every [n, Q, KR]
+// slot pair, live or not: 29.4M elements for 2,392 point-read slots
+// and 14.7M for 1,200 range-read slots a lane at n = 3, KR = 4096,
+// W = 9, about 7 ms of device time a batch on an NVIDIA H100 80GB HBM3
+// (700 W). The JAX package runs that fold under XLA: it has no ring
+// kernel for its lanes.
+//
+// Design: the single resolver's walk (lex.cuh ring_walk) as it stands,
+// with the lanes on the grid's z axis: each block offsets its query rows
+// and its ring slice by blockIdx.z, so a block sees one lane's 128
+// queries and one 32-entry tile of that lane's ring. The walk culls the
+// tile to live entries newer than its queries' oldest read version and
+// exits before it reads a limb when none is left, so an empty ring (a
+// YCSB-A lane's, which no range write reaches) costs each block its 32
+// mask bytes and versions.
+//
+// Layout: qlo, qhi int64[n, Q, W]; rv int64[n, Q] (each slot's txn's
+// read version); ring_b, ring_e int64[n, KR, W]; ring_v int64[n, KR];
+// ring_mask bool[n, KR]; out bool[n, Q], zeroed on the stream first.
+
+__global__ void ring_lanes_kernel(const int64_t* __restrict__ qlo,
+                                  const int64_t* __restrict__ qhi,
+                                  const int64_t* __restrict__ rv,
+                                  const int64_t* __restrict__ ring_b,
+                                  const int64_t* __restrict__ ring_e,
+                                  const int64_t* __restrict__ ring_v,
+                                  const bool* __restrict__ ring_mask, int Q,
+                                  int KR, int W, int point_mode,
+                                  bool* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  const size_t lane = blockIdx.z;
+  const int q = blockIdx.x * FDB_RING_QUERIES + threadIdx.x;
+  const bool active = q < Q;
+  const size_t slot = lane * Q + (active ? q : 0);
+  const size_t row = slot * W;
+  const uint32_t v = active ? (uint32_t)rv[slot] : 0u;
+  const size_t ring = lane * KR;
+  if (ring_walk(qlo + row, qhi + row, v, point_mode != 0, active,
+                ring_b + ring * W, ring_e + ring * W, ring_v + ring,
+                ring_mask + ring, KR, W, smem))
+    out[slot] = true;
+}
+
+extern "C" int fdb_ring_hits_lanes(const void* qlo, const void* qhi,
+                                   const void* rv, const void* ring_b,
+                                   const void* ring_e, const void* ring_v,
+                                   const void* ring_mask, int n, int Q,
+                                   int KR, int W, int point_mode, void* out,
+                                   void* stream) {
+  if (n <= 0 || Q <= 0) return 0;
+  if (W < 1 || W > FDB_MAX_W || KR < 0 || KR > FDB_RING_MAX_KR ||
+      n > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)n * Q, st);
+  if (err != cudaSuccess || KR == 0) return (int)err;
+  const size_t smem = ring_walk_smem_bytes(W);
+  if ((err = allow_smem(ring_lanes_kernel, smem)) != cudaSuccess)
+    return (int)err;
+  dim3 grid = ring_walk_grid(Q, KR);
+  grid.z = n;
+  ring_lanes_kernel<<<grid, FDB_RING_QUERIES, smem, st>>>(
+      (const int64_t*)qlo, (const int64_t*)qhi, (const int64_t*)rv,
+      (const int64_t*)ring_b, (const int64_t*)ring_e, (const int64_t*)ring_v,
+      (const bool*)ring_mask, Q, KR, W, point_mode, (bool*)out);
+  return (int)cudaGetLastError();
+}

@@ -38,14 +38,15 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points per source: name → argtypes (restype is c_int)
 _SIGNATURES = {
-    "ring": {"fdb_ring_hits": [_P] * 7 + [_I] * 4 + [_P, _P]},
+    "ring": {"fdb_ring_hits": [_P] * 7 + [_I] * 4 + [_P, _P],
+             "fdb_ring_hits_lanes": [_P] * 7 + [_I] * 5 + [_P, _P]},
     "accept": {"fdb_fused_accept": [_P] * 18 + [_I] * 8 + [_P] * 4,
                "fdb_accept_sweep": [_P, _P, _I, _P, _P, _P]},
     "lanes": {"fdb_lane_pairs": [_P] * 17 + [_I] * 7 + [_P, _P]},
 }
 
 launches = {"ring_hits": 0, "fused_accept": 0, "accept_sweep": 0,
-            "lane_pairs": 0}
+            "lane_pairs": 0, "ring_hits_lanes": 0}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per source
 build_logs = {}
 

@@ -28,9 +28,12 @@ statuses and the same state after every batch. Three layouts:
 
 The ring and accept kernels run only on the single-device flat ring, as
 in the JAX package (which turns its Pallas kernels off for lanes and for
-the partitioned ring). The presharded step marks its lanes' conflicting
-pairs with its own kernel on a card (ops/lanes.py, csrc/lanes.cu), where
-the JAX package scatter-adds pair counts.
+the partitioned ring). The presharded step has kernels of its own on a
+card: it marks its lanes' conflicting pairs (ops/lanes.py,
+csrc/lanes.cu), where the JAX package scatter-adds pair counts, and
+walks each lane's ring with the ring kernel's walk (ops/ring.py
+``ring_hits_lanes``), where the JAX package folds the [n, Q, KR]
+broadcast.
 
 1. **Point-version hash table** ``ht[2^HB]``: max commit-version offset
    per key-hash bucket (scatter-max on write, gather on read).
@@ -78,9 +81,8 @@ from foundationdb_tpu_torch.ops.accept import (
     fused_accept,
     sweep_accept,
 )
-from foundationdb_tpu_torch.ops.intervals import point_in, ranges_overlap
 from foundationdb_tpu_torch.ops.lanes import lane_pairs
-from foundationdb_tpu_torch.ops.ring import ring_slot_hits
+from foundationdb_tpu_torch.ops.ring import ring_hits_lanes, ring_slot_hits
 
 
 # the slot of init_counters' tensor (utils/deviceprofile.py STEP_COUNTERS
@@ -660,10 +662,10 @@ def resolve_batch_presharded(state: ResolverState, sb: ShardBatch,
         hit = (state.ht[(lane_ids << HB) + (sb.pr_hash & hb_mask)] > rv_q) \
             & sb.pr_mask
         if params.range_writes:
-            in_rng = point_in(sb.pr_key[:, :, None, :], rb[:, None],
-                              re[:, None])  # [n, Qpr, KR]
-            newer = (rvv[:, None, :] > rv_q[:, :, None]) & rm[:, None, :]
-            hit |= (in_rng & newer).any(dim=2) & sb.pr_mask
+            # each lane's slots against its own ring: csrc/ring.cu's lane
+            # walk on a card, the [n, Q, KR] broadcast form on the CPU
+            hit |= ring_hits_lanes(sb.pr_key, sb.pr_key, rv_q, rb, re, rvv,
+                                   rm, point_mode=True) & sb.pr_mask
             bk = sb.pr_bucket.to(torch.int64)
             coarse = torch.minimum(pref_L[bk], suf_R[bk])
             hit |= (coarse > rv_q) & sb.pr_mask
@@ -674,10 +676,8 @@ def resolve_batch_presharded(state: ResolverState, sb: ShardBatch,
         rv_q = rv[txn]  # [n, Qrr]
         hit = torch.zeros((n, Qrr), dtype=torch.bool, device=dev)
         if params.range_writes:
-            ov = ranges_overlap(sb.rr_b[:, :, None, :], sb.rr_e[:, :, None, :],
-                                rb[:, None], re[:, None])  # [n, Qrr, KR]
-            newer = (rvv[:, None, :] > rv_q[:, :, None]) & rm[:, None, :]
-            hit |= (ov & newer).any(dim=2) & sb.rr_mask
+            hit |= ring_hits_lanes(sb.rr_b, sb.rr_e, rv_q, rb, re, rvv, rm,
+                                   point_mode=False) & sb.rr_mask
             coarse_rng = torch.minimum(pref_L[sb.rr_hi.to(torch.int64)],
                                        suf_R[sb.rr_lo.to(torch.int64)])
             hit |= (coarse_rng > rv_q) & sb.rr_mask
@@ -741,8 +741,10 @@ def validate_presharded_params(params: ResolverParams):
     if params.use_ring_kernel or params.use_accept_kernel:
         raise ValueError(
             "the presharded step takes neither the ring nor the accept "
-            "kernel: they take the dense [T, K] layout (ignoring an "
-            "explicit kernel request would misattribute measurements)")
+            "kernel: they take the dense [T, K] layout, and the lanes walk "
+            "their rings with ring_hits_lanes on a card without a flag "
+            "(ignoring an explicit kernel request would misattribute "
+            "measurements)")
     if params.ring_partition_bits:
         raise ValueError(
             "ring_partition_bits is a single-device layout; the presharded "

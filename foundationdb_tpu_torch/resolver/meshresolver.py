@@ -26,8 +26,10 @@ Two lane-ownership schemes, chosen by ``knobs.resolver_sharding``:
 commit proxy sees one resolver and drives its single-resolver path,
 ``resolve_many``'s backlog scan included. Neither ported TPU kernel
 runs here: the JAX package turns its Pallas kernels off on the mesh, so
-the lanes run the plain torch step, with greedy acceptance by
-``sweep_accept`` on a card. The steps are compiled as the single
+the lanes run the torch step, with greedy acceptance by ``sweep_accept``
+on a card; on a card the "range" lanes also mark their pairs with
+``lane_pairs`` and walk their rings with ``ring_hits_lanes``
+(ops/lanes.py, ops/ring.py). The steps are compiled as the single
 resolver's are (keys (variant, B), and (variant, k, B) for the "range"
 router's k txn slices).
 
@@ -76,8 +78,9 @@ class MeshResolver(Resolver):
         # one lane per requested resolver: the lanes are a tensor axis of
         # one card, so nothing clamps them to a device count
         self.n_lanes = max(1, int(n_lanes or 1))
-        # both kernels stay off and the ring flat: the lanes shard the
-        # ring by bucket already, and the kernels take one flat ring
+        # both kernel flags stay off and the ring flat: the lanes shard
+        # the ring already, and those kernels take one flat ring (the
+        # "range" step walks its lanes' rings with its own kernel)
         self.params = params_from_knobs(knobs)._replace(ring_partition_bits=0)
         self.packer = BatchPacker(self.params)
         self.sharding = knobs.resolver_sharding
@@ -96,8 +99,10 @@ class MeshResolver(Resolver):
                 self.params, self.n_lanes, self.device,
                 make_state=history is None)
             self._router = ShardRouter(self.params, self.n_lanes)
-            # no point-specialized twin: the compacted layout skips dead
-            # sides per entry already
+            # no point-specialized twin: on a card a lane's ring walk
+            # culls every ring tile with no live entry newer than its
+            # queries before it reads a key, so a point-only batch's ring
+            # checks cost a mask read a tile
         else:
             self._kernel = ShardedResolverKernel(
                 self.params, self.n_lanes, self.device,

@@ -29,6 +29,7 @@ from foundationdb_tpu_torch.convert import (
     tensor_from_numpy,
 )
 from foundationdb_tpu_torch.core.options import Knobs
+from foundationdb_tpu_torch.core.status import CONFLICT
 from foundationdb_tpu_torch.ops import _kernels
 from foundationdb_tpu_torch.ops import conflict as ck
 from foundationdb_tpu_torch.ops.accept import (
@@ -48,10 +49,15 @@ from foundationdb_tpu_torch.ops.accept import (
 from foundationdb_tpu_torch.ops.lanes import lane_pairs, lane_pairs_plain
 from foundationdb_tpu_torch.ops.ring import (
     ring_hits,
+    ring_hits_lanes,
     ring_hits_plain,
     ring_slot_hits,
 )
-from foundationdb_tpu_torch.parallel.mesh import _SHARD_REPLICATED, lane_view
+from foundationdb_tpu_torch.parallel.mesh import (
+    _SHARD_REPLICATED,
+    PreshardedResolverKernel,
+    lane_view,
+)
 from foundationdb_tpu_torch.resolver.packing import BatchPacker, ShardRouter
 from foundationdb_tpu_torch.resolver.resolver import Resolver
 from foundationdb_tpu_torch.resolver.skiplist import TxnRequest
@@ -59,7 +65,13 @@ from foundationdb_tpu_torch.server.cluster import Cluster
 from foundationdb_tpu_torch import workloads
 from foundationdb_tpu_torch.workloads import STREAMS
 
-from torch_ring_cases import RING_SCENARIOS, V0, ring_scenario
+from torch_ring_cases import (
+    LANE_RINGS,
+    RING_SCENARIOS,
+    V0,
+    lane_ring_case,
+    ring_scenario,
+)
 from torch_ring_cases import keys as _keys
 from torch_ring_cases import versions as _versions
 
@@ -339,10 +351,10 @@ def test_cluster_on_card_equals_cpu(cuda, name, pack_path):
 @pytest.mark.parametrize("mode", ["range", "hash"])
 def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
     """Cluster(n_resolvers=3): the lane fleet on the card and on the CPU
-    give the same outcomes, rows and state, and launch neither ported
-    TPU kernel (the lanes run the plain torch step, as the JAX mesh runs
-    jnp), only the sweep that accepts over their conflict matrix and, on
-    the "range" lanes, lane_pairs, which builds it."""
+    give the same outcomes, rows and state, and launch neither the accept
+    kernel nor the one-ring walk (ring_hits), only the sweep that accepts
+    over their conflict matrix and, on the "range" lanes, lane_pairs,
+    which builds it, and ring_hits_lanes, their rings' walk."""
     from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 
     gpu = Cluster(n_resolvers=3, resolver_sharding=mode, **CLUSTER_KNOBS)
@@ -357,6 +369,7 @@ def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
     assert _kernels.launches["ring_hits"] == 0
     assert _kernels.launches["accept_sweep"] > 0
     assert (_kernels.launches["lane_pairs"] > 0) == (mode == "range")
+    assert (_kernels.launches["ring_hits_lanes"] > 0) == (mode == "range")
     assert got[0] == want[0] and 1020 in got[0]
     assert got[1] == want[1]
     for f, a, b in zip(ck.ResolverState._fields, got[2], want[2]):
@@ -551,6 +564,121 @@ def test_lane_pairs_kernel_on_random_slots(cuda, shape, live):
     want = lane_pairs_plain(v, T)
     assert torch.equal(lane_pairs(v, T), want)
     assert want.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring", LANE_RINGS)
+@pytest.mark.parametrize("point_mode,n,Q,KR,W", [
+    # resolvers3.ycsb_a's shapes: 2,392 point-read and 1,200 range-read
+    # slots a lane, a 4,096-entry ring a lane, 9 limbs
+    (True, 3, 2392, 4096, 9), (False, 3, 1200, 4096, 9),
+    # Q off the walk's 128-query tile, KR off its 32-entry ring tile
+    (True, 2, 129, 37, 3), (False, 8, 300, 785, 5)])
+def test_ring_hits_lanes_matches_plain(cuda, ring, point_mode, n, Q, KR, W):
+    """csrc/ring.cu's lane walk against the broadcast form
+    (ring_hits_plain over the lanes), bit for bit, on the ring states of
+    the CPU tests (tests/torch_ring_cases.py lane_ring_case); one launch
+    a call."""
+    args = [_t(a, cuda) for a in lane_ring_case(
+        ring, np.random.default_rng(n + Q + LANE_RINGS.index(ring)), n, Q,
+        KR, W)]
+    _kernels.reset_launches()
+    got = ring_hits_lanes(*args, point_mode=point_mode)
+    torch.cuda.synchronize()
+    assert _kernels.launches["ring_hits_lanes"] == 1
+    want = ring_hits_plain(*args, point_mode=point_mode)
+    assert got.dtype == torch.bool and got.shape == (n, Q)
+    assert torch.equal(got, want)
+    if ring == "empty":
+        assert not want.any()
+    else:
+        assert 0 < int(want.sum()) < n * Q
+
+
+@pytest.mark.gpu
+def test_ring_hits_lanes_rejects_what_the_kernel_does_not_take(cuda):
+    args = [_t(a, cuda) for a in lane_ring_case(
+        "wrapped", np.random.default_rng(0), 3, 40, 64, 5)]
+    for i, t in {0: args[0].cpu(), 2: args[2][:, :39],
+                 6: args[6].to(torch.int64)}.items():
+        with pytest.raises(ValueError, match="ring_hits_lanes"):
+            ring_hits_lanes(*args[:i], t, *args[i + 1:])
+
+
+def _presharded_stream(params, n, seed, dev):
+    """250 ShardBatches of the router (lists of txn slices on the card):
+    YCSB-A's shape (every key in lane 1) and, every fifth batch, the
+    spread range mix, whose range writes fill the lanes' rings; read
+    versions lag up to 300 versions of 64-version batches."""
+    rng = np.random.default_rng(seed)
+    packer = BatchPacker(params, use_native=False)
+    router = ShardRouter(params, n)
+    out, cv = [], 1000
+    for i in range(250):
+        cv += 64
+        txns = _lane_txns("spread" if i % 5 == 4 else "one_lane",
+                          params.txns, rng)
+        for t in txns:
+            t.read_version = cv - 1 - int(rng.integers(0, 300))
+        b = packer.pack(txns, 0, cv, max(0, cv - 5000))
+        sb, _, _ = router.split(
+            ck.ResolveBatch(*(np.stack([np.asarray(f)]) for f in b)))
+        sb = shard_batch_from_numpy(sb, dev)
+        out.append([ck.ShardBatch(*(f[j] for f in sb))
+                    for j in range(sb.rv.shape[0])])
+    return out
+
+
+@pytest.mark.gpu
+def test_presharded_step_on_card_equals_cpu(cuda):
+    """The presharded step on the card, whose ring checks are
+    ring_hits_lanes' walk, and on the CPU, whose are the broadcast form,
+    each on its own state, over 200 YCSB-A-shaped batches and 50 of the
+    range mix interleaved: the same statuses, accepted bits and state
+    after every batch."""
+    base = ck.ResolverParams(txns=256, **LANE_SHAPE)
+    card = PreshardedResolverKernel(base, 3, cuda)
+    cpu = PreshardedResolverKernel(base, 3, torch.device("cpu"))
+    _kernels.reset_launches()
+    slices = conflicts = 0
+    for got_b, want_b in zip(_presharded_stream(base, 3, 5, cuda),
+                             _presharded_stream(base, 3, 5, "cpu")):
+        for sb, sb_cpu in zip(got_b, want_b):
+            got = card._step(card.state, sb)
+            want = cpu._step(cpu.state, sb_cpu)
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+            conflicts += int((want[0] == CONFLICT).sum())
+            slices += 1
+        for f, a, b in zip(ck.ResolverState._fields, card.state, cpu.state):
+            assert torch.equal(a.cpu(), b), f
+    assert _kernels.launches["ring_hits_lanes"] == 2 * slices
+    assert conflicts > 0 and int(cpu.state.ring_mask.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_range_lanes_capture_the_ring_walk_once_per_query_kind(cuda):
+    """MeshResolver("range") on the card: each captured step holds one
+    ring_hits_lanes launch per query kind (point reads, range reads) a
+    txn slice, and every replay adds them."""
+    from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
+
+    stream = STREAMS["mixed"](6, txns=64, seed=3, nkeys=5000, lag=300)
+    r = MeshResolver(Knobs(**SMALL, resolver_sharding="range"), n_lanes=3)
+    r.resolve(*stream[0])
+    runs = {sig: step.runs for sig, step in r._steps._steps.items()}
+    _kernels.reset_launches()
+    for b in stream[1:]:
+        r.resolve(*b)
+    want = 0
+    for sig, step in r._steps._steps.items():
+        _fast, k, B = sig[0]
+        assert step.held["ring_hits_lanes"] == 2 * k * B, (sig[0], step.held)
+        assert step.held["lane_pairs"] == k * B, (sig[0], step.held)
+        # each replay, and the warm-up of a step captured in the loop
+        replays = step.runs - runs.get(sig, 0)
+        want += (replays + (sig not in runs)) * step.held["ring_hits_lanes"]
+    assert _kernels.launches["ring_hits_lanes"] == want >= 2 * 5
 
 
 @pytest.mark.gpu
@@ -972,15 +1100,17 @@ def test_launches_are_counted_on_every_replay(cuda):
     # the full variant on the ring route: ring_hits for point and range
     # reads, then accept_sweep; warm-up + replay
     assert first == {"ring_hits": 4, "fused_accept": 0, "accept_sweep": 2,
-                     "lane_pairs": 0}
+                     "lane_pairs": 0, "ring_hits_lanes": 0}
     for b in stream[1:]:
         r.resolve(*b)
     assert _kernels.launches == {"ring_hits": 2 * 6, "fused_accept": 0,
-                                 "accept_sweep": 1 + 5, "lane_pairs": 0}
+                                 "accept_sweep": 1 + 5, "lane_pairs": 0,
+                                 "ring_hits_lanes": 0}
     _kernels.reset_launches()
     r.resolve_many(stream[:3])  # pads to BACKLOG_B: 8 steps in one graph
     assert _kernels.launches == {"ring_hits": 2 * 8 * 2, "fused_accept": 0,
-                                 "accept_sweep": 8 * 2, "lane_pairs": 0}
+                                 "accept_sweep": 8 * 2, "lane_pairs": 0,
+                                 "ring_hits_lanes": 0}
 
 
 @pytest.mark.gpu

@@ -14,6 +14,10 @@ tolerance 0, every value is an integer or a bit.
 - the presharded step's pair relation (``ops/lanes.lane_pairs_plain``)
   against a brute-force loop over each lane's live slot pairs, at n = 1,
   2, 3 and 8 and with k > 1 txn slices;
+- the lanes' ring check (``ops/ring.ring_hits_lanes``, whose CPU form
+  is ``ring_hits_plain`` over the lane axis) against ``ring_hits_plain``
+  lane by lane, n = 1 and 3, on empty, partly full, wrapped and
+  differing rings;
 - the "hash" step at n = 2 and 3;
 - ``MeshResolver`` in both modes, ``resolve`` and ``resolve_many``;
 - ``Cluster(n_resolvers=3)`` in both modes against the JAX cluster on
@@ -43,6 +47,7 @@ from foundationdb_tpu_torch.convert import (
     shard_batch_to_numpy,
     state_from_numpy,
     state_to_numpy,
+    tensor_from_numpy,
 )
 from foundationdb_tpu_torch.core.errors import FDBError as TError
 from foundationdb_tpu_torch.core.options import Knobs as TKnobs
@@ -50,6 +55,7 @@ from foundationdb_tpu_torch.ops import conflict as tck
 from foundationdb_tpu_torch.ops.accept import READ_SENTINEL, WRITE_SENTINEL
 from foundationdb_tpu_torch.ops.intervals import point_in, ranges_overlap
 from foundationdb_tpu_torch.ops.lanes import lane_pairs_plain
+from foundationdb_tpu_torch.ops.ring import ring_hits_lanes, ring_hits_plain
 from foundationdb_tpu_torch.parallel import mesh as tpm
 from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 from foundationdb_tpu_torch.resolver.packing import ShardRouter
@@ -57,6 +63,7 @@ from foundationdb_tpu_torch.resolver.skiplist import TxnRequest as TTxn
 from foundationdb_tpu_torch.server.cluster import Cluster as TCluster
 
 from tests.conftest import TEST_KNOBS
+from tests.torch_ring_cases import LANE_RINGS, lane_ring_case
 
 torch.set_num_threads(1)
 
@@ -312,6 +319,122 @@ def test_chip_smoke_lane_cases_at_the_cell_shapes():
             assert nb > T * T and ops >= marks > 0
     (v,) = cases["ycsb_a"]
     assert chip_smoke.lane_pairs_cost(v, T)[1] == T * T
+
+
+@pytest.mark.parametrize("point_mode", [True, False])
+@pytest.mark.parametrize("ring", LANE_RINGS)
+@pytest.mark.parametrize("n", [1, 3])
+def test_ring_hits_lanes_matches_ring_hits_plain_lane_by_lane(
+        n, ring, point_mode):
+    """The lanes' ring check on CPU tensors against ring_hits_plain run
+    lane by lane, each lane's slots against its own ring: the same
+    bits."""
+    Q, KR = 300, 200
+    args = [tensor_from_numpy(a) for a in lane_ring_case(
+        ring, np.random.default_rng(n + LANE_RINGS.index(ring)), n, Q, KR,
+        5)]
+    want = torch.stack([ring_hits_plain(*(a[j] for a in args),
+                                        point_mode=point_mode)
+                        for j in range(n)])
+    got = ring_hits_lanes(*args, point_mode=point_mode)
+    assert got.dtype == torch.bool and got.shape == (n, Q)
+    assert torch.equal(got, want)
+    if ring == "empty" or (ring == "lanes differ" and n > 1):
+        assert not want[0].any()
+    if ring != "empty":
+        assert 0 < int(want.sum()) < n * Q
+    if ring == "read versions filter":
+        # the read versions hide live entries that would hit
+        older = ring_hits_lanes(*args[:2], torch.zeros_like(args[2]),
+                                *args[3:], point_mode=point_mode)
+        assert (older & ~want).any()
+
+
+def test_ring_hits_lanes_rejects_what_the_kernel_does_not_take():
+    """The wrapper checks shapes and dtypes on the CPU too, before its
+    plain form runs."""
+    args = [tensor_from_numpy(a) for a in lane_ring_case(
+        "wrapped", np.random.default_rng(0), 3, 40, 64, 5)]
+    bad = {0: args[0][:, :, :4],          # qlo narrower than qhi
+           2: args[2].to(torch.int32),    # rv int32
+           3: args[3][:2],                # ring_b of two lanes
+           5: args[5][:, :63],            # ring_v one entry short
+           6: args[6].to(torch.int64)}    # ring_mask not bool
+    for i, t in bad.items():
+        with pytest.raises(ValueError, match="ring_hits_lanes"):
+            ring_hits_lanes(*args[:i], t, *args[i + 1:])
+    wide = [a.repeat_interleave(4, dim=-1) if a.dim() == 3 else a
+            for a in args]  # 20 limbs: wider than the kernels take
+    with pytest.raises(ValueError, match="key width"):
+        ring_hits_lanes(*wide)
+
+
+def test_presharded_params_refuse_both_kernel_flags():
+    """validate_presharded_params refuses the ring and accept kernels'
+    flags (the lanes' ring walk runs on a card without one), and
+    MeshResolver("range") leaves them off whatever ring_kernel says."""
+    for bad in (dict(use_ring_kernel=True), dict(use_accept_kernel=True)):
+        with pytest.raises(ValueError, match="presharded"):
+            tck.validate_presharded_params(TPARAMS._replace(**bad))
+    for ring_kernel in ("on", "off", "auto"):
+        r = MeshResolver(TKnobs(resolver_sharding="range",
+                                ring_kernel=ring_kernel, **KNOBS),
+                         n_lanes=3, device="cpu")
+        assert not r.params.use_ring_kernel, ring_kernel
+
+
+def test_chip_smoke_ring_lane_cases():
+    """chip_smoke.py's ring_hits_lanes cases, built on the CPU at small
+    widths (T = 64, KR = 256): the YCSB-A lane view's point-read slots
+    and the spread view's range-read slots against a fresh ring a lane,
+    where nothing hits and the bound charges only the masks and the hit
+    bits, and against a full ring rolled and cut differently in each
+    lane, where some slots hit and others do not. Each case's call
+    equals its plain version, and in the full-ring cases a walk of lane
+    0's ring for every lane (a kernel that lost its lane offset) gives
+    other bits."""
+    import chip_smoke
+    from foundationdb_tpu_torch.resolver.resolver import params_from_knobs
+
+    params = params_from_knobs(TKnobs(
+        batch_txn_capacity=64, key_limbs=3, hash_table_bits=12,
+        range_ring_capacity=256, coarse_buckets_bits=8))
+    T, W, KR = params.txns, params.key_width, params.ring_capacity
+    views = chip_smoke.lane_batches(params, "cpu")
+    g = np.random.default_rng(4)
+    full = tck.init_state(params, "cpu")
+    # user keys' ranges: YCSB-A's live keys as begins, one limb step on
+    live = views["ycsb_a"][0].pr_key[1, :T]
+    full.ring_b.copy_(live[torch.tensor(g.integers(0, T, KR))])
+    full.ring_e.copy_(full.ring_b)
+    full.ring_e[:, W - 2] += 1
+    full.ring_v.copy_(torch.tensor(g.integers(100, 200, KR)))
+    full.ring_mask.fill_(True)
+    rv = torch.tensor(g.integers(0, 200, T))
+    cases = chip_smoke.ring_lane_cases(params, views, full, rv)
+    n = chip_smoke.SHARDED_LANES
+    Qpr = views["ycsb_a"][0].pr_txn.shape[1]
+    Qrr = views["spread"][0].rr_txn.shape[1]
+    assert [c["case"] for c in cases] == [
+        f"{m} n={n} Q={q} KR={KR} W={W}, {r}"
+        for r in ("empty ring", "full ring, rolled and cut by lane")
+        for m, q in (("point", Qpr), ("range", Qrr))]
+    for c in cases:
+        got = c["fn"]()
+        assert torch.equal(got, c["plain"]())
+        nb, ops = c["cost"]()
+        hits = int(got.sum())
+        if not c["some_hits"]:
+            assert hits == 0 and ops == 0
+            assert nb == n * KR + 2 * got.numel()  # the masks, the hit bits
+            continue
+        assert 0 < hits < got.numel() and ops > 0
+        qlo, qhi, rvq, rb, re, rvv, rm = c["fn"].__defaults__[0]
+        lane0 = [t[:1].expand_as(t) for t in (rb, re, rvv, rm)]
+        point = c["case"].startswith("point")
+        assert not torch.equal(
+            got, ring_hits_plain(qlo, qhi, rvq, *lane0, point_mode=point))
+    assert int(cases[2]["fn"]()[1:].sum()) > 0  # range hits past lane 0
 
 
 @pytest.mark.parametrize("n", [2, 3])
