@@ -84,21 +84,17 @@ Phases:
      verbatim replay, its body run once;
  10. the lane-sharded resolver (BASELINE config 5's 3 Resolvers), launch
      counts zeroed first (fused_accept and ring_hits must launch 0 times,
-     as the reference runs no Pallas kernel on the mesh or the
-     partitioned ring; accept_sweep accepts over their conflict
-     matrix, and lane_pairs marks its pairs and ring_hits_lanes walks
-     the rings of the "range" lanes, so both must launch in (a) and not
-     in (b)): (a) Cluster(n_resolvers=3) on
-     the card in "range" mode, SHARDED_PRELOAD rows, the range-heavy
-     stream as client requests, 12 commit_batch then one commit_batches
-     of 12 (committed txns/s,
-     per-batch p50 / p99 / slowest, the router's per-lane entries and
-     chunk factors, the card memory of the lanes' state); (b) the same
-     in "hash" mode at a smaller preload and depth; (c) a card and a CPU
-     3-lane cluster in both modes, the same small preload and first
-     range-heavy and mixed batches: outcomes, rows and state equal;
-     (d) Resolver(ring_partition_bits=2) on the range-heavy and mixed
-     streams (12 resolve, one resolve_many of 12), then a CPU replay;
+     as the reference runs no Pallas kernel on the mesh; accept_sweep
+     accepts over the lanes' conflict matrix, lane_pairs marks its pairs
+     and ring_hits_lanes walks the lanes' rings, so all three must
+     launch): (a) Cluster(n_resolvers=3) on the card, its lanes sharded
+     by key range, SHARDED_PRELOAD rows, the range-heavy stream as
+     client requests, 12 commit_batch then one commit_batches of 12
+     (committed txns/s, per-batch p50 / p99 / slowest, the router's
+     per-lane entries and chunk factors, the card memory of the lanes'
+     state); (b) a card and a CPU 3-lane cluster, the same small preload
+     and first range-heavy and mixed batches: outcomes, rows and state
+     equal;
  11. (run after 7) the compiled step against the eager step: for each
      stream of phase 4 and the ring route, a Resolver whose steps are
      graph replays and a twin whose steps are ops/conflict.resolve_batch
@@ -366,12 +362,9 @@ CLUSTER_CLIENT_TXNS = 512  # a p99 over 512 calls is the 6th slowest
 CLUSTER_BATCHES = 12  # per stream through commit_batch, then one backlog
 CLUSTER_REPLAY_PRELOAD = 2048
 SHARDED_LANES = 3  # BASELINE config 5: "3 Resolvers sharded"
-HASH_PRELOAD = 100_000  # phase 10b's preload
-# phase 10a's preload: config 2's 1M rows cut tenfold, as phases 10b and
-# 14-16 were (at 1M its preload took 77.7 s of a run with a 900 s limit)
-SHARDED_PRELOAD = HASH_PRELOAD
-HASH_BATCHES = 4  # phase 10b: commit_batch calls, then a backlog as deep
-PARTITION_BITS = 2  # phase 10d: 4 sub-rings of 1024
+# phase 10a's preload: config 2's 1M rows cut tenfold, as phases 14-16
+# were (at 1M its preload took 77.7 s of a run with a 900 s limit)
+SHARDED_PRELOAD = 100_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # no integer peak is published for the CUDA cores; the non-tensor
 # float32 rate is the fastest rate any 32-bit scalar op could retire at,
@@ -1117,15 +1110,14 @@ def device_profile(fn, top=4):
                      for name, us in ranked])
 
 
-def phase_main(streams, knobs, label, reset=True):
+def phase_main(streams, knobs, label):
     from foundationdb_tpu_torch.core.status import COMMITTED
     from foundationdb_tpu_torch.ops import _kernels
     from foundationdb_tpu_torch.resolver.resolver import Resolver
 
     report = {}
     resolvers = {}
-    if reset:
-        reset_counts()
+    reset_counts()
     for name, stream in streams.items():
         r = Resolver(knobs)
         t0 = time.perf_counter()
@@ -1156,8 +1148,7 @@ def phase_main(streams, knobs, label, reset=True):
             f"{report[name]['resolve_many_txns_per_s']:.0f} txns/s (backlogs "
             + ", ".join(f"{ms:.3f}" for ms in backlog_ms) + " ms)")
     launches = dict(_kernels.launches)
-    if reset:
-        report["graphs"] = graph_report(label)
+    report["graphs"] = graph_report(label)
     for name, (r, _) in resolvers.items():
         use_fast = r._fast_packer is not None and not r._range_history
         pack_ms, step_ms, prof = step_split(r, streams[name][:8], use_fast)
@@ -1175,16 +1166,14 @@ def phase_main(streams, knobs, label, reset=True):
     return report, launches
 
 
-def phase_replay(streams, knobs=None, label="replay"):
+def phase_replay(streams):
     """The first batches of each stream on the card and on the CPU: the
     statuses and the state must be equal."""
     from foundationdb_tpu_torch.convert import state_to_numpy
-    from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
     from foundationdb_tpu_torch.resolver.resolver import Resolver
 
-    knobs = knobs or DEFAULT_KNOBS
     for name, stream in streams.items():
-        gpu, cpu = Resolver(knobs), Resolver(knobs, device="cpu")
+        gpu, cpu = Resolver(), Resolver(device="cpu")
         first = stream[:REPLAY_BATCHES]
         got = [gpu.resolve(*b) for b in first[:2]] + gpu.resolve_many(first[2:])
         want = [cpu.resolve(*b) for b in first[:2]] + cpu.resolve_many(first[2:])
@@ -1192,7 +1181,7 @@ def phase_replay(streams, knobs=None, label="replay"):
         for f, a, b in zip(gpu.state._fields, state_to_numpy(gpu.state),
                            state_to_numpy(cpu.state)):
             assert np.array_equal(a, b), f"{name}: state field {f} differs"
-        log(f"[{label} {name}] {REPLAY_BATCHES} batches: card == CPU "
+        log(f"[replay {name}] {REPLAY_BATCHES} batches: card == CPU "
             f"(statuses and 12 state fields)")
 
 
@@ -1453,144 +1442,115 @@ def lanes_report(c):
     """The lane fleet's router balance and the card memory its state
     holds (the lanes' global arrays, int64 for uint32 quantities)."""
     r = c.resolvers[0]
-    routed = r._router is not None
     return dict(lanes=r.n_lanes, sharding=r.sharding,
-                lane_entries=r.lane_entries.tolist() if routed else None,
-                split_chunks=({str(k): v for k, v in sorted(r.split_chunks.items())}
-                              if routed else None),
+                lane_entries=r.lane_entries.tolist(),
+                split_chunks={str(k): v for k, v in sorted(r.split_chunks.items())},
                 state_bytes=sum(t.numel() * t.element_size() for t in r.state),
                 state_device=str(r.state.ht.device))
 
 
 def phase_sharded(streams):
-    """Phase 10a and 10b: Cluster(n_resolvers=3) on the card in "range"
-    and "hash" mode. Launch counts are zeroed first and read last, over
-    10a-10d: neither fused_accept nor ring_hits may launch on these
-    paths; accept_sweep accepts over the lanes' conflict matrix, and
-    lane_pairs, which marks its intra-batch pairs on the "range" lanes,
-    and ring_hits_lanes, which walks their rings, must launch in 10a and
-    not in 10b."""
+    """Phase 10a: Cluster(n_resolvers=3) on the card, its lanes sharded by
+    key range. Launch counts are zeroed first and read last, over 10a and
+    10b: neither fused_accept nor ring_hits may launch on this path;
+    accept_sweep accepts over the lanes' conflict matrix, and lane_pairs,
+    which marks its intra-batch pairs, and ring_hits_lanes, which walks
+    their rings, must launch in 10a."""
     from foundationdb_tpu_torch import workloads
     from foundationdb_tpu_torch.ops import _kernels
     from foundationdb_tpu_torch.server.cluster import Cluster
 
     reset_counts()
-    report = {}
     value = b"u" * workloads.FIELD_BYTES
-    for mode, rows, depth in (("range", SHARDED_PRELOAD, CLUSTER_BATCHES),
-                              ("hash", HASH_PRELOAD, HASH_BATCHES)):
-        t_mode = time.perf_counter()
-        lp0 = _kernels.launches["lane_pairs"]
-        rl0 = _kernels.launches["ring_hits_lanes"]
-        c = Cluster(n_resolvers=SHARDED_LANES, resolver_sharding=mode)
-        assert len(c.resolvers) == 1 and c.resolvers[0].n_lanes == SHARDED_LANES
-        t0 = time.perf_counter()
-        for reqs in workloads.preload_requests(
-                rows, c.knobs.key_limbs, batch=c.knobs.batch_txn_capacity,
-                seed=SEED):
-            assert all(isinstance(v, int)
-                       for v in c.commit_proxy.commit_batch(reqs))
-        preload_s = time.perf_counter() - t0
-        gc.collect()
-        r = dict(preload_rows=rows, preload_s=preload_s)
-        log(f"[sharded {mode}] Cluster(n_resolvers={SHARDED_LANES}, "
-            f"resolver_sharding={mode!r}): preloaded {rows} rows in "
-            f"{preload_s:.3f} s ({rows / preload_s:.0f} rows/s)")
-        r["range_heavy"] = proxy_stream(
-            c, streams["range_heavy"], depth, depth, value,
-            f"sharded {mode} range_heavy")
-        r.update(lanes_report(c))
-        limbs = c.knobs.key_limbs
-        batches = streams["range_heavy"][2 * depth:2 * depth + SPLIT_BATCHES]
-        router = c.resolvers[0]._router
-        r["stage_split"] = split = commit_stage_split(
-            c, [lambda t=t, cv=cv: workloads.commit_requests(
-                t, cv, c.sequencer.committed_version, limbs, value)
-                for t, cv, _ in batches],
-            {"route": (router, "split")} if router is not None else None)
-        log(f"[sharded {mode}] {SPLIT_BATCHES} commit_batch calls, host ms "
-            "per batch: " + ", ".join(
-                f"{k} {v:.3f}" for k, v in split["host_ms"].items())
-            + f" of {split['wall_ms']:.3f} wall; device busy "
-            f"{split['device_busy_ms']:.3f} ms per batch "
-            f"({split['device_busy_share']:.1%})")
-        assert c.storage.version == c.sequencer.committed_version
-        assert c.database()[workloads.user_key(rows - 1)] is not None
-        routed = (f"router lane entries {r['lane_entries']}, chunk factors "
-                  f"{r['split_chunks']}; " if r["lane_entries"] else "")
-        log(f"[sharded {mode}] {routed}lanes' state {r['state_bytes']} "
-            f"bytes on {r['state_device']}")
-        c.close()
-        del c
-        gc.collect()
-        r["lane_pairs_launches"] = lp = _kernels.launches["lane_pairs"] - lp0
-        r["ring_hits_lanes_launches"] = rl = (
-            _kernels.launches["ring_hits_lanes"] - rl0)
-        assert (lp > 0) == (mode == "range"), (mode, lp)
-        assert (rl > 0) == (mode == "range"), (mode, rl)
-        r["seconds"] = time.perf_counter() - t_mode
-        log(f"[sharded {mode}] lane_pairs launches {lp}, ring_hits_lanes "
-            f"launches {rl}; {r['seconds']:.3f} s")
-        report[mode] = r
-    return report
+    rows, depth = SHARDED_PRELOAD, CLUSTER_BATCHES
+    t_mode = time.perf_counter()
+    c = Cluster(n_resolvers=SHARDED_LANES)
+    assert len(c.resolvers) == 1 and c.resolvers[0].n_lanes == SHARDED_LANES
+    t0 = time.perf_counter()
+    for reqs in workloads.preload_requests(
+            rows, c.knobs.key_limbs, batch=c.knobs.batch_txn_capacity,
+            seed=SEED):
+        assert all(isinstance(v, int)
+                   for v in c.commit_proxy.commit_batch(reqs))
+    preload_s = time.perf_counter() - t0
+    gc.collect()
+    r = dict(preload_rows=rows, preload_s=preload_s)
+    log(f"[sharded range] Cluster(n_resolvers={SHARDED_LANES}): preloaded "
+        f"{rows} rows in {preload_s:.3f} s ({rows / preload_s:.0f} rows/s)")
+    r["range_heavy"] = proxy_stream(
+        c, streams["range_heavy"], depth, depth, value,
+        "sharded range range_heavy")
+    r.update(lanes_report(c))
+    limbs = c.knobs.key_limbs
+    batches = streams["range_heavy"][2 * depth:2 * depth + SPLIT_BATCHES]
+    r["stage_split"] = split = commit_stage_split(
+        c, [lambda t=t, cv=cv: workloads.commit_requests(
+            t, cv, c.sequencer.committed_version, limbs, value)
+            for t, cv, _ in batches],
+        {"route": (c.resolvers[0]._router, "split")})
+    log(f"[sharded range] {SPLIT_BATCHES} commit_batch calls, host ms "
+        "per batch: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split["host_ms"].items())
+        + f" of {split['wall_ms']:.3f} wall; device busy "
+        f"{split['device_busy_ms']:.3f} ms per batch "
+        f"({split['device_busy_share']:.1%})")
+    assert c.storage.version == c.sequencer.committed_version
+    assert c.database()[workloads.user_key(rows - 1)] is not None
+    log(f"[sharded range] router lane entries {r['lane_entries']}, chunk "
+        f"factors {r['split_chunks']}; lanes' state {r['state_bytes']} "
+        f"bytes on {r['state_device']}")
+    c.close()
+    del c
+    gc.collect()
+    r["lane_pairs_launches"] = lp = _kernels.launches["lane_pairs"]
+    r["ring_hits_lanes_launches"] = rl = _kernels.launches["ring_hits_lanes"]
+    assert lp > 0 and rl > 0, (lp, rl)
+    r["seconds"] = time.perf_counter() - t_mode
+    log(f"[sharded range] lane_pairs launches {lp}, ring_hits_lanes "
+        f"launches {rl}; {r['seconds']:.3f} s")
+    return {"range": r}
 
 
 def phase_sharded_replay(streams):
-    """Phase 10c: a card and a CPU 3-lane cluster in each mode, the same
-    small preload, the first range-heavy and mixed batches through
+    """Phase 10b: a card and a CPU 3-lane cluster, the same small
+    preload, the first range-heavy and mixed batches through
     commit_batch and the next two through one commit_batches: outcomes,
     rows and the 12 state fields must be equal."""
     from foundationdb_tpu_torch import workloads
     from foundationdb_tpu_torch.convert import state_to_numpy
     from foundationdb_tpu_torch.server.cluster import Cluster
 
-    for mode in ("range", "hash"):
-        def drive(device):
-            c = Cluster(device=device, n_resolvers=SHARDED_LANES,
-                        resolver_sharding=mode)
-            limbs = c.knobs.key_limbs
-            out = []
-            for reqs in workloads.preload_requests(
-                    CLUSTER_REPLAY_PRELOAD, limbs,
-                    batch=c.knobs.batch_txn_capacity, seed=SEED):
-                out.append(_outcomes(c.commit_proxy.commit_batch(reqs)))
+    def drive(device):
+        c = Cluster(device=device, n_resolvers=SHARDED_LANES)
+        limbs = c.knobs.key_limbs
+        out = []
+        for reqs in workloads.preload_requests(
+                CLUSTER_REPLAY_PRELOAD, limbs,
+                batch=c.knobs.batch_txn_capacity, seed=SEED):
+            out.append(_outcomes(c.commit_proxy.commit_batch(reqs)))
 
-            def requests(b):
-                return workloads.commit_requests(
-                    b[0], b[1], c.sequencer.committed_version, limbs, b"r")
+        def requests(b):
+            return workloads.commit_requests(
+                b[0], b[1], c.sequencer.committed_version, limbs, b"r")
 
-            rh, mx = streams["range_heavy"], streams["mixed"]
-            for b in (rh[0], mx[0]):
-                out.append(_outcomes(c.commit_proxy.commit_batch(requests(b))))
-            out += [_outcomes(r) for r in c.commit_proxy.commit_batches(
-                [requests(rh[1]), requests(mx[1])])]
-            res = (out, c.database().get_range(b"", b"\xff"),
-                   state_to_numpy(c.resolvers[0].state))
-            c.close()
-            return res
+        rh, mx = streams["range_heavy"], streams["mixed"]
+        for b in (rh[0], mx[0]):
+            out.append(_outcomes(c.commit_proxy.commit_batch(requests(b))))
+        out += [_outcomes(r) for r in c.commit_proxy.commit_batches(
+            [requests(rh[1]), requests(mx[1])])]
+        res = (out, c.database().get_range(b"", b"\xff"),
+               state_to_numpy(c.resolvers[0].state))
+        c.close()
+        return res
 
-        gpu, cpu = drive(None), drive("cpu")
-        assert gpu[0] == cpu[0], f"{mode}: outcomes differ between card and CPU"
-        assert gpu[1] == cpu[1], f"{mode}: rows differ between card and CPU"
-        for f, a, b in zip(type(gpu[2])._fields, gpu[2], cpu[2]):
-            assert np.array_equal(a, b), f"{mode}: state field {f} differs"
-        log(f"[sharded replay {mode}] preload {CLUSTER_REPLAY_PRELOAD} rows + "
-            f"2 range-heavy and 2 mixed batches on {SHARDED_LANES} lanes: "
-            f"card == CPU ({len(gpu[1])} rows, outcomes and 12 state fields)")
-
-
-def phase_partitioned(streams):
-    """Phase 10d: Resolver(ring_partition_bits=2) on the card over the
-    range-heavy and mixed streams (12 resolve, one resolve_many of 12),
-    then a CPU replay of their first batches."""
-    from foundationdb_tpu_torch.core.options import Knobs
-
-    knobs = Knobs(ring_partition_bits=PARTITION_BITS)
-    part = {name: streams[name][:RESOLVE_BATCHES + BACKLOG]
-            for name in ("range_heavy", "mixed")}
-    report, _ = phase_main(part, knobs, "partitioned", reset=False)
-    phase_replay(part, knobs, "partitioned replay")
-    return report
+    gpu, cpu = drive(None), drive("cpu")
+    assert gpu[0] == cpu[0], "sharded outcomes differ between card and CPU"
+    assert gpu[1] == cpu[1], "sharded rows differ between card and CPU"
+    for f, a, b in zip(type(gpu[2])._fields, gpu[2], cpu[2]):
+        assert np.array_equal(a, b), f"sharded state field {f} differs"
+    log(f"[sharded replay range] preload {CLUSTER_REPLAY_PRELOAD} rows + "
+        f"2 range-heavy and 2 mixed batches on {SHARDED_LANES} lanes: "
+        f"card == CPU ({len(gpu[1])} rows, outcomes and 12 state fields)")
 
 
 PIPE_PRELOAD = 1_000_000  # BASELINE config 2's key count, 1 KB rows
@@ -2186,7 +2146,7 @@ NATIVE_PRELOAD = 16_384  # phase 13's native-against-Python check: the
 # Python host sets' checks grow with the history (3.3 s a batch at a
 # 100,000-row preload); the native sets alone then run on
 # NATIVE_FULL_PRELOAD rows
-# config 5's 1M rows cut tenfold, as phases 10b and 14-16 hold: the 1M
+# config 5's 1M rows cut tenfold, as phases 10a and 14-16 hold: the 1M
 # preload through the host fleet took 77-99 s, which phase 16's time
 # is paid from (PERF.md section 6, PR 12)
 NATIVE_FULL_PRELOAD = 100_000
@@ -5963,10 +5923,9 @@ def main():
     phase_cluster_replay(streams)
     sharded_report = phase_sharded(streams)
     phase_sharded_replay(streams)
-    sharded_report["partitioned"] = phase_partitioned(streams)
     sharded_launches = dict(_kernels.launches)
     log(f"[sharded] launches over phase 10 {sharded_launches}")
-    sharded_report["graphs"] = graph_report("sharded and partitioned")
+    sharded_report["graphs"] = graph_report("sharded")
     del streams
     gc.collect()
     pipeline_report_, pipeline_launches = phase_pipeline()
@@ -6027,7 +5986,7 @@ def main():
                    "ring_route": ring_launches[name],
                    "cluster": cluster_launches[name],
                    "pipeline": pipeline_launches[name],
-                   "sharded_and_partitioned": sharded_launches[name],
+                   "sharded": sharded_launches[name],
                    "recovery": recovery_launches[name],
                    "native": native_report["launches"][name],
                    "replication": repl_launches[name],
@@ -6073,20 +6032,18 @@ def main():
                               "simulation", "metacluster", "rpc", "tools",
                               "faultcov"),
              "ring_hits": ("ring_route",),
-             "accept_sweep": ("main", "ring_route",
-                              "sharded_and_partitioned", "regions"),
-             "lane_pairs": ("sharded_and_partitioned", "regions"),
-             "ring_hits_lanes": ("sharded_and_partitioned", "regions")}
+             "accept_sweep": ("main", "ring_route", "sharded", "regions"),
+             "lane_pairs": ("sharded", "regions"),
+             "ring_hits_lanes": ("sharded", "regions")}
     for k in kernels:
         for path in paths[k["name"]]:
             assert k["launches_by_path"][path] > 0, \
                 f"{k['name']} never launched on the {path} path"
         assert k["mismatches"] == 0 and k["max_abs_err"] == 0, k["name"]
-        # the reference runs no Pallas kernel on the mesh or the
-        # partitioned ring: neither ported kernel may launch there
+        # the reference runs no Pallas kernel on the mesh: neither ported
+        # kernel may launch there
         if k["name"] not in ("accept_sweep", "lane_pairs", "ring_hits_lanes"):
-            assert k["launches_by_path"]["sharded_and_partitioned"] == 0, \
-                k["name"]
+            assert k["launches_by_path"]["sharded"] == 0, k["name"]
         # the host resolvers run no kernel, as in the reference
         assert k["launches_by_path"]["native"] == 0, k["name"]
     print(json.dumps({"kernels": kernels}))

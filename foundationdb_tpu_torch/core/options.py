@@ -24,10 +24,8 @@ class Knobs:
     hash_table_bits: int = 22  # point-write version table: 2^bits entries
     range_ring_capacity: int = 4096  # recent range-write ring (exact lane)
     coarse_buckets_bits: int = 14  # 2^bits contiguous key buckets
-    # 2^bits bucket-partitioned sub-rings on one device (0 = flat ring):
-    # a query checks only its two end partitions' sub-rings exactly.
-    # Both kernels take the flat ring only: under "auto" a partitioned
-    # ring turns them off, and an explicit "on" is refused
+    # accepts 0 only, the flat ring (the JAX package's bucket-partitioned
+    # ring has no port); kept for the configs and clients that name it
     ring_partition_bits: int = 0
     key_limbs: int = 8  # 4*L bytes of exact key prefix on device
     # the ring lanes through the hand-written CUDA kernel (ops/ring.py):
@@ -40,11 +38,9 @@ class Knobs:
     # not take (txns > 1024). Subsumes ring_kernel when engaged.
     accept_kernel: str = "auto"
     # lane ownership of a multi-lane resolver (Cluster(n_resolvers=k),
-    # resolver/meshresolver.py): "range" routes each packed entry on the
-    # host to the lane(s) owning its key range (packing.ShardRouter) and
-    # runs the compacted per-lane step; "hash" copies the batch to every
-    # lane and carves ownership inside the step (hash-sharded point
-    # table, bucket-sharded ring)
+    # resolver/meshresolver.py): accepts "range" only, which routes each
+    # packed entry on the host to the lane(s) owning its key range
+    # (packing.ShardRouter) and runs the compacted per-lane step
     resolver_sharding: str = "range"
 
     # --- commit path ---

@@ -9,31 +9,27 @@ accepted.
 
 The port of ``foundationdb_tpu/ops/conflict.py``, held to it bit for
 bit: the same four history structures, the same lanes, the same
-statuses and the same state after every batch. Three layouts:
+statuses and the same state after every batch. Two steps:
 
-- one device, flat ring (:func:`resolve_batch`), with the CUDA kernels;
-- one device, a bucket-partitioned ring (``ring_partition_bits > 0``):
-  2^PB sub-rings keyed by the begin key's top bucket bits; a query
-  checks its two end partitions' sub-rings exactly and a per-partition
-  version max for the partitions between them;
-- n resolver lanes (:func:`resolve_batch` with ``n_lanes``, and
-  :func:`resolve_batch_presharded`). The JAX package runs one lane per
-  device of a ``shard_map`` mesh; here the lanes are a leading tensor
-  axis of one device's state. The state keeps the mesh's global shapes
-  (``ht`` of ``n << HB``, ring fields of ``n * KR``, ``ring_head`` of
-  ``[n]``, the coarse summaries once), viewed ``[n, ...]`` inside the
-  step. A ``psum`` of bools becomes an ``any`` over the lane axis and a
-  ``pmax`` of the replicated summaries a single scatter-max into the one
-  copy, which every lane shares.
-
-The ring and accept kernels run only on the single-device flat ring, as
-in the JAX package (which turns its Pallas kernels off for lanes and for
-the partitioned ring). The presharded step has kernels of its own on a
-card: it marks its lanes' conflicting pairs (ops/lanes.py,
-csrc/lanes.cu), where the JAX package scatter-adds pair counts, and
-walks each lane's ring with the ring kernel's walk (ops/ring.py
-``ring_hits_lanes``), where the JAX package folds the [n, Q, KR]
-broadcast.
+- :func:`resolve_batch`, one resolver on one device's flat ring. Its
+  ring check and greedy acceptance run the CUDA kernels as the params
+  ask: the whole accept step by ``fused_accept`` (ops/accept.py), or the
+  ring check by ``ring_slot_hits`` with or without the ring kernel
+  (ops/ring.py) and acceptance by ``sweep_accept``.
+- :func:`resolve_batch_presharded`, n resolver lanes sharded by key
+  range, the host router (resolver/packing.ShardRouter) having sent each
+  entry only to the lanes owning its keys. The JAX package runs one
+  lane per device of a ``shard_map`` mesh; here the lanes are a leading
+  tensor axis of one device's state. The state keeps the mesh's global
+  shapes (``ht`` of ``n << HB``, ring fields of ``n * KR``,
+  ``ring_head`` of ``[n]``, the coarse summaries once), viewed
+  ``[n, ...]`` inside the step. A ``psum`` becomes a sum over the lane
+  axis and a ``pmax`` of the replicated summaries a single scatter-max
+  into the one copy, which every lane shares. On a card it marks its
+  lanes' conflicting pairs (ops/lanes.py, csrc/lanes.cu), where the JAX
+  package scatter-adds pair counts, and walks each lane's ring with the
+  ring kernel's walk (ops/ring.py ``ring_hits_lanes``), where the JAX
+  package folds the [n, Q, KR] broadcast.
 
 1. **Point-version hash table** ``ht[2^HB]``: max commit-version offset
    per key-hash bucket (scatter-max on write, gather on read).
@@ -58,12 +54,12 @@ ring head are int32; masks bool. The state is updated in place, where
 the JAX package donated its buffers to the next step. Versions are
 offsets from a host-held base (core/versions.py); 0 means "no write".
 
-The single-device step (:func:`resolve_batch` without lanes) also
-counts, into a tensor of its own (:func:`init_counters`, the port's,
-apart from the state the JAX package shares), the transactions inside
-the window that a coarse summary alone refused (``COARSE_ABORTS``): a
-coarse summary flagged one of their reads, and neither the hash table
-nor the ring flagged any. It adds to it in place, so the replays of a
+The single-resolver step (:func:`resolve_batch`) also counts, into a
+tensor of its own (:func:`init_counters`, the port's, apart from the
+state the JAX package shares), the transactions inside the window that
+a coarse summary alone refused (``COARSE_ABORTS``): a coarse summary
+flagged one of their reads, and neither the hash table nor the ring
+flagged any. It adds to it in place, so the replays of a
 captured step count, and no host reads it per batch.
 """
 
@@ -108,9 +104,6 @@ class ResolverParams(NamedTuple):
     # point-specialized fast variant (Resolver), which shares history
     # with a full variant whose later range reads must see these writes
     record_point_coarse: bool = False
-    # bucket-partitioned ring, single device only: 2^bits sub-rings keyed
-    # by the begin key's top bucket bits (0 = the flat ring)
-    ring_partition_bits: int = 0
     # the whole accept step via csrc/accept.cu (subsumes the ring lanes)
     use_accept_kernel: bool = False
 
@@ -126,7 +119,7 @@ class ResolverState(NamedTuple):
     ring_lo: torch.Tensor  # int32[KR] begin bucket
     ring_hi: torch.Tensor  # int32[KR] end bucket
     ring_mask: torch.Tensor  # bool[KR]
-    ring_head: torch.Tensor  # int32[]; [2^PB] partitioned; [n] lanes
+    ring_head: torch.Tensor  # int32[]; [n] lanes
     range_L: torch.Tensor  # int64[C] evicted range-writes: v at begin bucket
     range_R: torch.Tensor  # int64[C] evicted range-writes: v at end bucket
     point_coarse: torch.Tensor  # int64[C] point writes per bucket
@@ -205,19 +198,13 @@ class ShardBatch(NamedTuple):
 
 def init_state(params: ResolverParams, device="cpu",
                n_lanes=None) -> ResolverState:
-    """A fresh history. ``n_lanes`` gives the lane-sharded layout at the
-    mesh's global shapes (hash table ``n << HB``, ring ``n * KR``, one
-    ring head a lane); else one device's, with one ring head a
-    sub-ring when the ring is partitioned."""
+    """A fresh history. ``n_lanes`` gives the presharded lanes' layout at
+    the mesh's global shapes (hash table ``n << HB``, ring ``n * KR``,
+    one ring head a lane); else one resolver's flat ring."""
     n = 1 if n_lanes is None else int(n_lanes)
     kr, c, w = n * params.ring_capacity, 1 << params.bucket_bits, params.key_width
     i64, i32 = torch.int64, torch.int32
-    if n_lanes is not None:
-        head_shape = (n,)
-    elif params.ring_partition_bits:
-        head_shape = (1 << params.ring_partition_bits,)
-    else:
-        head_shape = ()
+    head_shape = () if n_lanes is None else (n,)
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -286,64 +273,6 @@ def _scatter_max_(dst, idx, vals):
                         vals.reshape(-1), "amax", include_self=True)
 
 
-def _lex_lt_by_limb(a, b, W):
-    """lex_lt where ``a(i)`` and ``b(i)`` give limb i of each side: a
-    sub-ring gathered per query is built one limb at a time, never as a
-    [..., KRs, W] tensor."""
-    lt = eq = None
-    for i in range(W):
-        ai, bi = a(i), b(i)
-        if lt is None:
-            lt, eq = ai < bi, ai == bi
-        else:
-            lt = lt | (eq & (ai < bi))
-            eq = eq & (ai == bi)
-    return lt
-
-
-class _SubRings:
-    """The partitioned ring's views: P = 2^PB sub-rings of KRs entries,
-    sub-ring p holding the single-partition writes whose begin bucket has
-    top bits p, and each sub-ring's newest live version."""
-
-    def __init__(self, state, params):
-        pb = params.ring_partition_bits
-        self.P = P = 1 << pb
-        self.KRs = KRs = params.ring_capacity // P
-        self.shift = params.bucket_bits - pb
-        self.W = W = params.key_width
-        self.b = state.ring_b.view(P, KRs, W)
-        self.e = state.ring_e.view(P, KRs, W)
-        self.v = state.ring_v.view(P, KRs)
-        self.m = state.ring_mask.view(P, KRs)
-        # the conservative verdict for a query's middle partitions (its
-        # end partitions get exact checks)
-        self.part_max = torch.where(self.m, self.v, 0).amax(dim=1)
-
-    def part(self, bucket):
-        return (bucket.to(torch.int64) >> self.shift).clamp(0, self.P - 1)
-
-    def hits(self, qb, qe, rv, pq, point):
-        """bool[T, S]: each query slot against the live entries newer
-        than its read version in sub-ring ``pq`` [T, S]; a point query
-        (key qb) lies in an entry, a range [qb, qe) meets one."""
-        def sub(x):
-            return lambda i: x[:, :, i][pq]  # [T, S, KRs]
-
-        def qry(x):
-            return lambda i: x[..., i][..., None]  # [T, S, 1]
-
-        W = self.W
-        if point:
-            ov = (~_lex_lt_by_limb(qry(qb), sub(self.b), W)
-                  & _lex_lt_by_limb(qry(qb), sub(self.e), W))
-        else:
-            ov = (_lex_lt_by_limb(qry(qb), sub(self.e), W)
-                  & _lex_lt_by_limb(sub(self.b), qry(qe), W))
-        newer = (self.v[pq] > rv[:, None, None]) & self.m[pq]
-        return (ov & newer).any(dim=2)
-
-
 def _check_lanes(state, n, hash_bits):
     if state.ht.shape[0] != n << hash_bits or state.ring_head.shape != (n,):
         raise ValueError(
@@ -354,40 +283,21 @@ def _check_lanes(state, n, hash_bits):
 
 
 def resolve_batch(state: ResolverState, batch: ResolveBatch,
-                  params: ResolverParams, n_lanes=None, counters=None):
-    """One resolver step: (statuses int32[T], accepted bool[T], state).
+                  params: ResolverParams, counters=None):
+    """One resolver step on one device's flat ring: (statuses int32[T],
+    accepted bool[T], state).
 
     Updates ``state`` in place and returns it; adds this batch's coarse
-    aborts to ``counters`` (:func:`init_counters`) where given, on one
-    device only. With ``n_lanes`` it is the
-    "hash" lane-sharded step over a state of the mesh's global shapes
-    (``init_state(..., n_lanes=n)``): every lane sees the whole batch;
-    lane j owns the point hashes h with h mod n == j (its slice of the
-    table) and the range writes whose begin bucket lies in its j-th
-    contiguous share of the buckets (its ring). Whichever lane records a
-    write is a lane whose check sees it, so OR-ing the lanes' verdicts
-    loses nothing. Ref parity: Resolver::resolveBatch +
-    ConflictSet::detectConflicts.
+    aborts to ``counters`` (:func:`init_counters`) where given. Ref
+    parity: Resolver::resolveBatch + ConflictSet::detectConflicts.
     """
     T = params.txns
     rv = batch.rv  # [T]
     dev = rv.device
-    HB = params.hash_bits
-    hb_mask = (1 << HB) - 1
+    hb_mask = (1 << params.hash_bits) - 1
     C = state.point_coarse.shape[0]
-    lanes = n_lanes is not None
-    n = int(n_lanes) if lanes else 1
-    if lanes:
-        _check_lanes(state, n, HB)
-    # the partitioned ring is a single-device layout (the lanes shard the
-    # ring by bucket instead); the kernels take the flat ring only
-    PB = 0 if lanes else params.ring_partition_bits
-    sub = _SubRings(state, params) if PB and params.range_writes else None
-    accept_on = params.use_accept_kernel and not lanes and not PB
-    ring_on = (params.use_ring_kernel and not accept_on and not lanes
-               and not PB)
-    # every lane's ring at once: a lane checks the whole batch against
-    # its own ring, and the any over lanes is the check against all
+    accept_on = params.use_accept_kernel
+    ring_on = params.use_ring_kernel and not accept_on
     ring = (state.ring_b, state.ring_e, state.ring_v, state.ring_mask)
 
     # ───────────────────────── history conflicts ─────────────────────────
@@ -407,19 +317,10 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
 
     if params.point_reads:
         h = batch.pr_hash & hb_mask
-        if lanes:
-            # only the owning lane (h mod n) checks a point read, in its
-            # own slice of the table
-            h = h + ((batch.pr_hash % n) << HB)
         ht_v = state.ht[h]  # [T, PR]
         hit = (ht_v > rv[:, None]) & batch.pr_mask
         if params.range_writes:
-            if sub is not None:
-                # a point's partition is its bucket's: any single-partition
-                # entry holding it lives there (spanning ones are coarse)
-                hit |= sub.hits(batch.pr_key, batch.pr_key, rv,
-                                sub.part(batch.pr_bucket), True) & batch.pr_mask
-            elif not accept_on:  # else the accept kernel checks the ring
+            if not accept_on:  # else the accept kernel checks the ring
                 hit |= ring_slot_hits(batch.pr_key, batch.pr_key, rv,
                                       batch.pr_mask, ring, True, ring_on)
             bk = batch.pr_bucket.to(torch.int64)
@@ -432,18 +333,7 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
         hit = torch.zeros((T, RR), dtype=torch.bool, device=dev)
         c_hit = torch.zeros_like(hit)
         if params.range_writes:
-            if sub is not None:
-                # exact checks against the two end partitions' sub-rings,
-                # the per-partition version max for the ones between
-                p_lo, p_hi = sub.part(batch.rr_lo), sub.part(batch.rr_hi)
-                ring_hit = (sub.hits(batch.rr_b, batch.rr_e, rv, p_lo, False)
-                            | sub.hits(batch.rr_b, batch.rr_e, rv, p_hi, False))
-                pidx = torch.arange(sub.P, device=dev)
-                mid = (pidx > p_lo[..., None]) & (pidx < p_hi[..., None])
-                mid_max = torch.where(mid, sub.part_max, 0).amax(dim=2)
-                ring_hit |= mid_max > rv[:, None]
-                hit |= ring_hit & batch.rr_mask
-            elif not accept_on:
+            if not accept_on:
                 hit |= ring_slot_hits(batch.rr_b, batch.rr_e, rv,
                                       batch.rr_mask, ring, False, ring_on)
             coarse_rng = torch.minimum(pref_L[batch.rr_hi.to(torch.int64)],
@@ -468,10 +358,6 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
         qhit = torch.empty((T * (PRb + RRb),), dtype=torch.uint8, device=dev)
         accepted = fused_accept(state, batch, params, a0, qhit)
     else:
-        # With lanes, each lane builds the rows of O from the writes it
-        # owns and the kill vector sums over lanes; the owners partition
-        # the writes (each hash has one residue, each bucket one share),
-        # so that sum reads the OR of the lanes' rows: the whole matrix.
         accepted = sweep_accept(a0, conflict_matrix(batch, params))
 
     status = torch.where(too_old, TOO_OLD,
@@ -491,10 +377,7 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
         ok = batch.pw_mask & accepted[:, None]  # [T, PW]
         val = torch.where(ok, cv, 0)
         h = batch.pw_hash & hb_mask
-        if lanes:  # only the owning lane records a point write
-            h = h + ((batch.pw_hash % n) << HB)
         _scatter_max_(state.ht, h, val)
-        # replicated: every lane applies the same update to one copy
         if params.range_reads or params.record_point_coarse:
             _scatter_max_(state.point_coarse, batch.pw_bucket.clamp(0, C - 1), val)
 
@@ -505,33 +388,9 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
         hi = batch.rw_hi.reshape(-1)
         kr = params.ring_capacity
         head = state.ring_head.to(torch.int64)
-        if lanes:
-            # lane j records the entries whose begin bucket is in its share
-            lane = (lo.to(torch.int64) * n) // C
-            rank, counts = _group_ranks(ok, lane, n)
-            pos = torch.where(ok, lane * kr + (head[lane.clamp(0, n - 1)]
-                                               + rank) % kr, n * kr)
-            new_head = (head + counts) % kr
-        elif sub is not None:
-            # single-partition entries go to their sub-ring; spanning ones
-            # (and a flood overflowing a sub-ring in one batch) fold into
-            # the coarse summaries, the same direction as eviction
-            KRs = sub.KRs
-            part_lo, part_hi = sub.part(lo), sub.part(hi)
-            single = part_lo == part_hi
-            rank, counts = _group_ranks(ok & single, part_lo, sub.P)
-            ok_ring = ok & single & (rank < KRs)
-            ok_coarse = ok & (~single | (single & (rank >= KRs)))
-            pos = torch.where(ok_ring,
-                              part_lo * KRs + (head[part_lo] + rank) % KRs, kr)
-            new_head = (head + counts.clamp(max=KRs)) % KRs
-            c_val = torch.where(ok_coarse, cv, 0)
-            _scatter_max_(state.range_L, lo.clamp(0, C - 1), c_val)
-            _scatter_max_(state.range_R, hi.clamp(0, C - 1), c_val)
-        else:
-            slot_order = torch.cumsum(ok, dim=0) - 1  # position among accepted
-            pos = torch.where(ok, (head + slot_order) % kr, kr)
-            new_head = (head + ok.sum()) % kr
+        slot_order = torch.cumsum(ok, dim=0) - 1  # position among accepted
+        pos = torch.where(ok, (head + slot_order) % kr, kr)
+        new_head = (head + ok.sum()) % kr
         _write_ring(state, pos, new_head, batch.rw_b.reshape(-1, W),
                     batch.rw_e.reshape(-1, W), lo, hi, cv, C)
 
@@ -540,16 +399,6 @@ def resolve_batch(state: ResolverState, batch: ResolveBatch,
     state.window_start.copy_(torch.maximum(state.window_start,
                                            batch.new_window_start))
     return status, accepted, state
-
-
-def _group_ranks(ok, group, n_groups):
-    """Each accepted entry's rank among its group's accepted entries, in
-    entry order, and each group's count. ok: bool[N]; group: int64[N]."""
-    onehot = ok[:, None] & (
-        group[:, None] == torch.arange(n_groups, device=ok.device)[None, :])
-    ranks = torch.cumsum(onehot.to(torch.int64), dim=0) - 1
-    rank = torch.where(onehot, ranks, 0).sum(dim=1)
-    return rank, onehot.sum(dim=0)
 
 
 def _write_ring(state, pos, new_head, b, e, lo, hi, cv, C):
@@ -595,22 +444,6 @@ def validate_params(params: ResolverParams):
             f"use_accept_kernel requires txns <= {MAX_TXNS}: the sweep "
             f"stages its rows in one block (got {params.txns})"
         )
-    pb = params.ring_partition_bits
-    if pb:
-        if pb > params.bucket_bits:
-            raise ValueError(
-                "ring_partition_bits exceeds bucket_bits: partitions are "
-                "keyed by the top coarse-bucket bits")
-        if params.ring_capacity % (1 << pb):
-            raise ValueError(
-                "ring_capacity must divide evenly into 2^ring_partition_bits "
-                "sub-rings")
-        if params.use_ring_kernel or params.use_accept_kernel:
-            raise ValueError(
-                "ring_partition_bits and the ring/accept kernels are "
-                "mutually exclusive: the kernels take the flat ring layout "
-                "(ignoring an explicit kernel request would misattribute "
-                "measurements)")
 
 
 def resolve_batch_presharded(state: ResolverState, sb: ShardBatch,
@@ -745,10 +578,6 @@ def validate_presharded_params(params: ResolverParams):
             "their rings with ring_hits_lanes on a card without a flag "
             "(ignoring an explicit kernel request would misattribute "
             "measurements)")
-    if params.ring_partition_bits:
-        raise ValueError(
-            "ring_partition_bits is a single-device layout; the presharded "
-            "step shards the ring across lanes instead")
     if params.bucket_bits > 30 or params.hash_bits > 28:
         raise ValueError("bucket_bits/hash_bits unreasonably large")
 

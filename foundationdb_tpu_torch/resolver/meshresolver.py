@@ -9,57 +9,44 @@ the fleet as one ``shard_map`` program over a device mesh; the port runs
 it as one step over a leading lane axis of one device's state
 (parallel/mesh.py), with the mesh's global state shapes.
 
-Two lane-ownership schemes, chosen by ``knobs.resolver_sharding``:
-
-- ``"range"`` (the default): the host routes each packed entry to the
-  lane(s) owning its key range (resolver/packing.ShardRouter, numpy, before
-  the copy) and the device runs the compacted per-lane slots
-  (ops/conflict.resolve_batch_presharded): per-lane work shrinks ~1/n.
-  A batch whose skew overflows a lane's slots splits into k txn slices
-  that run as a scan.
-- ``"hash"``: the batch goes to every lane and each lane carves its
-  ownership in the step (hash-sharded point table, bucket-sharded ring).
-  No routing pass, no per-lane work reduction; a point-specialized twin
-  serves point-only batches, as in the single resolver.
+The lanes own key ranges: the host routes each packed entry to the
+lane(s) owning its keys (resolver/packing.ShardRouter, numpy, before
+the copy) and the device runs the compacted per-lane slots
+(ops/conflict.resolve_batch_presharded): per-lane work shrinks ~1/n. A
+batch whose skew overflows a lane's slots splits into k txn slices that
+run as a scan. ``knobs.resolver_sharding`` accepts "range" only.
 
 ``Cluster(n_resolvers=k)`` builds one MeshResolver of k lanes; the
 commit proxy sees one resolver and drives its single-resolver path,
-``resolve_many``'s backlog scan included. Neither ported TPU kernel
-runs here: the JAX package turns its Pallas kernels off on the mesh, so
-the lanes run the torch step, with greedy acceptance by ``sweep_accept``
-on a card; on a card the "range" lanes also mark their pairs with
-``lane_pairs`` and walk their rings with ``ring_hits_lanes``
-(ops/lanes.py, ops/ring.py). The steps are compiled as the single
-resolver's are (keys (variant, B), and (variant, k, B) for the "range"
-router's k txn slices).
+``resolve_many``'s backlog scan included. Neither ``fused_accept`` nor
+the one-ring walk runs here: the JAX package turns its Pallas kernels
+off on the mesh. On a card the lanes mark their pairs with
+``lane_pairs``, walk their rings with ``ring_hits_lanes`` (ops/lanes.py,
+ops/ring.py) and accept with ``sweep_accept``. The steps are compiled
+as the single resolver's are, keyed (variant, k, B) by the router's k
+txn slices; there is no point-specialized variant.
 
-The device profile records the "range" router's entries per lane at
-each split (``lane_entries``, ``lane_skew_pct``), and the split's wall
+The device profile records the router's entries per lane at each
+split (``lane_entries``, ``lane_skew_pct``), and the split's wall
 as the dispatch's ``split`` stage (``router.split`` in a trace); the
 reassembly of the lanes' statuses is the ``unpack`` stage. The lanes
-are one tensor axis of one step, with no per-lane wall to read, so no
-mode records lane walls (``lane_walls_ms`` stays empty).
+are one tensor axis of one step, with no per-lane wall to read, so
+nothing records lane walls (``lane_walls_ms`` stays empty).
 """
 
 import numpy as np
 
 from foundationdb_tpu_torch.core.options import DEFAULT_KNOBS
 from foundationdb_tpu_torch.ops import conflict as ck
-from foundationdb_tpu_torch.parallel.mesh import (
-    PreshardedResolverKernel,
-    ShardedResolverKernel,
-)
+from foundationdb_tpu_torch.parallel.mesh import PreshardedResolverKernel
 from foundationdb_tpu_torch.resolver.packing import BatchPacker, ShardRouter
 from foundationdb_tpu_torch.resolver.resolver import (
     PAD_BUCKETS,
     Resolver,
     _device_of,
-    fast_params_of,
     params_from_knobs,
 )
 from foundationdb_tpu_torch.utils import deviceprofile
-
-SHARDING_MODES = ("range", "hash")
 
 
 class MeshResolver(Resolver):
@@ -70,6 +57,8 @@ class MeshResolver(Resolver):
     and the uint32 rebase — and swaps the device steps for the lanes'.
     """
 
+    sharding = "range"  # status()["sharding"]: the lanes own key ranges
+
     def __init__(self, knobs=DEFAULT_KNOBS, base_version=0, n_lanes=None,
                  device=None, history=None):
         self._init_role(knobs, "cuda", base_version, history)
@@ -78,15 +67,14 @@ class MeshResolver(Resolver):
         # one lane per requested resolver: the lanes are a tensor axis of
         # one card, so nothing clamps them to a device count
         self.n_lanes = max(1, int(n_lanes or 1))
-        # both kernel flags stay off and the ring flat: the lanes shard
-        # the ring already, and those kernels take one flat ring (the
-        # "range" step walks its lanes' rings with its own kernel)
-        self.params = params_from_knobs(knobs)._replace(ring_partition_bits=0)
+        # both kernel flags stay off: those kernels take one flat ring,
+        # and the lanes walk their rings with a kernel of their own
+        self.params = params_from_knobs(knobs)
         self.packer = BatchPacker(self.params)
-        self.sharding = knobs.resolver_sharding
-        if self.sharding not in SHARDING_MODES:
-            raise ValueError(f"resolver_sharding must be one of "
-                             f"{SHARDING_MODES}, got {self.sharding!r}")
+        # no point-specialized twin: on a card a lane's ring walk culls
+        # every ring tile with no live entry newer than its queries before
+        # it reads a key, so a point-only batch's ring checks cost a mask
+        # read a tile
         self._fast_packer = None
         self._fast_params = None
         self._range_history = False
@@ -94,27 +82,10 @@ class MeshResolver(Resolver):
         # many batches split into k txn slices, by k
         self.lane_entries = np.zeros(self.n_lanes, np.int64)
         self.split_chunks = {}
-        if self.sharding == "range":
-            self._kernel = PreshardedResolverKernel(
-                self.params, self.n_lanes, self.device,
-                make_state=history is None)
-            self._router = ShardRouter(self.params, self.n_lanes)
-            # no point-specialized twin: on a card a lane's ring walk
-            # culls every ring tile with no live entry newer than its
-            # queries before it reads a key, so a point-only batch's ring
-            # checks cost a mask read a tile
-        else:
-            self._kernel = ShardedResolverKernel(
-                self.params, self.n_lanes, self.device,
-                make_state=history is None)
-            self._router = None
-            self._fast_params = fast_params_of(self.params)
-            if self._fast_params is not None:
-                # the same state, range lanes statically off
-                self._fast_kernel = ShardedResolverKernel(
-                    self._fast_params, self.n_lanes, self.device,
-                    make_state=False)
-                self._fast_packer = BatchPacker(self._fast_params)
+        self._kernel = PreshardedResolverKernel(
+            self.params, self.n_lanes, self.device,
+            make_state=history is None)
+        self._router = ShardRouter(self.params, self.n_lanes)
         if history is None:
             self._state = self._kernel.state
             self._kernel.state = None  # the history lives here
@@ -134,19 +105,14 @@ class MeshResolver(Resolver):
         return sb, k
 
     def _make_step(self, use_fast, B):
-        kernel = self._fast_kernel if use_fast else self._kernel
-        return kernel.static_step(self._state, B)
+        return self._kernel.static_step(self._state, B)
 
     def _run_step(self, use_fast, batch, st):
-        if self._router is None:
-            return super()._run_step(use_fast, batch, st)
         read = self._run_scan(use_fast, ck.ResolveBatch(
             *(np.asarray(a)[None] for a in batch)), st)
         return lambda stages: read(stages)[0]
 
     def _prepare(self, use_fast, B, batch):
-        if self._router is None:
-            return super()._prepare(use_fast, B, batch)
         stacked = batch if B > 1 else ck.ResolveBatch(
             *(np.asarray(a)[None] for a in batch))
         sb, k, _ = self._router.split(stacked)
@@ -155,8 +121,6 @@ class MeshResolver(Resolver):
         return key
 
     def _run_scan(self, use_fast, stacked, st):
-        if self._router is None:
-            return super()._run_scan(use_fast, stacked, st)
         # the router stacks B·k txn slices: k > 1 when a skew overflows a
         # lane's slots, each k its own compiled scan
         sb, k = self._split_counted(stacked, st)

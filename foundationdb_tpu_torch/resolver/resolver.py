@@ -139,7 +139,14 @@ class ResolveHandle:
 
 
 def params_from_knobs(knobs, use_ring_kernel=False, use_accept_kernel=False):
-    """The one knobs → ResolverParams mapping."""
+    """The one knobs → ResolverParams mapping. Each resolver step has one
+    layout: a flat ring, and lanes sharded by key range."""
+    if knobs.ring_partition_bits != 0:
+        raise ValueError("ring_partition_bits accepts 0 only, got "
+                         f"{knobs.ring_partition_bits!r}")
+    if knobs.resolver_sharding != "range":
+        raise ValueError("resolver_sharding accepts 'range' only, got "
+                         f"{knobs.resolver_sharding!r}")
     return ck.ResolverParams(
         txns=knobs.batch_txn_capacity,
         point_reads=knobs.point_reads_per_txn,
@@ -150,7 +157,6 @@ def params_from_knobs(knobs, use_ring_kernel=False, use_accept_kernel=False):
         hash_bits=knobs.hash_table_bits,
         ring_capacity=knobs.range_ring_capacity,
         bucket_bits=knobs.coarse_buckets_bits,
-        ring_partition_bits=knobs.ring_partition_bits,
         use_ring_kernel=use_ring_kernel,
         use_accept_kernel=use_accept_kernel,
     )
@@ -210,8 +216,7 @@ def _nbytes(batch):
     return sum(int(a.nbytes) for a in batch)
 
 
-def _kernel_knob(knobs, name, on_cuda):
-    value = getattr(knobs, name)
+def _kernel_knob(name, value, on_cuda):
     if value not in KERNEL_KNOB_VALUES:
         raise ValueError(f"{name} must be one of {KERNEL_KNOB_VALUES}, "
                          f"got {value!r}")
@@ -229,16 +234,14 @@ class Resolver:
         if self.backend == "cuda":
             self.device = _device_of(device)
             on_cuda = self.device.type == "cuda"
-            use_ring = _kernel_knob(knobs, "ring_kernel", on_cuda)
-            use_accept = _kernel_knob(knobs, "accept_kernel", on_cuda)
-            # "auto" stays off for shapes the kernels do not take; an
+            use_ring = _kernel_knob("ring_kernel", knobs.ring_kernel, on_cuda)
+            use_accept = _kernel_knob("accept_kernel", knobs.accept_kernel,
+                                      on_cuda)
+            # "auto" stays off for shapes the kernel does not take; an
             # explicit "on" leaves them to validate_params
-            if knobs.accept_kernel == "auto" and (
-                    knobs.ring_partition_bits
-                    or knobs.batch_txn_capacity > MAX_TXNS):
+            if (knobs.accept_kernel == "auto"
+                    and knobs.batch_txn_capacity > MAX_TXNS):
                 use_accept = False
-            if knobs.ring_kernel == "auto" and knobs.ring_partition_bits:
-                use_ring = False
             if use_accept:
                 use_ring = False  # the accept kernel checks the ring itself
             self.params = params_from_knobs(

@@ -18,8 +18,8 @@ batcher). ``n_commit_proxies > 1`` builds a fleet ordered by version
 gates (server/fleet.py).
 
 ``n_resolvers=k > 1`` with the ``"cuda"`` backend builds ONE
-MeshResolver of k lanes on the device (resolver/meshresolver.py,
-``resolver_sharding`` "range" or "hash"); with the ``"cpu"`` or
+MeshResolver of k lanes on the device, sharded by key range
+(resolver/meshresolver.py); with the ``"cpu"`` or
 ``"native"`` backend it builds k host sets, each owning a byte range of
 keys, behind the proxy's clipped fan-out on a thread pool.
 
@@ -1287,8 +1287,8 @@ class Cluster:
         return {"id": i, "alive": r.alive,
                 "backend": self.knobs.resolver_backend,
                 "lanes": getattr(r, "n_lanes", 1),
-                # "range" / "hash": a lane fleet; "local": one lane or
-                # host resolvers
+                # "range": a lane fleet; "local": one lane or host
+                # resolvers
                 "sharding": getattr(r, "sharding", "local"),
                 "metrics": r.metrics.snapshot(),
                 "device": str(r.device) if r.device is not None else None,

@@ -5,6 +5,7 @@ flat 8 shards, ``fleet_mesh`` in one process) and run as a two-process
 gloo group on loopback."""
 
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -15,14 +16,22 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
-from foundationdb_tpu_torch.convert import batch_from_numpy
+from foundationdb_tpu.ops import conflict as jck
+from foundationdb_tpu.parallel import mesh as jpm
+from foundationdb_tpu.resolver.packing import BatchPacker as JPacker
+from foundationdb_tpu.resolver.packing import ShardRouter as JRouter
+from foundationdb_tpu.resolver.skiplist import TxnRequest as JTxn
+from foundationdb_tpu_torch.convert import (
+    shard_batch_from_numpy,
+    state_to_numpy,
+)
+from foundationdb_tpu_torch.core.status import CONFLICT
 from foundationdb_tpu_torch.ops import conflict as tck
 from foundationdb_tpu_torch.parallel import distributed as dist
 from foundationdb_tpu_torch.parallel import mesh as tpm
-from foundationdb_tpu_torch.resolver.packing import BatchPacker
+from foundationdb_tpu_torch.resolver.packing import BatchPacker, ShardRouter
 from foundationdb_tpu_torch.resolver.skiplist import TxnRequest as TTxn
 from tests.test_resolver import SMALL
-from tests.test_sharded_resolver import make_point_batches, run_sharded
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TPARAMS = tck.ResolverParams(**{
@@ -56,31 +65,86 @@ def test_initialize_with_an_address_needs_world_and_rank(no_group_env):
     assert not torch.distributed.is_initialized()
 
 
+def _spread_batches(seed, n_batches=12):
+    """Batches of point and range txns over keys whose first byte varies,
+    so every lane of the uniform first-limb split gets traffic."""
+    rng = random.Random(seed)
+
+    def key():
+        return bytes([rng.randrange(256)]) + b"k%d" % rng.randrange(4)
+
+    def span():
+        a, b = sorted((key(), key()))
+        return a, b + b"\xff"
+
+    out, v = [], 100
+    for _ in range(n_batches):
+        txns = [JTxn(read_version=v - rng.randrange(0, 25),
+                     point_reads=[key() for _ in range(rng.randrange(3))],
+                     point_writes=[key() for _ in range(rng.randrange(3))],
+                     range_reads=[span() for _ in range(rng.randrange(2))],
+                     range_writes=[span() for _ in range(rng.randrange(2))])
+                for _ in range(rng.randrange(1, SMALL.txns + 1))]
+        v += rng.randrange(1, 8)
+        out.append((txns, v, max(0, v - 60)))
+    return out
+
+
+def _stacked(packer, txns, cv, ws):
+    b = packer.pack(txns, 0, cv, ws)
+    return jck.ResolveBatch(*(np.asarray(f)[None] for f in b))
+
+
 def _port_run(batches, mesh):
-    """The reference's run_sharded on the port: the "hash" lanes of
-    ``mesh.size`` lanes, flattened row-major from the layout."""
-    kern = tpm.ShardedResolverKernel(TPARAMS, mesh.size)
+    """The presharded lanes on the port: ``mesh.size`` lanes behind the
+    key-range router, flattened row-major from the layout."""
+    kern = tpm.PreshardedResolverKernel(TPARAMS, mesh.size)
+    router = ShardRouter(TPARAMS, mesh.size)
     packer = BatchPacker(TPARAMS, use_native=False)
     state, out = kern.state, []
     for txns, cv, ws in batches:
-        b = packer.pack([TTxn(**vars(t)) for t in txns], 0, cv, ws)
-        status, _, state = kern._step(state, batch_from_numpy(b))
-        out.append(status[: len(txns)].tolist())
-    return out, state.ring_head.view(*mesh.shape).reshape(-1)
+        sb, k, _ = router.split(_stacked(
+            packer, [TTxn(**vars(t)) for t in txns], cv, ws))
+        state, status = kern._scan_step(state, shard_batch_from_numpy(sb))
+        out.append(router.reassemble(status, k)[0][: len(txns)].tolist())
+    return out, state
+
+
+def _reference_run(batches, mesh):
+    """The JAX package's presharded fleet on ``mesh``."""
+    kern = jpm.PreshardedResolverKernel(SMALL, mesh=mesh, donate=False)
+    router = JRouter(SMALL, mesh.devices.size)
+    packer = JPacker(SMALL, use_native=False)
+    out = []
+    for txns, cv, ws in batches:
+        sb, k, _ = router.split(_stacked(packer, txns, cv, ws))
+        status = np.asarray(kern.resolve_many(sb))
+        out.append(router.reassemble(status, k)[0][: len(txns)].tolist())
+    return out, kern.state
 
 
 def test_hybrid_lane_layout_matches_flat_and_the_reference():
     """The 2×4 hybrid layout is a reshape of the 8-lane axis: the same
-    verdicts and state as the flat 8 lanes, and the reference's verdicts
-    on its hybrid ('hosts', 'rs') mesh of 8 virtual CPU devices."""
+    verdicts and state as the flat 8 lanes, and the reference's
+    presharded verdicts and state on its hybrid ('hosts', 'rs') mesh of
+    8 virtual CPU devices."""
     assert len(jax.devices()) >= 8
-    batches = make_point_batches(seed=5)
+    batches = _spread_batches(seed=5)
     hybrid, hstate = _port_run(batches, HYBRID)
     flat, fstate = _port_run(batches, FLAT)
-    want = run_sharded(batches, Mesh(
+    want, wstate = _reference_run(batches, Mesh(
         np.array(jax.devices()[:8]).reshape(2, 4), ("hosts", "rs")))
     assert hybrid == flat == want
-    assert torch.equal(hstate, fstate)
+    assert any(s == CONFLICT for statuses in want for s in statuses)
+    for name, h, f, w in zip(tck.ResolverState._fields, hstate, fstate,
+                             wstate):
+        assert torch.equal(h, f), name
+    for name, h, w in zip(tck.ResolverState._fields, state_to_numpy(hstate),
+                          wstate):
+        w = np.asarray(w)
+        assert h.dtype == w.dtype and h.shape == w.shape, name
+        np.testing.assert_array_equal(h, w, err_msg=name)
+    assert int((hstate.ring_head != 0).sum()) > 1  # several lanes' rings
 
 
 _CHILD = r"""

@@ -348,13 +348,13 @@ def test_cluster_on_card_equals_cpu(cuda, name, pack_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["range", "hash"])
+@pytest.mark.parametrize("mode", ["range"])
 def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
     """Cluster(n_resolvers=3): the lane fleet on the card and on the CPU
     give the same outcomes, rows and state, and launch neither the accept
     kernel nor the one-ring walk (ring_hits), only the sweep that accepts
-    over their conflict matrix and, on the "range" lanes, lane_pairs,
-    which builds it, and ring_hits_lanes, their rings' walk."""
+    over their conflict matrix, lane_pairs, which builds it, and
+    ring_hits_lanes, their rings' walk."""
     from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 
     gpu = Cluster(n_resolvers=3, resolver_sharding=mode, **CLUSTER_KNOBS)
@@ -368,8 +368,8 @@ def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
     assert _kernels.launches["fused_accept"] == 0
     assert _kernels.launches["ring_hits"] == 0
     assert _kernels.launches["accept_sweep"] > 0
-    assert (_kernels.launches["lane_pairs"] > 0) == (mode == "range")
-    assert (_kernels.launches["ring_hits_lanes"] > 0) == (mode == "range")
+    assert _kernels.launches["lane_pairs"] > 0
+    assert _kernels.launches["ring_hits_lanes"] > 0
     assert got[0] == want[0] and 1020 in got[0]
     assert got[1] == want[1]
     for f, a, b in zip(ck.ResolverState._fields, got[2], want[2]):
@@ -377,21 +377,15 @@ def test_sharded_cluster_on_card_equals_cpu(cuda, mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("knobs", [dict(resolver_sharding="range"),
-                                   dict(resolver_sharding="hash"),
-                                   dict(ring_partition_bits=2)])
+@pytest.mark.parametrize("knobs", [dict(resolver_sharding="range")])
 def test_lane_and_partitioned_resolvers_on_card_equal_cpu(cuda, knobs):
-    """MeshResolver (3 lanes, both modes) and the partitioned ring on the
-    card against the CPU, resolve and resolve_many."""
+    """MeshResolver (3 lanes sharded by key range) on the card against
+    the CPU, resolve and resolve_many."""
     from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
 
     stream = STREAMS["mixed"](8, txns=64, seed=1, nkeys=5000, lag=300)
-    if "resolver_sharding" in knobs:
-        gpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3)
-        cpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3, device="cpu")
-    else:
-        gpu = Resolver(Knobs(**SMALL, **knobs))
-        cpu = Resolver(Knobs(**SMALL, **knobs), device="cpu")
+    gpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3)
+    cpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3, device="cpu")
     got = [gpu.resolve(*b) for b in stream[:4]] + gpu.resolve_many(stream[4:])
     want = [cpu.resolve(*b) for b in stream[:4]] + cpu.resolve_many(stream[4:])
     assert got == want
@@ -1196,22 +1190,14 @@ def test_replayed_resolve_many_dispatch_makes_no_host_sync(cuda, knobs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("knobs", [dict(), dict(resolver_sharding="hash")])
+@pytest.mark.parametrize("knobs", [dict()])
 def test_precompiled_resolver_only_replays(cuda, knobs):
     """After precompile() every dispatch is a replay of a graph captured
     before the first batch: no capture, no host sync in the first lazy
-    dispatch, the statuses and state of the CPU. (The "range" lanes
-    precompile k = 1; a batch the router splits into k > 1 slices
-    compiles at its first use.)"""
-    from foundationdb_tpu_torch.resolver.meshresolver import MeshResolver
-
+    dispatch, the statuses and state of the CPU."""
     stream = STREAMS["mixed"](7, txns=64, seed=4, nkeys=5000, lag=300)
-    if knobs:
-        gpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3)
-        cpu = MeshResolver(Knobs(**SMALL, **knobs), n_lanes=3, device="cpu")
-    else:
-        gpu, cpu = Resolver(Knobs(**SMALL)), Resolver(Knobs(**SMALL),
-                                                      device="cpu")
+    gpu = Resolver(Knobs(**SMALL, **knobs))
+    cpu = Resolver(Knobs(**SMALL, **knobs), device="cpu")
     keys = gpu.precompile()
     torch.cuda.synchronize()
     ck.reset_graph_counts()

@@ -18,9 +18,11 @@ tolerance 0, every value is an integer or a bit.
   is ``ring_hits_plain`` over the lane axis) against ``ring_hits_plain``
   lane by lane, n = 1 and 3, on empty, partly full, wrapped and
   differing rings;
-- the "hash" step at n = 2 and 3;
-- ``MeshResolver`` in both modes, ``resolve`` and ``resolve_many``;
-- ``Cluster(n_resolvers=3)`` in both modes against the JAX cluster on
+- ``MeshResolver`` (lanes sharded by key range, the one layout),
+  ``resolve`` and ``resolve_many``, and the one value each of
+  ``ring_partition_bits`` and ``resolver_sharding`` that ``Resolver``,
+  ``MeshResolver`` and a 3-resolver ``Cluster`` accept;
+- ``Cluster(n_resolvers=3)`` against the JAX cluster on
   ``tests/test_meshresolver.py``'s scripted workload, the host fan-out of
   three exact sets, and a dead fleet's recruit fencing.
 """
@@ -42,7 +44,6 @@ from foundationdb_tpu.resolver.packing import ShardRouter as JRouter
 from foundationdb_tpu.resolver.skiplist import TxnRequest as JTxn
 from foundationdb_tpu.server.cluster import Cluster as JCluster
 from foundationdb_tpu_torch.convert import (
-    batch_from_numpy,
     shard_batch_from_numpy,
     shard_batch_to_numpy,
     state_from_numpy,
@@ -50,6 +51,7 @@ from foundationdb_tpu_torch.convert import (
     tensor_from_numpy,
 )
 from foundationdb_tpu_torch.core.errors import FDBError as TError
+from foundationdb_tpu_torch.core.status import COMMITTED
 from foundationdb_tpu_torch.core.options import Knobs as TKnobs
 from foundationdb_tpu_torch.ops import conflict as tck
 from foundationdb_tpu_torch.ops.accept import READ_SENTINEL, WRITE_SENTINEL
@@ -437,19 +439,6 @@ def test_chip_smoke_ring_lane_cases():
     assert int(cases[2]["fn"]()[1:].sum()) > 0  # range hits past lane 0
 
 
-@pytest.mark.parametrize("n", [2, 3])
-def test_hash_step_matches_jax(n):
-    """The "hash" step: the batch to every lane, ownership carved in the
-    step; full and point-specialized params over one history."""
-    jkern = jpm.ShardedResolverKernel(
-        JPARAMS, mesh=jpm.default_mesh(n), donate=False)
-    tkern = tpm.ShardedResolverKernel(TPARAMS, n)
-    packed = _packed(5, FIXTURES + ("mixed", "range"))
-    ts = _seeded(jkern, lambda s, b: tkern._step(s, batch_from_numpy(b)),
-                 packed, packed, warm=2)
-    assert ts.ring_head.shape == (n,) and ts.ht.shape == (n << 14,)
-
-
 def test_mesh_state_and_shard_batch_round_trip():
     """A JAX mesh state and a ShardBatch go to the port's tensors and
     back unchanged."""
@@ -465,7 +454,7 @@ def test_mesh_state_and_shard_batch_round_trip():
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a, b, err_msg=name)
     init = tck.init_state(TPARAMS, n_lanes=3)
-    _same_state(jpm.ShardedResolverKernel(
+    _same_state(jpm.PreshardedResolverKernel(
         JPARAMS, mesh=jpm.default_mesh(3), donate=False).state, init)
 
 
@@ -495,15 +484,14 @@ def _stream(seed, n_batches):
 
 
 @pytest.mark.parametrize("n", [2, 3])
-@pytest.mark.parametrize("mode", ["range", "hash"])
+@pytest.mark.parametrize("mode", ["range"])
 def test_mesh_resolver_matches_jax(mode, n):
     """MeshResolver through resolve() and a resolve_many backlog, the
     port seeded from the JAX fleet's state after three batches: the same
     statuses and the same 12 state fields."""
     jr = JMesh(JKnobs(resolver_backend="tpu", resolver_sharding=mode,
                       **KNOBS), n_lanes=n)
-    tr = MeshResolver(TKnobs(resolver_sharding=mode, **KNOBS), n_lanes=n,
-                      device="cpu")
+    tr = MeshResolver(TKnobs(**KNOBS), n_lanes=n, device="cpu")
     stream = _stream(n, 14)
     for txns, cv, ws in stream[:3]:  # the JAX fleet alone first
         jr.resolve([JTxn(**t) for t in txns], cv, ws)
@@ -519,8 +507,39 @@ def test_mesh_resolver_matches_jax(mode, n):
                          for b, cv, ws in back])
     _same_state(jr.state, tr.state)
     assert tr.status()["lanes"] == n and tr.status()["sharding"] == mode
-    if mode == "range":
-        assert (tr.lane_entries > 0).all() and tr.split_chunks == {1: 7}
+    assert (tr.lane_entries > 0).all() and tr.split_chunks == {1: 7}
+
+
+@pytest.mark.parametrize("knob,one,other", [
+    ("ring_partition_bits", 0, 2), ("resolver_sharding", "range", "hash")])
+@pytest.mark.parametrize("kind", ["Resolver", "MeshResolver", "Cluster"])
+def test_layout_knobs_accept_one_value(kind, knob, one, other):
+    """Each resolver step has one layout: Resolver, MeshResolver and a
+    3-resolver Cluster on the device backend build with the flat ring and
+    lanes sharded by key range, and refuse a bucket-partitioned ring and
+    "hash" lanes with a ValueError that names the one value."""
+    from foundationdb_tpu_torch.resolver.resolver import Resolver
+
+    def build(value):
+        knobs = {knob: value, **KNOBS}
+        if kind == "Resolver":
+            return Resolver(TKnobs(**knobs), device="cpu")
+        if kind == "MeshResolver":
+            return MeshResolver(TKnobs(**knobs), n_lanes=3, device="cpu")
+        return TCluster(device="cpu", n_resolvers=3, **knobs)
+
+    r = build(one)
+    if kind == "Cluster":
+        try:
+            r.database()[b"k"] = b"v"
+            assert r.status()["cluster"]["resolvers"] == 3
+        finally:
+            r.close()
+    else:
+        assert r.resolve([TTxn(read_version=1, point_writes=[b"k"])], 10,
+                         0) == [COMMITTED]
+    with pytest.raises(ValueError, match=f"{knob} accepts {one!r} only"):
+        build(other)
 
 
 def _scripted(c, error):
@@ -571,7 +590,7 @@ def _scripted(c, error):
     return outcomes, rows
 
 
-@pytest.mark.parametrize("mode", ["range", "hash"])
+@pytest.mark.parametrize("mode", ["range"])
 def test_sharded_cluster_matches_jax(mode):
     """Cluster(n_resolvers=3): one fleet of 3 lanes behind the proxy's
     single-resolver path, against the JAX cluster's mesh fleet."""
